@@ -1,0 +1,104 @@
+"""Kernel registry of the PyTorch port: names, tolerances, routing, counts.
+
+The twin of ``repro.backend.registry`` with one rule in place of its
+negotiated plans: **the tensor's device selects the path.**  A CUDA tensor
+goes to the hand-written Hopper kernel (the wrapper launches it or raises),
+a CPU tensor to the kernel's plain PyTorch version, which repeats the
+kernel's arithmetic.  There is no override and no fallback: a CUDA tensor
+never reaches a plain version.  ``meta`` tensors take the plain path too;
+they carry shapes only and compute nothing (``serve.schedule`` derives its
+buffer specs that way).
+
+Each entry keeps the reference's kernel name, its epsilon against the
+exact reference, and its ``dispatch_min_size``: below that block dim
+``vsa.bind`` / ``vsa.unbind`` take the exact gather reference instead of
+the kernel, on every device, as the reference routes on every platform.
+
+``LAUNCHES`` counts kernel launches per kernel: each wrapper adds one where
+it launches its kernel and nowhere else, so a run can show that its path
+went through the kernels.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelSpec:
+    """One hand-written kernel of the port.
+
+    ``source`` is the CUDA file under ``repro_torch/csrc/``; ``replaces``
+    names the Pallas kernel it ports (file:line of the function that
+    reaches ``pl.pallas_call``).
+    """
+
+    name: str
+    describe: str
+    source: str
+    replaces: str
+    epsilon: float
+    dispatch_min_size: int = 0
+
+
+KERNELS: dict[str, KernelSpec] = {
+    "circ_conv": KernelSpec(
+        name="circ_conv",
+        describe="blockwise circular conv/corr of N×B pairs (VSA bind/unbind)",
+        source="circ_conv.cu",
+        replaces="src/repro/kernels/circ_conv/kernel.py:89",
+        epsilon=1e-3, dispatch_min_size=128),
+    "qmatmul": KernelSpec(
+        name="qmatmul",
+        describe="int8 x int8 / packed-int4 matmul with per-row and "
+                 "per-column scales (quantised attribute heads)",
+        source="qmatmul.cu",
+        replaces="src/repro/kernels/qmatmul/kernel.py:55",
+        epsilon=1e-3),
+}
+
+LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
+
+
+def count_launch(kernel: str) -> None:
+    """Called by a kernel wrapper right after its launch succeeded."""
+    LAUNCHES[kernel] += 1
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """True when ``t`` must go to the hand kernel (a CUDA tensor), False
+    for the plain version (CPU, or ``meta`` for shape evaluation)."""
+    kind = t.device.type
+    if kind == "cuda":
+        return True
+    if kind in ("cpu", "meta"):
+        return False
+    raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def dispatch_path(kernel: str, size: int) -> str:
+    """``"kernel"`` when a call at block dim ``size`` goes to ``kernel``'s
+    wrapper, ``"gather"`` when it stays on the exact reference (below the
+    kernel's ``dispatch_min_size``).  Independent of the device."""
+    return "gather" if size < KERNELS[kernel].dispatch_min_size else "kernel"
+
+
+def resolve_device(device=None) -> torch.device:
+    """An entry point's ``device=``: None means ``"cuda"``.  Asking for
+    CUDA on a host without it raises; nothing carries on on the CPU unless
+    the caller asked for the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run the plain "
+            "PyTorch versions on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev

@@ -1,0 +1,40 @@
+"""Carry the reference's constants into the port.
+
+``from_reference`` turns a constants tree of the JAX package, given as
+numpy arrays (``{"params": ..., "books": {"books", "shifts", "roles"}}``
+for NVSA), into the port's tensors on a device.  It is exact: it converts
+dtype and layout only.  The one layout change is the conv weight: every
+4-D leaf is an HWIO kernel and becomes OIHW.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.backend import registry
+from repro_torch.common.tree import tree_map
+
+
+def _leaf(x, device: torch.device):
+    if x is None:
+        return None
+    t = torch.from_numpy(np.array(x, copy=True))
+    if t.dim() == 4:  # HWIO -> OIHW
+        t = t.permute(3, 2, 0, 1).contiguous()
+    return t.to(device)
+
+
+def from_reference(tree, device=None):
+    """Reference constants (numpy leaves, lists and dicts) -> port tensors
+    on ``device`` (None = ``"cuda"``)."""
+    dev = registry.resolve_device(device)
+    return tree_map(lambda x: _leaf(x, dev), tree)
+
+
+def to_device(tree, device=None):
+    """Move a tree of port tensors to ``device`` (None = ``"cuda"``);
+    non-tensor leaves pass through."""
+    dev = registry.resolve_device(device)
+    return tree_map(lambda x: x.to(dev) if isinstance(x, torch.Tensor) else x,
+                    tree)

@@ -1,0 +1,108 @@
+"""Vector-Symbolic Architecture algebra on block codes ``(..., blocks, d)``.
+
+The port of ``repro.vsa.ops``.  Binding is the blockwise circular
+convolution ``C[n] = Σ_k A[k]·B[(n−k) mod d]``, unbinding the circular
+correlation.  ``bind`` / ``unbind`` route through the kernel registry: at
+block dims at or above circ_conv's ``dispatch_min_size`` (128) they call
+the circ_conv kernel wrapper (the Hopper kernel on a CUDA tensor, its plain
+version on a CPU tensor); below it they take the exact gather reference on
+every device, as the reference does on every platform.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.backend import registry
+from repro_torch.kernels.circ_conv import ops as k_ops
+from repro_torch.kernels.circ_conv.ref import circ_elem_ref
+
+
+# ---------------------------------------------------------------------------
+# Reference (oracle) implementations
+# ---------------------------------------------------------------------------
+
+
+def circ_conv_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Blockwise circular convolution by gather. a, b: (..., blocks, d),
+    leading dims broadcast."""
+    return circ_elem_ref(a, b, "conv")
+
+
+def circ_corr_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Blockwise circular correlation: Σ_k a[k]·b[(n+k) % d]."""
+    return circ_elem_ref(a, b, "corr")
+
+
+def circ_conv_fft(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """FFT oracle (float path, for cross-validation in tests)."""
+    fa = torch.fft.rfft(a.float(), dim=-1)
+    fb = torch.fft.rfft(b.float(), dim=-1)
+    return torch.fft.irfft(fa * fb, n=a.shape[-1], dim=-1).to(a.dtype)
+
+
+def circ_corr_fft(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    fa = torch.fft.rfft(a.float(), dim=-1)
+    fb = torch.fft.rfft(b.float(), dim=-1)
+    return torch.fft.irfft(torch.conj(fa) * fb, n=a.shape[-1], dim=-1).to(a.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Public API (kernel-dispatching)
+# ---------------------------------------------------------------------------
+
+
+def dispatch_path(d: int) -> str:
+    """``"kernel"`` when ``bind`` / ``unbind`` at block dim ``d`` go to the
+    circ_conv kernel wrapper, ``"gather"`` for the exact reference."""
+    return registry.dispatch_path("circ_conv", d)
+
+
+def bind(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Binding = blockwise circular convolution. Shapes broadcast on lead dims."""
+    if dispatch_path(a.shape[-1]) == "kernel":
+        return k_ops.circ_bind(a, b, mode="conv")
+    return circ_conv_ref(a, b)
+
+
+def unbind(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Inverse binding = blockwise circular correlation of ``a`` against ``b``."""
+    if dispatch_path(a.shape[-1]) == "kernel":
+        return k_ops.circ_bind(a, b, mode="corr")
+    return circ_corr_ref(a, b)
+
+
+def normalize(v: torch.Tensor) -> torch.Tensor:
+    return v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True), min=1e-9)
+
+
+def bundle(*vs: torch.Tensor, normalize: bool = True) -> torch.Tensor:
+    """Superposition of block codes."""
+    s = sum(vs[1:], start=vs[0])
+    if normalize:
+        s = s / torch.clamp(torch.linalg.vector_norm(s, dim=-1, keepdim=True), min=1e-9)
+    return s
+
+
+def similarity(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Blockwise cosine similarity, averaged over blocks.
+
+    a: (..., blocks, d), b: (..., blocks, d) -> (...)
+    """
+    an = normalize(a.float())
+    bn = normalize(b.float())
+    return (an * bn).sum(dim=-1).mean(dim=-1)
+
+
+def similarity_matrix(q: torch.Tensor, dictionary: torch.Tensor) -> torch.Tensor:
+    """q: (n, blocks, d) vs dictionary: (m, blocks, d) -> (n, m)."""
+    qn = normalize(q.float())
+    dn = normalize(dictionary.float())
+    return torch.einsum("nbd,mbd->nm", qn, dn) / q.shape[-2]
+
+
+def random_codebook(generator: torch.Generator, n: int, blocks: int, d: int,
+                    dtype=torch.float32) -> torch.Tensor:
+    """Random unit-norm block codes (CPU tensor)."""
+    v = torch.randn((n, blocks, d), generator=generator, dtype=torch.float32)
+    return normalize(v).to(dtype)

@@ -1,0 +1,106 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Imports neither JAX nor the reference, so it runs on a GPU host that has
+only PyTorch:  ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
+Without a card every test skips: a CUDA kernel has no CPU mode.
+"""
+
+import pytest
+import torch
+
+from repro_torch.backend import registry
+from repro_torch.kernels.circ_conv import ops as circ_ops
+from repro_torch.kernels.circ_conv import ref as circ_ref
+from repro_torch.kernels.qmatmul import ops as qops
+from repro_torch.kernels.qmatmul import ref as qref
+
+torch.set_num_threads(2)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["conv", "corr"])
+@pytest.mark.parametrize("d", [1, 7, 128, 130, 256, 512])
+def test_circ_elem_kernel(gen, d, mode, dtype):
+    """Within circ_conv's registry epsilon (1e-3) of the plain version in
+    f32; in bf16 both round an f32 sum, so they may sit one bf16 step
+    (2^-8 relative) apart."""
+    x = torch.randn(67, 4, d, device="cuda", generator=gen).to(dtype)
+    y = torch.randn(67, 4, d, device="cuda", generator=gen).to(dtype)
+    before = registry.LAUNCHES["circ_conv"]
+    got = circ_ops.circ_elem(x, y, mode)
+    torch.cuda.synchronize()
+    assert registry.LAUNCHES["circ_conv"] == before + 1
+    want = circ_ref.circ_elem_ref(x, y, mode)
+    assert got.dtype == dtype and got.shape == x.shape
+    rtol = 0 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-3, rtol=rtol)
+
+
+@pytest.mark.parametrize("int4", [False, True])
+@pytest.mark.parametrize("mkn", [(16, 128, 5), (64, 128, 6), (64, 128, 8),
+                                 (67, 130, 7), (300, 257, 40)])
+def test_qmatmul_kernel(gen, mkn, int4):
+    """Exact int32 accumulators (unit scales) and f32 outputs within 1e-6
+    relative of the plain version."""
+    m, k, n = mkn
+    lim = 8 if int4 else 128
+    xq = torch.randint(-128, 128, (m, k), device="cuda", generator=gen,
+                       dtype=torch.int8)
+    wq = torch.randint(-lim, lim, (k, n), device="cuda", generator=gen,
+                       dtype=torch.int8)
+    if int4:
+        wq = qops.pack_int4(wq)
+    n_out = wq.shape[1] * (2 if int4 else 1)
+    ones_m = torch.ones(m, device="cuda")
+    ones_n = torch.ones(n_out, device="cuda")
+    acc = qops.qmatmul(xq, wq, ones_m, ones_n, int4)
+    torch.testing.assert_close(acc, qref.qmatmul_acc_ref(xq, wq, int4).float(),
+                               atol=0, rtol=0)
+    xs = torch.rand(m, device="cuda", generator=gen)
+    ws = torch.rand(n_out, device="cuda", generator=gen)
+    torch.testing.assert_close(qops.qmatmul(xq, wq, xs, ws, int4),
+                               qref.qmatmul_ref(xq, wq, xs, ws, int4),
+                               atol=0, rtol=1e-6)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(gen):
+    x = torch.randn(4, 2, 64, device="cuda", generator=gen)
+    with pytest.raises(ValueError, match="contiguous"):
+        circ_ops.circ_elem(x.transpose(0, 1), x.transpose(0, 1))
+    with pytest.raises(TypeError):
+        circ_ops.circ_elem(x.half(), x.half())
+    with pytest.raises(ValueError, match="shared memory"):
+        big = torch.zeros(1, 1, 40000, device="cuda")
+        circ_ops.circ_elem(big, big)
+    xq = torch.zeros(4, 8, dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="do not agree"):
+        qops.qmatmul(xq, torch.zeros(8, 3, dtype=torch.int8, device="cuda"),
+                     torch.ones(4, device="cuda"), torch.ones(4, device="cuda"))
+
+
+def test_quantisers_round_like_the_cpu(gen):
+    """Fake-quantised int4 weights quantised again per column land on exact
+    .5 ties; the card must round them as the CPU does."""
+    from repro_torch.models import nvsa
+
+    w = nvsa.fake_quant(torch.randn(128, 7, device="cuda", generator=gen), "int4")
+    for bits in (4, 8):
+        q_gpu, s_gpu = qops.quantize_cols(w, bits)
+        q_cpu, s_cpu = qops.quantize_cols(w.cpu(), bits)
+        assert torch.equal(q_gpu.cpu(), q_cpu) and torch.equal(s_gpu.cpu(), s_cpu)
+    x = torch.randn(64, 128, device="cuda", generator=gen)
+    for prec in ("int8", "int4"):
+        assert torch.equal(nvsa.fake_quant(x, prec).cpu(),
+                           nvsa.fake_quant(x.cpu(), prec))
+    q_gpu, s_gpu = qops.quantize_rows(x)
+    q_cpu, s_cpu = qops.quantize_rows(x.cpu())
+    assert torch.equal(q_gpu.cpu(), q_cpu) and torch.equal(s_gpu.cpu(), s_cpu)
