@@ -11,10 +11,11 @@ and prints no result line):
    ``src/repro_torch/csrc/`` (one ``nvcc`` per source, all started
    together).
 2. Kernels: each kernel against its plain PyTorch version on the card, at
-   the serving path's shapes and around them, with times (CUDA events,
+   the serving paths' shapes and around them, with times (CUDA events,
    warm, median of 21 samples): ``circ_conv`` conv/corr within 1e-3
    absolute (the registry epsilon), ``qmatmul`` int8/int4 with exact int32
-   accumulators and f32 outputs within 1e-6 relative.
+   accumulators and f32 outputs within 1e-6 relative, ``unbind_classify``
+   within 1e-3 absolute and bit-identical from launch to launch.
 3. Serve: NVSA at ``make_config(d=256)`` (4 blocks x 256, cnn_width 16,
    cnn_feat 128, 32x32 images, the model's own width) through
    ``reason_engine``, with constants from ``nn/init.py`` on a seeded
@@ -25,9 +26,23 @@ and prints no result line):
    every problem whose int8 activation codes agree on both devices), and
    the kernel launch counts: 42 circ_conv launches per symbolic-stage
    call, 6 qmatmul launches per int8/int4 frontend call and none at fp32.
-4. The ``kernels`` JSON line: every ported kernel with its launches in
-   phase 3 and its times at the path's largest shape.
-5. The last line: ``{"ok": true, "device": {...}}``.
+4. MIMONet at ``make_config()`` (K = 2 channels, 4 blocks x 128,
+   cnn_width 8, two trunk layers of width 1024, 5 classes): a schedule
+   compiled with ``fused=True`` under sequential, overlap and fused (2
+   circ_conv launches per staged group, 1 circ_conv and 1 unbind_classify
+   per fused group, fused logits within 1e-3 of staged); the schedule
+   ``reason_engine`` negotiates (epsilon, so ``fused`` falls back stage by
+   stage, counted, with no unbind_classify launch); GPU within 1e-3 of the
+   CPU; unbinding a superposition with the port's keys on the card
+   recovers each channel (similarity > 0.6).
+5. LVRF and PrAE at ``make_config()`` (d = 128), ``oracle`` and ``cnn`` at
+   fp32: 27 circ_conv launches per LVRF group and none for PrAE, the same
+   answers under the three schedules, GPU within 1e-3 of the CPU, PrAE
+   oracle accuracy >= 0.90.
+6. The ``kernels`` JSON line: every ported kernel with its launches on the
+   served paths (each path's counts set to 0 just before it runs and read
+   just after) and its times at its path's shape.
+7. The last line: ``{"ok": true, "device": {...}}``.
 
 It needs the repository's ``src/`` beside it and a CUDA device; without
 either it exits with code 2.
@@ -142,6 +157,15 @@ def qmm_bound(m: int, k: int, n: int, int4: bool) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations"
 
 
+def uc_bound(n: int, k: int, b: int, d: int, c: int) -> tuple[float, str]:
+    """Least time (ms) for f32 fused_unbind_classify: keys, x, w and b read
+    once and the logits written once, against 2·N·K·B·(d² + d·C) flops
+    (the correlation, then the head) on the f32 CUDA cores."""
+    t_bytes = 4 * (k * b * d + n * b * d + b * d * c + c + n * k * c) / HBM_BYTES_PER_S
+    t_ops = 2 * n * k * b * (d * d + d * c) / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations"
+
+
 def phase_kernels() -> dict:
     """Returns the rows at the serving path's largest shapes, keyed by
     kernel name, for the ``kernels`` line."""
@@ -151,6 +175,8 @@ def phase_kernels() -> dict:
     from repro_torch.kernels.circ_conv import ref as circ_ref
     from repro_torch.kernels.qmatmul import ops as qops
     from repro_torch.kernels.qmatmul import ref as qref
+    from repro_torch.kernels.unbind_classify import ops as uc_ops
+    from repro_torch.kernels.unbind_classify import ref as uc_ref
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     main = {}
@@ -225,6 +251,47 @@ def phase_kernels() -> dict:
             emit(row)
             if (int4, m, k, n) == (False, 64, 128, 8):
                 main["qmatmul"] = row
+    k, blocks, c = 2, 4, 5
+    for d in (128, 256):
+        for n in (1, 8, 13):
+            keys = torch.randn(k, blocks, d, device="cuda", generator=gen) / d ** 0.5
+            x = torch.randn(n, blocks, d, device="cuda", generator=gen)
+            w = torch.randn(blocks, d, c, device="cuda", generator=gen) / (blocks * d) ** 0.5
+            bias = torch.randn(1, c, device="cuda", generator=gen)
+            got = uc_ops.fused_unbind_classify(keys, x, w, bias)
+            again = uc_ops.fused_unbind_classify(keys, x, w, bias)
+            want = uc_ref.fused_unbind_classify_ref(keys, x, w, bias)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            check(err <= 1e-3, f"unbind_classify {(n, k, blocks, d, c)}: max abs "
+                               f"err {err} > 1e-3")
+            check(torch.equal(got, again),
+                  f"unbind_classify {(n, k, blocks, d, c)}: launches differ")
+
+            def fft_chain(keys=keys, x=x, w=w, bias=bias, n=n, d=d):
+                fk = torch.fft.rfft(keys, dim=-1)
+                fx = torch.fft.rfft(x, dim=-1)
+                u = torch.fft.irfft(fk.conj()[None] * fx[:, None], n=d, dim=-1)
+                return torch.addmm(bias, u.reshape(n * k, blocks * d),
+                                   w.reshape(blocks * d, c))
+
+            lib_err = float((fft_chain().reshape(n, k, c) - want).abs().max())
+            check(lib_err <= 1e-3, f"unbind_classify library chain err {lib_err}")
+            bound, by = uc_bound(n, k, blocks, d, c)
+            row = {"kernel": "unbind_classify", "shape": [n, k, blocks, d, c],
+                   "max_abs_err": err,
+                   "kernel_ms": cuda_ms(
+                       lambda: uc_ops.fused_unbind_classify(keys, x, w, bias)),
+                   "kernel_device_ms": graph_ms(
+                       lambda: uc_ops.fused_unbind_classify(keys, x, w, bias)),
+                   "plain_ms": cuda_ms(
+                       lambda: uc_ref.fused_unbind_classify_ref(keys, x, w, bias)),
+                   "library_ms": cuda_ms(fft_chain),
+                   "library": "rfft, rfft, mul (conj), irfft, addmm (5 calls)",
+                   "bound_ms": bound, "bound_by": by}
+            emit(row)
+            if (n, d) == (8, 128):
+                main["unbind_classify"] = row
     return main
 
 
@@ -350,9 +417,194 @@ def phase_serve() -> dict[str, int]:
               f"{variant}/{prec}: GPU vs CPU log-probs differ by "
               f"{float(diff[held].max())} > 1e-3")
     counts = dict(registry.LAUNCHES)
-    for name, n in counts.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    for name in ("circ_conv", "qmatmul"):
+        check(counts[name] > 0, f"kernel {name} was not launched on the NVSA path")
     return counts
+
+
+# -- phases 4 and 5 -------------------------------------------------------------
+
+
+def serve_three(eng, requests, label: str, want) -> dict:
+    """Serve ``requests`` under the sequential, overlap and fused schedules,
+    a warm-up run and a measured run each, checking each run's kernel
+    launches against ``want(schedule) -> {kernel: count}``.  Returns
+    ``{schedule: results of the measured run}``."""
+    import numpy as np
+
+    from repro_torch.backend import registry
+
+    out = {}
+    for schedule in ("sequential", "overlap", "fused"):
+        fallback0 = eng.stats["fused_fallback_groups"]
+        for _ in range(2):  # the first run of a shape is warmup
+            before = dict(registry.LAUNCHES)
+            res = eng.run(requests, schedule=schedule)
+            run = eng.last_run
+            got = {k: registry.LAUNCHES[k] - before[k] for k in before}
+            check(got == want(schedule), f"{label}/{schedule}: launches {got}, "
+                                         f"want {want(schedule)}")
+        check(not run["warmup"], f"{label}/{schedule}: no measured run")
+        logp = np.stack([res[u].answer_logprobs for u in sorted(res)])
+        check(bool(np.isfinite(logp).all()), f"{label}/{schedule}: non-finite output")
+        emit({"phase": "serve", "workload": label, "schedule": schedule,
+              "requests": len(res), "problems_per_s": run["problems_per_s"],
+              "wall_time_s": run["wall_time_s"], "warmup": run["warmup"],
+              "stage_time_s": run["stage_time_s"], "launches": got,
+              "fused_fallback_groups": eng.stats["fused_fallback_groups"] - fallback0})
+        out[schedule] = res
+    return out
+
+
+def stacked(res, field: str = "answer_logprobs"):
+    import numpy as np
+
+    return np.stack([getattr(res[u], field) for u in sorted(res)])
+
+
+def phase_mimonet() -> dict[str, int]:
+    """MIMONet served at make_config(); returns the path's launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.backend import registry
+    from repro_torch.configs import base as cb
+    from repro_torch.models import mimonet as mm
+    from repro_torch.serve.reason import ReasonConfig, ReasonEngine
+    from repro_torch.serve.schedule import compose_stages
+    from repro_torch.vsa import ops as vsa
+
+    entry = cb.REASON_WORKLOADS["mimonet"]
+    cfg = entry.make_config()
+    consts = entry.make_consts(cfg, torch.Generator().manual_seed(SEED))
+    gpu_consts = interop.to_device(consts, "cuda")
+    factory, truth = entry.make_requests(cfg, N_REQUESTS, SEED)
+    requests = list(factory())
+    groups = math.ceil(N_REQUESTS / 8)
+    rcfg = ReasonConfig(batch_size=8, buckets=BUCKETS, max_inflight=2)
+
+    registry.reset_launches()
+    forced = cb.compile_reason_schedule("mimonet", cfg, consts=gpu_consts,
+                                        batch_size=BUCKETS, fused=True)
+    check(forced.fused_ok and forced.fused_forced, "forced fused schedule refused")
+    eng = ReasonEngine(forced, rcfg, consts=gpu_consts)
+
+    def want_forced(schedule):
+        if schedule == "fused":
+            return {"circ_conv": groups, "qmatmul": 0, "unbind_classify": groups}
+        return {"circ_conv": 2 * groups, "qmatmul": 0, "unbind_classify": 0}
+
+    runs = serve_three(eng, requests, "mimonet/forced-fused", want_forced)
+    check(eng.stats["fused_fallback_groups"] == 0, "forced schedule fell back")
+    check(np.array_equal(stacked(runs["overlap"]), stacked(runs["sequential"])),
+          "mimonet: overlap answers differ from sequential")
+
+    auto = cb.reason_engine("mimonet", cfg, rcfg, consts=consts)
+    sched = auto.schedules["default"]
+    check(sched.fused_equivalence == "epsilon" and not sched.fused_ok
+          and "unbind_classify" in sched.fused_lowering_diff,
+          f"negotiated {sched.fused_equivalence} {sched.fused_lowering_diff}")
+    auto_runs = serve_three(
+        auto, requests, "mimonet/negotiated",
+        lambda s: {"circ_conv": 2 * groups, "qmatmul": 0, "unbind_classify": 0})
+    check(auto.stats["fused_fallback_groups"] == 2 * groups,
+          f"negotiated schedule: {auto.stats['fused_fallback_groups']} fallback "
+          f"groups in two fused runs of {groups} groups")
+    counts = dict(registry.LAUNCHES)
+    for name in ("circ_conv", "unbind_classify"):
+        check(counts[name] > 0, f"kernel {name} was not launched on the MIMONet path")
+
+    # logits of one full group: staged stages, fused list, and the CPU
+    batch = torch.from_numpy(np.stack([r.images for r in requests[:8]]))
+    staged_logits = compose_stages(forced.stages)(gpu_consts, batch.cuda())
+    fused_logits = forced.fused_fn(gpu_consts, batch.cuda())
+    cpu_logits = compose_stages(forced.stages)(consts, batch)
+    fused_vs_staged = float((fused_logits - staged_logits).abs().max())
+    gpu_vs_cpu = float((staged_logits.cpu() - cpu_logits).abs().max())
+    fused_vs_cpu = float((fused_logits.cpu() - cpu_logits).abs().max())
+    cpu = cb.reason_engine("mimonet", cfg, rcfg, consts=consts, device="cpu")
+    cpu_logp = stacked(cpu.run(requests, schedule="sequential"))
+    served = {s: float(np.abs(stacked(r) - cpu_logp).max())
+              for s, r in (("staged", runs["sequential"]), ("fused", runs["fused"]),
+                           ("negotiated fused", auto_runs["fused"]))}
+    check(np.array_equal(stacked(auto_runs["fused"]), stacked(runs["sequential"])),
+          "mimonet: the fallback answers differ from the staged ones")
+
+    # unbinding recovers each channel, on the card
+    keys = mm.mimonet_keys(cfg, torch.Generator().manual_seed(3)).cuda()
+    codes = vsa.random_codebook(torch.Generator().manual_seed(4), cfg.n_channels,
+                                cfg.blocks, cfg.d).cuda()
+    sup = vsa.bind(codes, keys).sum(dim=0, keepdim=True)
+    sims = [vsa.similarity(vsa.unbind(keys[c][None], sup), codes).cpu().tolist()
+            for c in range(cfg.n_channels)]
+    emit({"phase": "mimonet_checks", "fused_vs_staged_logits": fused_vs_staged,
+          "gpu_vs_cpu_logits": gpu_vs_cpu, "fused_vs_cpu_logits": fused_vs_cpu,
+          "served_logp_vs_cpu": served, "channel_similarities": sims,
+          "accuracy": entry.score(runs["sequential"], truth()),
+          "negotiated": [sched.fused_equivalence, sched.fused_epsilon,
+                         list(sched.fused_lowering_diff)]})
+    check(fused_vs_staged <= 1e-3, f"fused logits {fused_vs_staged} from staged")
+    check(max(gpu_vs_cpu, fused_vs_cpu) <= 1e-3,
+          f"GPU logits {gpu_vs_cpu} / fused {fused_vs_cpu} from the CPU's")
+    check(max(served.values()) <= 1e-3, f"served log-probs vs the CPU: {served}")
+    for c, row in enumerate(sims):
+        check(int(np.argmax(row)) == c and row[c] > 0.6,
+              f"channel {c}: similarities {row}")
+    return counts
+
+
+def phase_reasoners() -> dict[str, dict[str, int]]:
+    """LVRF and PrAE served at make_config(); returns each path's launch
+    counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.backend import registry
+    from repro_torch.configs import base as cb
+    from repro_torch.serve.reason import ReasonConfig
+
+    groups = math.ceil(N_REQUESTS / 8)
+    rcfg = ReasonConfig(batch_size=8, buckets=BUCKETS, max_inflight=2)
+    per_group = {"lvrf": 27, "prae": 0}
+    paths = {}
+    for model in ("lvrf", "prae"):
+        entry = cb.REASON_WORKLOADS[model]
+        cfg = entry.make_config()
+        consts = entry.make_consts(cfg, torch.Generator().manual_seed(SEED))
+        factory, truth = entry.make_requests(cfg, N_REQUESTS, SEED)
+        requests = list(factory())
+        answers = truth()
+        want = {"circ_conv": per_group[model] * groups, "qmatmul": 0,
+                "unbind_classify": 0}
+        registry.reset_launches()
+        for variant in ("oracle", "cnn"):
+            label = f"{model}/{variant}"
+            eng = cb.reason_engine(model, cfg, rcfg, consts=consts, variants=(variant,))
+            check(eng.schedules[variant].fused_ok, f"{label}: fused not exact")
+            runs = serve_three(eng, requests, label, lambda s: want)
+            for s in ("overlap", "fused"):
+                for field in ("answer_logprobs", "rule_posteriors"):
+                    check(np.array_equal(stacked(runs[s], field),
+                                         stacked(runs["sequential"], field)),
+                          f"{label}: {s} {field} differ from sequential")
+            cpu = cb.reason_engine(model, cfg, rcfg, consts=consts,
+                                   variants=(variant,), device="cpu")
+            cpu_res = cpu.run(requests, schedule="sequential")
+            diff = {f: float(np.abs(stacked(cpu_res, f)
+                                    - stacked(runs["sequential"], f)).max())
+                    for f in ("answer_logprobs", "rule_posteriors")}
+            acc = entry.score(runs["sequential"], answers)
+            emit({"phase": "serve_vs_cpu", "workload": label, "max_abs_diff": diff,
+                  "same_answers": int(sum(cpu_res[u].answer == runs["sequential"][u].answer
+                                          for u in cpu_res)),
+                  "accuracy": acc})
+            check(max(diff.values()) <= 1e-3, f"{label}: GPU vs CPU {diff}")
+            if label == "prae/oracle":
+                check(acc >= 0.90, f"prae oracle accuracy {acc} < 0.90")
+        paths[model] = dict(registry.LAUNCHES)
+    check(paths["lvrf"]["circ_conv"] > 0, "circ_conv was not launched on the LVRF path")
+    return paths
 
 
 def main() -> int:
@@ -371,14 +623,18 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_device()
     main_rows = phase_kernels()
-    launches = phase_serve()
+    paths = {"nvsa": phase_serve(), "mimonet": phase_mimonet(), **phase_reasoners()}
+    emit({"phase": "launches_by_path", **paths})
     kernels = []
     for name, spec in registry.KERNELS.items():
         row = main_rows[name]
+        launches = sum(p[name] for p in paths.values())
+        check(launches > 0, f"kernel {name} was launched on no served path")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{spec.source}",
-            "replaces": spec.replaces, "launches": launches[name],
+            "replaces": spec.replaces, "launches": launches,
+            "launches_by_path": {k: p[name] for k, p in paths.items() if p[name]},
             "shape": row["shape"], "max_abs_err": row["max_abs_err"],
             "ms": row["kernel_ms"], "device_ms": row["kernel_device_ms"],
             "plain_ms": row["plain_ms"],

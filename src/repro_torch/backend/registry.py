@@ -17,11 +17,20 @@ the kernel, on every device, as the reference routes on every platform.
 ``LAUNCHES`` counts kernel launches per kernel: each wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that its path
 went through the kernels.
+
+``record_kernels()`` is the counterpart of the reference's
+``registry.record_selections``: while it is open, every call of a kernel
+wrapper (on any device, ``meta`` included) appends ``(kernel, "kernel")``
+and every dispatch that stays on the exact reference below a kernel's
+floor appends ``(kernel, "gather")``.  ``serve.schedule`` diffs the records
+of the staged and the fused stage lists to negotiate the fused schedule.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+from typing import Iterator
 
 import torch
 
@@ -57,9 +66,37 @@ KERNELS: dict[str, KernelSpec] = {
         source="qmatmul.cu",
         replaces="src/repro/kernels/qmatmul/kernel.py:55",
         epsilon=1e-3),
+    "unbind_classify": KernelSpec(
+        name="unbind_classify",
+        describe="fused VSA unbind (circular correlation) -> dense classify "
+                 "head; one launch for MIMONet's symbolic tail",
+        source="unbind_classify.cu",
+        replaces="src/repro/kernels/unbind_classify/kernel.py:56",
+        epsilon=1e-3, dispatch_min_size=128),
 }
 
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
+_RECORDERS: list[list] = []
+
+
+@contextlib.contextmanager
+def record_kernels() -> Iterator[list]:
+    """Collect ``(kernel, route)`` for every kernel call while open: route
+    ``"kernel"`` from a wrapper (whatever the device), ``"gather"`` from a
+    dispatch below the kernel's floor."""
+    rec: list = []
+    _RECORDERS.append(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDERS.remove(rec)
+
+
+def note_call(kernel: str, route: str = "kernel") -> None:
+    """Called by a kernel wrapper on every call (and by ``dispatch_path``
+    for the gather route); appends to every open ``record_kernels``."""
+    for rec in _RECORDERS:
+        rec.append((kernel, route))
 
 
 def count_launch(kernel: str) -> None:
@@ -86,8 +123,13 @@ def on_card(t: torch.Tensor) -> bool:
 def dispatch_path(kernel: str, size: int) -> str:
     """``"kernel"`` when a call at block dim ``size`` goes to ``kernel``'s
     wrapper, ``"gather"`` when it stays on the exact reference (below the
-    kernel's ``dispatch_min_size``).  Independent of the device."""
-    return "gather" if size < KERNELS[kernel].dispatch_min_size else "kernel"
+    kernel's ``dispatch_min_size``).  Independent of the device.  The
+    gather route is noted to ``record_kernels``; the kernel route is noted
+    by the wrapper it leads to."""
+    if size < KERNELS[kernel].dispatch_min_size:
+        note_call(kernel, "gather")
+        return "gather"
+    return "kernel"
 
 
 def resolve_device(device=None) -> torch.device:

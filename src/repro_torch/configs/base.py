@@ -10,7 +10,8 @@ its constants, and request ingest / collect adapters.
     engine = reason_engine("nvsa", cfg, ReasonConfig(...), consts=consts)
     results = engine.run(requests)
 
-``REASON_WORKLOADS`` holds ``nvsa`` alone in this slice of the port.
+``REASON_WORKLOADS`` holds the four reasoners of the reference: ``nvsa``,
+``prae``, ``mimonet`` and ``lvrf``.
 """
 
 from __future__ import annotations
@@ -24,7 +25,10 @@ import torch
 from repro_torch import interop
 from repro_torch.backend import registry
 from repro_torch.data import raven
+from repro_torch.models import lvrf as lv
+from repro_torch.models import mimonet as mm
 from repro_torch.models import nvsa as nv
+from repro_torch.models import prae as pr
 from repro_torch.nn import init as nninit
 from repro_torch.serve import schedule as sch
 from repro_torch.serve.reason import ReasonConfig, ReasonEngine, ReasonRequest
@@ -48,6 +52,9 @@ class ReasonWorkload:
     - ``collect(cfg)``: ``(host_out, i) -> ReasonResult fields`` adapter.
     - ``make_requests(cfg, n, seed)``: ``(stream_factory, truth)``.
     - ``score(results, truth_values)``: serving accuracy.
+    - ``fused_stage_specs(cfg, variant)``: an alternate stage list for the
+      fused schedule (None = the staged list composed), negotiated against
+      the staged one by ``compile_schedule``.
     """
 
     name: str
@@ -61,6 +68,7 @@ class ReasonWorkload:
     collect: Callable[[Any], Callable]
     make_requests: Callable[[Any, int, int], tuple]
     score: Callable[[dict, Any], float]
+    fused_stage_specs: Callable[[Any, str], tuple] | None = None
 
 
 def _require(req, field: str):
@@ -123,19 +131,20 @@ def _raven_requests(cfg, n: int, seed: int):
 
 
 def _mean_match_score(results: dict, truth_values) -> float:
-    """Mean answer == truth."""
+    """Mean answer == truth (elementwise for per-channel answer arrays)."""
     return float(np.mean([results[i].answer == truth_values[i]
                           for i in range(len(truth_values))]))
 
 
-def _nvsa_frontend_stage(cfg):
+def _nvsa_frontend_stage(cfg, consts_key: str = "params"):
     """CNN perception stage (eval-mode BN: a request's PMFs do not depend
-    on its admission group)."""
+    on its admission group).  ``consts_key`` selects the frontend params in
+    the workload's constants (LVRF keeps them under ``"frontend"``)."""
 
     def frontend(consts, bufs):
         ctx, cand = bufs
         n, _, h, w, c = ctx.shape
-        p = consts["params"]
+        p = consts[consts_key]
         ctx_p, _ = nv.frontend_pmfs(p, cfg, ctx.reshape(n * 8, h, w, c))
         cand_p, _ = nv.frontend_pmfs(p, cfg, cand.reshape(n * 8, h, w, c))
         return (tuple(x.reshape(n, 8, -1) for x in ctx_p),
@@ -181,6 +190,144 @@ def _nvsa_stages(cfg, variant: str):
     return (first, StageSpec("symbolic", "vsa", symbolic))
 
 
+# -- prae -------------------------------------------------------------------
+
+
+def _prae_stages(cfg, variant: str):
+    """PrAE shares NVSA's config, constants and perception frontend; its
+    symbolic engine works on PMF tables and launches no kernel."""
+    pcfg = pr.PrAEConfig(raven=cfg.raven)
+
+    def symbolic(consts, bufs):
+        ctx_pmfs, cand_pmfs = bufs
+        return pr.solve_from_pmfs(pcfg, list(ctx_pmfs), list(cand_pmfs))
+
+    first = _oracle_stage(cfg) if variant == "oracle" \
+        else _nvsa_frontend_stage(cfg)
+    return (first, StageSpec("symbolic", "simd", symbolic))
+
+
+# -- mimonet ----------------------------------------------------------------
+
+
+def _mimonet_config(d: int = 128, **_):
+    return mm.MIMONetConfig(d=d)
+
+
+def _mimonet_consts(cfg, generator: torch.Generator):
+    return {"params": nninit.materialize(mm.mimonet_spec(cfg), generator),
+            "keys": mm.mimonet_keys(cfg, generator)}
+
+
+def _mimonet_stages(cfg, variant: str):
+    return (
+        StageSpec("encode", "nn",
+                  lambda c, images: mm.encode(c["params"], cfg, images)),
+        StageSpec("superpose", "vsa",
+                  lambda c, codes: mm.superpose(c["keys"], codes)),
+        StageSpec("trunk", "nn", lambda c, x: mm.trunk(c["params"], x)),
+        StageSpec("unbind", "vsa", lambda c, x: mm.unbind(c["keys"], cfg, x)),
+        StageSpec("classify", "simd",
+                  lambda c, u: mm.classify(c["params"], u)),
+    )
+
+
+def _mimonet_fused_stages(cfg, variant: str):
+    """The fused stage list: unbind + classify collapse into the
+    ``unbind_classify`` kernel, one launch instead of two.  Only the fused
+    callable runs it, and only where the schedule's negotiation allows."""
+    return _mimonet_stages(cfg, variant)[:3] + (
+        StageSpec("unbind_classify", "simd",
+                  lambda c, x: mm.unbind_classify(c["params"], c["keys"],
+                                                  cfg, x)),
+    )
+
+
+def _mimonet_input_specs(cfg, batch_size: int, variant: str):
+    hw = cfg.raven.image_size
+    return TensorSpec((batch_size, cfg.n_channels, hw, hw, 1), torch.float32)
+
+
+def _mimonet_ingest(cfg, variant: str):
+    return lambda r: np.asarray(_require(r, "images"), np.float32)
+
+
+def _mimonet_collect(cfg):
+    def collect(host_out, i):
+        logits = host_out[i]  # (K, n_classes)
+        shifted = logits - logits.max(-1, keepdims=True)
+        logp = shifted - np.log(np.exp(shifted).sum(-1, keepdims=True))
+        return {"answer": np.argmax(logits, -1), "answer_logprobs": logp,
+                "rule_posteriors": None}
+
+    return collect
+
+
+def _mimonet_requests(cfg, n: int, seed: int):
+    """K-channel superposed-classification traffic from rendered RAVEN
+    panels; truth is each channel's shape type, kept with the panels."""
+    k = cfg.n_channels
+    cache: dict = {}
+
+    def _panels():
+        if not cache:
+            # 16 rendered panels per problem (8 context + 8 candidates)
+            probs = (n * k + 15) // 16
+            cache["imgs"], cache["attrs"] = raven.panel_dataset(
+                cfg.raven, seed=seed, n_problems=probs)
+        return cache["imgs"], cache["attrs"]
+
+    def factory():
+        imgs, _ = _panels()
+        for i in range(n):
+            yield ReasonRequest(uid=i, images=imgs[i * k:(i + 1) * k])
+
+    def truth():
+        _, attrs = _panels()
+        return attrs[: n * k, 0].reshape(n, k)  # attr 0 = shape type
+
+    return factory, truth
+
+
+# -- lvrf -------------------------------------------------------------------
+
+
+def _lvrf_config(d: int = 128, **_):
+    return lv.LVRFConfig(d=d)
+
+
+def _lvrf_frontend_cfg(cfg):
+    """NVSA-frontend config for LVRF's CNN perception."""
+    return nv.NVSAConfig(raven=cfg.raven)
+
+
+def _lvrf_consts(cfg, generator: torch.Generator):
+    return {"params": nninit.materialize(lv.lvrf_spec(cfg), generator),
+            "books": lv.lvrf_codebooks(cfg, generator),
+            "frontend": nninit.materialize(
+                nv.nvsa_spec(_lvrf_frontend_cfg(cfg)), generator)}
+
+
+def _lvrf_stages(cfg, variant: str):
+    def abduce(consts, bufs):
+        ctx_pmfs, cand_pmfs = bufs
+        codes = lv.encode_codes(consts["books"], cfg, list(ctx_pmfs))
+        posts = lv.abduce(consts["params"], cfg, codes)
+        return (codes, posts, cand_pmfs)
+
+    def execute(consts, bufs):
+        codes, posts, cand_pmfs = bufs
+        logp = lv.execute(consts["params"], consts["books"], cfg, codes,
+                          posts, list(cand_pmfs))
+        return (logp, posts)
+
+    first = _oracle_stage(cfg) if variant == "oracle" \
+        else _nvsa_frontend_stage(_lvrf_frontend_cfg(cfg),
+                                  consts_key="frontend")
+    return (first, StageSpec("abduce", "vsa", abduce),
+            StageSpec("execute", "vsa", execute))
+
+
 REASON_WORKLOADS: dict[str, ReasonWorkload] = {
     "nvsa": ReasonWorkload(
         name="nvsa",
@@ -189,6 +336,34 @@ REASON_WORKLOADS: dict[str, ReasonWorkload] = {
         variants=("cnn", "oracle"),
         make_config=_nvsa_config, make_consts=_nvsa_consts,
         stage_specs=_nvsa_stages, input_specs=_raven_input_specs,
+        ingest=_raven_ingest, collect=_raven_collect,
+        make_requests=_raven_requests, score=_mean_match_score),
+    "prae": ReasonWorkload(
+        name="prae",
+        describe="PrAE: shared CNN perception -> PMF-table abduction/"
+                 "execution (SIMD-shaped symbolic stream)",
+        variants=("cnn", "oracle"),
+        make_config=_nvsa_config, make_consts=_nvsa_consts,
+        stage_specs=_prae_stages, input_specs=_raven_input_specs,
+        ingest=_raven_ingest, collect=_raven_collect,
+        make_requests=_raven_requests, score=_mean_match_score),
+    "mimonet": ReasonWorkload(
+        name="mimonet",
+        describe="MIMONet: K-channel superposed classification — bind -> "
+                 "shared NN trunk -> unbind/classify",
+        variants=("default",),
+        make_config=_mimonet_config, make_consts=_mimonet_consts,
+        stage_specs=_mimonet_stages, input_specs=_mimonet_input_specs,
+        ingest=_mimonet_ingest, collect=_mimonet_collect,
+        make_requests=_mimonet_requests, score=_mean_match_score,
+        fused_stage_specs=_mimonet_fused_stages),
+    "lvrf": ReasonWorkload(
+        name="lvrf",
+        describe="LVRF: frontend -> learned-rule posterior -> posterior-"
+                 "weighted circ-conv execution (RAVEN)",
+        variants=("cnn", "oracle"),
+        make_config=_lvrf_config, make_consts=_lvrf_consts,
+        stage_specs=_lvrf_stages, input_specs=_raven_input_specs,
         ingest=_raven_ingest, collect=_raven_collect,
         make_requests=_raven_requests, score=_mean_match_score),
 }
@@ -204,14 +379,20 @@ def _entry(model: str) -> ReasonWorkload:
 def compile_reason_schedule(model: str, cfg, variant: str | None = None,
                             consts=None,
                             batch_size: int | tuple[int, ...] = 4,
-                            device=None) -> sch.StagedSchedule:
+                            device=None,
+                            fused: bool | str = "auto") -> sch.StagedSchedule:
     """Lower one registry entry to a ``StagedSchedule`` on ``device``
     (None = ``"cuda"``; raises when CUDA is missing unless ``"cpu"``).
 
     ``batch_size`` may be a tuple of batch-size buckets: the input specs
     describe the largest, and the engine pads a partial group to the
-    smallest covering bucket.  With ``consts`` the schedule carries the
-    inter-stage buffer specs."""
+    smallest covering bucket.  Without ``consts`` the entry's
+    ``make_consts`` is drawn on the CPU for its shapes only.  The schedule
+    carries the inter-stage buffer specs.
+
+    ``fused``: forwarded to ``compile_schedule`` (``"auto"`` negotiates the
+    fused schedule, ``True`` forces it); the entry's ``fused_stage_specs``,
+    where declared, supplies the fused stage list."""
     dev = registry.resolve_device(device)
     entry = _entry(model)
     variant = variant or entry.variants[0]
@@ -221,12 +402,16 @@ def compile_reason_schedule(model: str, cfg, variant: str | None = None,
     buckets = tuple(sorted(set(batch_size))) \
         if isinstance(batch_size, (tuple, list)) else ()
     max_batch = buckets[-1] if buckets else batch_size
+    if consts is None:  # shapes only: the meta run computes nothing
+        consts = entry.make_consts(cfg, torch.Generator().manual_seed(0))
+    fused_stages = entry.fused_stage_specs(cfg, variant) \
+        if entry.fused_stage_specs is not None else None
     return sch.compile_schedule(
         model, entry.stage_specs(cfg, variant),
         entry.ingest(cfg, variant), entry.collect(cfg), device=dev,
         variant=variant, consts=consts,
         input_specs=entry.input_specs(cfg, max_batch, variant),
-        batch_buckets=buckets)
+        batch_buckets=buckets, fused=fused, fused_stages=fused_stages)
 
 
 def reason_engine(model: str, cfg, reason_cfg: ReasonConfig | None = None,

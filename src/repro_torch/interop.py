@@ -3,8 +3,9 @@
 ``from_reference`` turns a constants tree of the JAX package, given as
 numpy arrays (``{"params": ..., "books": {"books", "shifts", "roles"}}``
 for NVSA), into the port's tensors on a device.  It is exact: it converts
-dtype and layout only.  The one layout change is the conv weight: every
-4-D leaf is an HWIO kernel and becomes OIHW.
+dtype and layout only.  The one layout change is the conv weight: a 4-D
+leaf under the key ``"w"`` is an HWIO kernel and becomes OIHW.  Other 4-D
+leaves (LVRF's rule codebook, (A, R, B, d)) keep their layout.
 """
 
 from __future__ import annotations
@@ -16,20 +17,27 @@ from repro_torch.backend import registry
 from repro_torch.common.tree import tree_map
 
 
-def _leaf(x, device: torch.device):
+def _leaf(x, device: torch.device, conv: bool):
     if x is None:
         return None
     t = torch.from_numpy(np.array(x, copy=True))
-    if t.dim() == 4:  # HWIO -> OIHW
+    if conv and t.dim() == 4:  # HWIO -> OIHW
         t = t.permute(3, 2, 0, 1).contiguous()
     return t.to(device)
+
+
+def _convert(tree, device: torch.device, key=None):
+    if isinstance(tree, dict):
+        return {k: _convert(v, device, k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_convert(v, device) for v in tree)
+    return _leaf(tree, device, conv=key == "w")
 
 
 def from_reference(tree, device=None):
     """Reference constants (numpy leaves, lists and dicts) -> port tensors
     on ``device`` (None = ``"cuda"``)."""
-    dev = registry.resolve_device(device)
-    return tree_map(lambda x: _leaf(x, dev), tree)
+    return _convert(tree, registry.resolve_device(device))
 
 
 def to_device(tree, device=None):

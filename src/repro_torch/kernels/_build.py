@@ -38,6 +38,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 ENTRY_POINTS = {
     "circ_conv": ("circ_elem_launch", [_P, _P, _P, _L, _I, _I, _I, _P]),
     "qmatmul": ("qmatmul_launch", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "unbind_classify": ("unbind_classify_launch",
+                        [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P]),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -59,6 +59,7 @@ def circ_elem(x: torch.Tensor, y: torch.Tensor, mode: str = "conv") -> torch.Ten
 
     ``mode`` is ``"conv"`` (out[n] = Σ_k x[k]·y[(n−k) mod d]) or ``"corr"``
     (out[n] = Σ_k x[k]·y[(n+k) mod d])."""
+    registry.note_call("circ_conv")
     if registry.on_card(x):
         return _launch(x, y, mode)
     return ref.circ_elem_ref(x, y, mode)

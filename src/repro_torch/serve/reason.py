@@ -15,10 +15,13 @@ group *i+1*:
 - ``drain_ready`` polls that event; only a drain copies answers back.
 
 Schedules: ``overlap`` (the stages one after another, asynchronously),
-``fused`` (the composed stages called once per group) and ``sequential``
+``fused`` (the schedule's fused callable once per group) and ``sequential``
 (synchronise after every stage and finish a group before the next; it also
-measures the per-stage time breakdown).  All three launch the same kernels
-and give the same answers.
+measures the per-stage time breakdown).  ``overlap`` and ``sequential`` run
+the same functions and give the same answers.  ``fused`` substitutes the
+fused callable only where the schedule allows it (``fused_ok``: negotiated
+exact, or forced); otherwise it serves the group stage by stage and counts
+it in ``stats["fused_fallback_groups"]``, as the reference does.
 
 Two entry points, as in the reference: ``run(requests)`` (the offline
 loop) and ``submit`` / ``drain_ready`` / ``drain_all`` (the
@@ -67,6 +70,8 @@ class ReasonRequest:
     candidates: np.ndarray | None = None       # (8, H, W, 1) float32
     context_attrs: np.ndarray | None = None    # (8, A) int32 — oracle variant
     candidate_attrs: np.ndarray | None = None  # (8, A) int32
+    # superposed-classification traffic (mimonet)
+    images: np.ndarray | None = None           # (K, H, W, 1) float32
     # traffic class for overload control; the engine ignores it
     priority: str = rt.DEFAULT_PRIORITY
 
@@ -86,6 +91,8 @@ def _fresh_stats() -> dict:
         # stage-function calls: K per staged group, 1 per fused group
         "dispatches": 0,
         "fused_groups": 0,
+        # fused-schedule groups served stage by stage (not ``fused_ok``)
+        "fused_fallback_groups": 0,
         # cumulative sequential-schedule stage times {variant: {stage: s}}
         "stage_time_s": {},
         **rt.fresh_split_stats(),
@@ -274,7 +281,11 @@ class ReasonEngine:
                                  "(results are keyed by uid)")
             seen.add(req.uid)
         bufs, bucket = self._stage(group, sched)
-        use_fused = schedule == "fused"
+        use_fused = schedule == "fused" and sched.fused_ok
+        if schedule == "fused" and not use_fused:
+            # the fused list is only epsilon-equivalent (or was not
+            # compiled): serve stage by stage, as the reference does
+            self.stats["fused_fallback_groups"] += 1
         mode = "fused" if use_fused else "staged"
         cold = (variant, bucket, mode) not in self._warmed
         if cold:

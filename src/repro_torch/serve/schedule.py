@@ -6,15 +6,22 @@ emits a :class:`StagedSchedule`:
 
   - the ordered stage callables; the stage boundaries are the points where
     ``serve.reason.ReasonEngine`` may time, drain or overlap;
-  - a **fused** callable: the composed stages called once per group.  Both
-    lowerings of a stage list run the same kernels, so ``fused_ok`` holds;
-  - the **inter-stage buffer specs** (shapes, dtypes, bytes), found by
-    running the stages on ``meta`` tensors, which carry shapes and compute
-    nothing (the kernel wrappers take their plain path on ``meta``);
+  - a **fused** callable: the composed stages, or an alternate fused stage
+    list (MIMONet's unbind + classify collapsed into the ``unbind_classify``
+    kernel), called once per group.  It is *negotiated* against the staged
+    list: both run on ``meta`` inside ``registry.record_kernels()``, their
+    output specs must agree, and the kernels they reach are diffed.  Equal
+    records, or differences confined to exact gather routes, make the class
+    ``exact``; a differing kernel route makes it ``epsilon`` at that
+    kernel's registry epsilon.  The executor substitutes the fused callable
+    only when ``fused_ok``: exact, or forced with ``fused=True``;
+  - the **inter-stage buffer specs** (shapes, dtypes, bytes), from the same
+    ``meta`` run (kernel wrappers take their plain path on ``meta`` and
+    compute nothing);
   - the compiled batch-size buckets.
 
-There is no jaxpr graph tracing and no lowering-plan negotiation: the
-tensor's device selects each kernel (``backend.registry``).
+There is no jaxpr graph tracing and no lowering plan: the tensor's device
+selects each kernel (``backend.registry``).
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.backend import registry
 from repro_torch.common.tree import tree_leaves, tree_map
 
 STREAMS = ("nn", "vsa", "simd")
@@ -81,7 +89,12 @@ class StagedSchedule:
     """An executable pipeline.  ``buffers[0]`` describes the staged input
     batch of the largest bucket and ``buffers[i + 1]`` the output of stage
     ``i``; empty when the schedule was compiled without input specs or
-    constants.  ``device`` is where the engine stages inputs and runs."""
+    constants.  ``device`` is where the engine stages inputs and runs.
+
+    ``fused_equivalence`` is the negotiated class of the fused stage list
+    against the staged one (``exact`` | ``epsilon`` | None when no fused
+    callable was compiled), ``fused_epsilon`` the largest registry epsilon
+    among the differing kernels and ``fused_lowering_diff`` their names."""
 
     workload: str
     variant: str
@@ -89,17 +102,24 @@ class StagedSchedule:
     ingest: Callable                      # fn(request) -> tree of np arrays
     collect: Callable                     # fn(host_out, i) -> result fields
     device: torch.device
-    fused_fn: Callable                    # the composed stages
+    fused_fn: Callable | None = None      # the fused stage list, composed
     buffers: tuple[BufferSpec, ...] = ()
     # compiled batch-size buckets, ascending; () = the engine's batch_size.
     # A partial admission group pads to the smallest covering bucket.
     batch_buckets: tuple[int, ...] = ()
+    fused_stages: tuple[StageSpec, ...] = ()
+    fused_forced: bool = False
+    fused_equivalence: str | None = None  # exact | epsilon | None
+    fused_epsilon: float = 0.0
+    fused_lowering_diff: tuple[str, ...] = ()
 
     @property
     def fused_ok(self) -> bool:
-        """The fused callable runs the same kernels as the staged stages,
-        so the executor may always substitute it."""
-        return True
+        """May the executor substitute the fused callable for the staged
+        stages?  When one was compiled and it is negotiated exact, or
+        forced with ``compile_schedule(fused=True)``."""
+        return self.fused_fn is not None and (
+            self.fused_forced or self.fused_equivalence == "exact")
 
     def covering_bucket(self, n: int) -> int:
         """Smallest compiled batch bucket that fits ``n`` requests."""
@@ -139,30 +159,62 @@ def _to_meta(x):
     return x.to("meta") if isinstance(x, torch.Tensor) else x
 
 
-def buffer_specs(stages: tuple[StageSpec, ...], consts, input_specs
-                 ) -> tuple[BufferSpec, ...]:
-    """Shapes of the input batch and of every stage output, from running
-    the stages on ``meta`` tensors (no device work, no kernel launch)."""
+def meta_run(stages: tuple[StageSpec, ...], consts, input_specs
+             ) -> tuple[tuple[BufferSpec, ...], list]:
+    """Run the stages on ``meta`` tensors (no device work, no kernel
+    launch).  Returns the buffer specs of the input batch and of every
+    stage output, and the ``registry.record_kernels`` record of the run."""
     bufs = tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"),
                     input_specs)
     consts = tree_map(_to_meta, consts)
     out = [BufferSpec.from_tree(bufs)]
-    for s in stages:
-        bufs = s.fn(consts, bufs)
-        out.append(BufferSpec.from_tree(bufs))
-    return tuple(out)
+    with registry.record_kernels() as rec:
+        for s in stages:
+            bufs = s.fn(consts, bufs)
+            out.append(BufferSpec.from_tree(bufs))
+    return tuple(out), rec
+
+
+def fused_conformance(staged: list, fused: list
+                      ) -> tuple[str, float, tuple[str, ...]]:
+    """The fused stage list's class against the staged one, from their
+    ``(kernel, route)`` records: the kernels whose sets of routes differ,
+    ``exact`` when each of those differs only in exact gather routes, else
+    ``epsilon`` at the largest registry epsilon among them (the reference's
+    ``_fused_conformance`` rule, with the gather route in the place of its
+    exact ``xla`` lowering)."""
+    routes: tuple[dict, dict] = ({}, {})
+    for side, rec in zip(routes, (staged, fused)):
+        for kernel, route in rec:
+            side.setdefault(kernel, set()).add(route)
+    diff = sorted(k for k in set(routes[0]) | set(routes[1])
+                  if routes[0].get(k, set()) != routes[1].get(k, set()))
+    approx = [k for k in diff
+              if "kernel" in routes[0].get(k, set()) | routes[1].get(k, set())]
+    eps = max((registry.KERNELS[k].epsilon for k in approx), default=0.0)
+    return ("epsilon" if approx else "exact"), eps, tuple(diff)
 
 
 def compile_schedule(workload: str, stages: tuple[StageSpec, ...] | list,
                      ingest: Callable, collect: Callable, *,
                      device: torch.device, variant: str = "default",
                      consts=None, input_specs=None,
-                     batch_buckets: tuple[int, ...] = ()) -> StagedSchedule:
+                     batch_buckets: tuple[int, ...] = (),
+                     fused: bool | str = "auto",
+                     fused_stages: tuple[StageSpec, ...] | list | None = None
+                     ) -> StagedSchedule:
     """Lower a stage list to a StagedSchedule on ``device``.
 
     ``input_specs``: tree of :class:`TensorSpec` for one staged batch of
-    the largest bucket; with ``consts`` it yields the buffer specs.
-    ``batch_buckets``: ascending compiled batch sizes."""
+    the largest bucket; with ``consts`` it yields the buffer specs and the
+    fused negotiation.  ``batch_buckets``: ascending compiled batch sizes.
+
+    ``fused``: ``"auto"`` compiles the fused callable and negotiates its
+    class (the executor substitutes it only when exact); ``True`` forces
+    the substitution whatever the class; ``False`` compiles none.
+    ``fused_stages``: an alternate stage list for the fused callable; it
+    needs ``input_specs`` and ``consts`` to prove its output spec equal to
+    the staged pipeline's."""
     stages = tuple(stages)
     if not stages:
         raise ValueError("schedule needs at least one stage")
@@ -174,10 +226,37 @@ def compile_schedule(workload: str, stages: tuple[StageSpec, ...] | list,
                           or batch_buckets[0] < 1):
         raise ValueError(f"batch_buckets must be ascending positive "
                          f"sizes, got {batch_buckets}")
-    buffers = ()
-    if input_specs is not None and consts is not None:
-        buffers = buffer_specs(stages, consts, input_specs)
+    if fused not in (True, False, "auto"):
+        raise ValueError(f"fused must be True, False or 'auto', got {fused!r}")
+    specs_known = input_specs is not None and consts is not None
+    if fused_stages is not None and not specs_known:
+        raise ValueError(
+            f"{workload}/{variant}: an alternate fused stage list needs "
+            "input_specs and consts to prove its output spec matches the "
+            "staged pipeline's")
+    buffers, staged_rec = (), []
+    if specs_known:
+        buffers, staged_rec = meta_run(stages, consts, input_specs)
+
+    fused_fn, fused_specs = None, ()
+    equivalence, eps, diff = None, 0.0, ()
+    if fused:
+        fused_specs = stages if fused_stages is None else tuple(fused_stages)
+        fused_fn = compose_stages(fused_specs)
+        if specs_known:
+            fused_bufs, fused_rec = meta_run(fused_specs, consts, input_specs)
+            if fused_bufs[-1].shapes != buffers[-1].shapes:
+                raise ValueError(
+                    f"{workload}/{variant}: fused pipeline output spec does "
+                    "not match the staged pipeline's")
+            equivalence, eps, diff = fused_conformance(staged_rec, fused_rec)
+        else:
+            # the same stage fns composed: trivially exact
+            equivalence = "exact"
     return StagedSchedule(
         workload=workload, variant=variant, stages=stages, ingest=ingest,
-        collect=collect, device=device, fused_fn=compose_stages(stages),
-        buffers=buffers, batch_buckets=batch_buckets)
+        collect=collect, device=device, fused_fn=fused_fn,
+        buffers=buffers, batch_buckets=batch_buckets,
+        fused_stages=fused_specs, fused_forced=fused is True,
+        fused_equivalence=equivalence, fused_epsilon=eps,
+        fused_lowering_diff=diff)

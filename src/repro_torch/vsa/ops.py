@@ -11,6 +11,8 @@ every device, as the reference does on every platform.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.backend import registry
@@ -106,3 +108,19 @@ def random_codebook(generator: torch.Generator, n: int, blocks: int, d: int,
     """Random unit-norm block codes (CPU tensor)."""
     v = torch.randn((n, blocks, d), generator=generator, dtype=torch.float32)
     return normalize(v).to(dtype)
+
+
+def unitary_codebook(generator: torch.Generator, n: int, blocks: int, d: int,
+                     dtype=torch.float32) -> torch.Tensor:
+    """Unitary block codes (|FFT| = 1, CPU tensor): binding is exactly
+    invertible, unbind(bind(a, u), u) == a.  The phase is uniform on
+    [−π, π); the DC bin, and the Nyquist bin for even d, are 0 so the codes
+    are real."""
+    u = torch.rand((n, blocks, d // 2 + 1), generator=generator,
+                   dtype=torch.float32)
+    phase = u * (2 * math.pi) - math.pi
+    phase[..., 0] = 0.0
+    if d % 2 == 0:
+        phase[..., -1] = 0.0
+    spec = torch.polar(torch.ones_like(phase), phase)
+    return torch.fft.irfft(spec, n=d, dim=-1).to(dtype)

@@ -13,6 +13,8 @@ from repro_torch.kernels.circ_conv import ops as circ_ops
 from repro_torch.kernels.circ_conv import ref as circ_ref
 from repro_torch.kernels.qmatmul import ops as qops
 from repro_torch.kernels.qmatmul import ref as qref
+from repro_torch.kernels.unbind_classify import ops as uc_ops
+from repro_torch.kernels.unbind_classify import ref as uc_ref
 
 torch.set_num_threads(2)
 
@@ -104,3 +106,59 @@ def test_quantisers_round_like_the_cpu(gen):
     q_gpu, s_gpu = qops.quantize_rows(x)
     q_cpu, s_cpu = qops.quantize_rows(x.cpu())
     assert torch.equal(q_gpu.cpu(), q_cpu) and torch.equal(s_gpu.cpu(), s_cpu)
+
+
+def _uc_inputs(gen, n, d, k=2, blocks=4, c=5):
+    keys = torch.randn(k, blocks, d, device="cuda", generator=gen) / d ** 0.5
+    x = torch.randn(n, blocks, d, device="cuda", generator=gen)
+    w = torch.randn(blocks, d, c, device="cuda", generator=gen) / (blocks * d) ** 0.5
+    b = torch.randn(1, c, device="cuda", generator=gen)
+    return keys, x, w, b
+
+
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("n", [1, 8, 13])
+def test_unbind_classify_kernel(gen, n, d):
+    """Within the registry epsilon (1e-3) of the plain version, at the
+    shapes chip_smoke.py's phase 2 checks; one launch per call."""
+    keys, x, w, b = _uc_inputs(gen, n, d)
+    before = registry.LAUNCHES["unbind_classify"]
+    got = uc_ops.fused_unbind_classify(keys, x, w, b)
+    torch.cuda.synchronize()
+    assert registry.LAUNCHES["unbind_classify"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (n, 2, 5)
+    want = uc_ref.fused_unbind_classify_ref(keys, x, w, b)
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("d,c", [(1, 1), (7, 3), (130, 32), (512, 17)])
+def test_unbind_classify_kernel_odd_shapes(gen, d, c):
+    """Any d (the index wraps by a compare) and any C up to the cap."""
+    keys, x, w, b = _uc_inputs(gen, 5, d, k=3, blocks=2, c=c)
+    torch.testing.assert_close(uc_ops.fused_unbind_classify(keys, x, w, b),
+                               uc_ref.fused_unbind_classify_ref(keys, x, w, b),
+                               atol=1e-3, rtol=0)
+
+
+def test_unbind_classify_is_deterministic(gen):
+    """A fixed-order reduction without atomics: repeated launches give
+    bit-identical logits."""
+    keys, x, w, b = _uc_inputs(gen, 13, 256)
+    first = uc_ops.fused_unbind_classify(keys, x, w, b)
+    for _ in range(5):
+        assert torch.equal(uc_ops.fused_unbind_classify(keys, x, w, b), first)
+
+
+def test_unbind_classify_rejects_what_the_kernel_does_not_take(gen):
+    keys, x, w, b = _uc_inputs(gen, 4, 128)
+    with pytest.raises(TypeError, match="float32"):
+        uc_ops.fused_unbind_classify(keys, x.double(), w, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        uc_ops.fused_unbind_classify(keys, x.transpose(0, 1).contiguous()
+                                     .transpose(0, 1), w, b)
+    big_w = torch.zeros(4, 128, uc_ops.MAX_CLASSES + 1, device="cuda")
+    big_b = torch.zeros(1, uc_ops.MAX_CLASSES + 1, device="cuda")
+    with pytest.raises(ValueError, match="classes"):
+        uc_ops.fused_unbind_classify(keys, x, big_w, big_b)
+    with pytest.raises(ValueError, match="do not agree"):
+        uc_ops.fused_unbind_classify(keys, x[:, :2].contiguous(), w, b)
