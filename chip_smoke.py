@@ -15,7 +15,16 @@ and prints no result line):
    warm, median of 21 samples): ``circ_conv`` conv/corr within 1e-3
    absolute (the registry epsilon), ``qmatmul`` int8/int4 with exact int32
    accumulators and f32 outputs within 1e-6 relative, ``unbind_classify``
-   within 1e-3 absolute and bit-identical from launch to launch.
+   within 1e-3 absolute and bit-identical from launch to launch; then
+   ``circ_dict`` (``circ_bind_dict`` at (N, M, B, d) = (256, 16, 4, 256),
+   conv/corr, and around it, within 1e-3; bf16 within 1e-3 + one bf16
+   step), ``simd_fused`` (``fused_match_prob`` at (512, 16, 4, 256), bf16,
+   and M = 1024 streamed in chunks, within 1e-6 + 1e-4 relative,
+   bit-identical repeats) and ``flash_attn`` (``flash_mha`` at
+   llama3.2-3b's (1, 2048, 24, 128), causal, within 1e-3 at f32 and 1e-3 +
+   one bf16 step at bf16), each beside its library
+   call (FFT chain; normalize, matmul, softmax; PyTorch's
+   scaled_dot_product_attention) and its bound.
 3. Serve: NVSA at ``make_config(d=256)`` (4 blocks x 256, cnn_width 16,
    cnn_feat 128, 32x32 images, the model's own width) through
    ``reason_engine``, with constants from ``nn/init.py`` on a seeded
@@ -39,10 +48,20 @@ and prints no result line):
    fp32: 27 circ_conv launches per LVRF group and none for PrAE, the same
    answers under the three schedules, GPU within 1e-3 of the CPU, PrAE
    oracle accuracy >= 0.90.
-6. The ``kernels`` JSON line: every ported kernel with its launches on the
-   served paths (each path's counts set to 0 just before it runs and read
-   just after) and its times at its path's shape.
-7. The last line: ``{"ok": true, "device": {...}}``.
+6. Ops: the kernel-level entry points at full width, one more path.
+   ``vsa.match_prob`` at NVSA's 4 x 256 against 16 entries (f32, bf16),
+   at the floor d = 128 (one launch) and below it (d = 64, none): rows sum
+   to 1 within 1e-5, the card within 1e-3 of the CPU, the gradient within
+   1e-4.  ``circ_bind_dict`` conv/corr within 1e-3 of the plain version and
+   of the ``codebook_circulant`` einsum.  ``flash_mha`` at llama3.2-3b's
+   attention (24 heads of 128, k/v drawn as 8 heads and repeated), causal
+   at S = 2048 (f32, bf16), Sq = 100 against Skv = 300 (causal and not)
+   and S = 1000, within 1e-3 of the plain version (+ one bf16 step at
+   bf16).
+7. The ``kernels`` JSON line: every ported kernel with its launches on the
+   paths (each path's counts set to 0 just before it runs and read just
+   after) and its times at its path's shape.
+8. The last line: ``{"ok": true, "device": {...}}``.
 
 It needs the repository's ``src/`` beside it and a CUDA device; without
 either it exits with code 2.
@@ -64,6 +83,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12       # CUDA cores, outside the tensor cores
 INT8_OPS = 1979e12      # tensor cores
+BF16_FLOPS = 989e12     # tensor cores
 
 N_REQUESTS = 34         # groups of 8 at batch_size 8: 8, 8, 8, 8, 2
 BUCKETS = (2, 4, 8)
@@ -163,6 +183,44 @@ def uc_bound(n: int, k: int, b: int, d: int, c: int) -> tuple[float, str]:
     (the correlation, then the head) on the f32 CUDA cores."""
     t_bytes = 4 * (k * b * d + n * b * d + b * d * c + c + n * k * c) / HBM_BYTES_PER_S
     t_ops = 2 * n * k * b * (d * d + d * c) / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations"
+
+
+def dict_bound(n: int, m: int, b: int, d: int, elt: int) -> tuple[float, str]:
+    """Least time (ms) for circ_dict: x and the dictionary read once and the
+    (N, M, B, d) output written once, against 2·N·M·B·d² flops on the f32
+    CUDA cores."""
+    t_bytes = elt * (n * b * d + m * b * d + n * m * b * d) / HBM_BYTES_PER_S
+    t_ops = 2 * n * m * b * d * d / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations"
+
+
+def match_bound(n: int, m: int, b: int, d: int, elt: int) -> tuple[float, str]:
+    """Least time (ms) for fused_match_prob: q and the dictionary read once,
+    the (N, M) f32 probabilities written once, against the dot products
+    (2·N·M·B·d) and the normalisations (3·(N + M)·B·d) in f32."""
+    t_bytes = (elt * (n + m) * b * d + 4 * n * m) / HBM_BYTES_PER_S
+    t_ops = (2 * n * m * b * d + 3 * (n + m) * b * d) / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations"
+
+
+def flash_flops(b: int, sq: int, skv: int, h: int, hd: int, causal: bool) -> int:
+    """4·hd flops (q·k and p·v) per visible (query, key) pair: with the
+    causal mask aligned at 0, query i sees min(i + 1, Skv) keys."""
+    if causal:
+        full = min(sq, skv)
+        pairs = full * (full + 1) // 2 + max(sq - skv, 0) * skv
+    else:
+        pairs = sq * skv
+    return 4 * hd * pairs * b * h
+
+
+def flash_bound(b: int, sq: int, skv: int, h: int, hd: int, causal: bool,
+                elt: int) -> tuple[float, str]:
+    """Least time (ms) for flash attention: q, k, v read once and the output
+    written once, against ``flash_flops`` on the f32 CUDA cores."""
+    t_bytes = elt * b * h * hd * (2 * sq + 2 * skv) / HBM_BYTES_PER_S
+    t_ops = flash_flops(b, sq, skv, h, hd, causal) / F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations"
 
 
@@ -292,6 +350,179 @@ def phase_kernels() -> dict:
             emit(row)
             if (n, d) == (8, 128):
                 main["unbind_classify"] = row
+    main.update(dict_kernel_rows(gen))
+    main.update(match_kernel_rows(gen))
+    main.update(flash_kernel_rows(gen))
+    return main
+
+
+def unit_codes(gen, *shape, dtype=None):
+    """Random block codes of unit norm per block, on the card."""
+    import torch
+
+    v = torch.randn(*shape, device="cuda", generator=gen)
+    v = v / v.norm(dim=-1, keepdim=True)
+    return v if dtype is None else v.to(dtype)
+
+
+BF16_STEP = 2 ** -7  # one bf16 step, relative: where both round an f32 result to bf16
+
+
+def close(got, want, atol: float, rtol: float = 0.0) -> float:
+    """Checks |got - want| <= atol + rtol * |want| everywhere and returns the
+    plain max abs error for the row."""
+    err = (got.float() - want.float()).abs()
+    check(bool((err <= atol + rtol * want.float().abs()).all()),
+          f"max abs err {float(err.max())} beyond atol {atol} + rtol {rtol}")
+    return float(err.max())
+
+
+def dict_kernel_rows(gen) -> dict:
+    import torch
+
+    from repro_torch.kernels.circ_conv import ops as circ_ops
+    from repro_torch.kernels.circ_conv import ref as circ_ref
+
+    main = {}
+    for mode, (n, m, b, d), dtype in (("conv", (256, 16, 4, 256), torch.float32),
+                                      ("corr", (256, 16, 4, 256), torch.float32),
+                                      ("conv", (67, 5, 4, 128), torch.float32),
+                                      ("conv", (256, 16, 4, 256), torch.bfloat16)):
+        x = unit_codes(gen, n, b, d, dtype=dtype)
+        dic = unit_codes(gen, m, b, d, dtype=dtype)
+        got = circ_ops.circ_bind_dict(x, dic, mode)
+        want = circ_ref.circ_dict_ref(x, dic, mode).transpose(1, 2)
+        torch.cuda.synchronize()
+        err = close(got, want, 1e-3, BF16_STEP if dtype == torch.bfloat16 else 0.0)
+
+        def fft_chain(x=x, dic=dic, mode=mode, d=d):
+            fx = torch.fft.rfft(x, dim=-1)
+            fd = torch.fft.rfft(dic, dim=-1)
+            prod = (fx if mode == "conv" else fx.conj())[:, None] * fd[None]
+            return torch.fft.irfft(prod, n=d, dim=-1)
+
+        library_ms, library = None, "n/a: torch.fft takes no bfloat16"
+        if dtype == torch.float32:
+            lib_err = float((fft_chain() - want).abs().max())
+            check(lib_err <= 1e-3, f"circ_dict library chain err {lib_err}")
+            library_ms = cuda_ms(fft_chain)
+            library = "rfft, rfft, broadcast mul, irfft (4 calls)"
+        elt = x.element_size()
+        bound, by = dict_bound(n, m, b, d, elt)
+        row = {"kernel": "circ_dict", "mode": mode, "dtype": str(dtype).split(".")[1],
+               "shape": [n, m, b, d], "max_abs_err": err,
+               "kernel_ms": cuda_ms(lambda: circ_ops.circ_bind_dict(x, dic, mode)),
+               "kernel_device_ms": graph_ms(
+                   lambda: circ_ops.circ_bind_dict(x, dic, mode)),
+               "plain_ms": cuda_ms(
+                   lambda: circ_ref.circ_dict_ref(x, dic, mode).transpose(1, 2)),
+               "library_ms": library_ms, "library": library,
+               "bound_ms": bound, "bound_by": by}
+        emit(row)
+        if (mode, n, dtype) == ("conv", 256, torch.float32):
+            main["circ_dict"] = row
+    return main
+
+
+def match_kernel_rows(gen) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.simd_fused import ops as simd_ops
+    from repro_torch.kernels.simd_fused import ref as simd_ref
+
+    main = {}
+    for (n, m, b, d), temp, dtype in (((512, 16, 4, 256), 0.1, torch.float32),
+                                      ((512, 16, 4, 256), 0.1, torch.bfloat16),
+                                      ((67, 5, 4, 128), 1.0, torch.float32),
+                                      ((64, 1024, 4, 256), 0.1, torch.float32)):
+        q = torch.randn(n, b, d, device="cuda", generator=gen).to(dtype)
+        dic = torch.randn(m, b, d, device="cuda", generator=gen).to(dtype)
+        got = simd_ops.fused_match_prob(q, dic, temp)
+        again = simd_ops.fused_match_prob(q, dic, temp)
+        want = simd_ref.fused_match_prob_ref(q, dic, temp)
+        torch.cuda.synchronize()
+        # far inside the registry epsilon (1e-3) and below a probability of
+        # 1/M, so that a chunk of the M = 1024 dictionary read at the wrong
+        # offset shows
+        err = close(got, want, 1e-6, 1e-4)
+        check(torch.equal(got, again), f"match_prob {(n, m, b, d)}: launches differ")
+
+        def lib_chain(q=q, dic=dic, temp=temp, n=n, m=m, b=b):
+            qn = F.normalize(q, dim=-1).reshape(n, -1)
+            dn = F.normalize(dic, dim=-1).reshape(m, -1)
+            return torch.softmax((qn @ dn.T) / (b * temp), dim=-1)
+
+        lib_err = float((lib_chain().float() - want).abs().max())
+        check(lib_err <= 1e-3 or dtype == torch.bfloat16,
+              f"match_prob library chain err {lib_err}")
+        bound, by = match_bound(n, m, b, d, q.element_size())
+        row = {"kernel": "simd_fused", "dtype": str(dtype).split(".")[1],
+               "shape": [n, m, b, d], "temp": temp, "max_abs_err": err,
+               "kernel_ms": cuda_ms(lambda: simd_ops.fused_match_prob(q, dic, temp)),
+               "kernel_device_ms": graph_ms(
+                   lambda: simd_ops.fused_match_prob(q, dic, temp)),
+               "plain_ms": cuda_ms(lambda: simd_ref.fused_match_prob_ref(q, dic, temp)),
+               "library_ms": cuda_ms(lib_chain),
+               "library": "normalize, normalize, matmul, softmax (4 calls)",
+               "bound_ms": bound, "bound_by": by}
+        emit(row)
+        if (n, m, dtype) == (512, 16, torch.float32):
+            main["simd_fused"] = row
+    return main
+
+
+def flash_kernel_rows(gen) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.kernels.flash_attn import ref as flash_ref
+
+    main = {}
+    b, h, hd = 1, 24, 128
+    scale = hd ** -0.5
+    for sq, skv, causal, dtype in ((2048, 2048, True, torch.float32),
+                                   (2048, 2048, True, torch.bfloat16),
+                                   (100, 300, True, torch.float32),
+                                   (1000, 1000, True, torch.float32)):
+        q = torch.randn(b, sq, h, hd, device="cuda", generator=gen).to(dtype)
+        k = torch.randn(b, skv, h, hd, device="cuda", generator=gen).to(dtype)
+        v = torch.randn(b, skv, h, hd, device="cuda", generator=gen).to(dtype)
+        flat = lambda t: t.transpose(1, 2).reshape(b * h, t.shape[1], hd)  # noqa: E731
+        got = flash_ops.flash_mha(q, k, v, scale, causal)
+        want = flash_ref.flash_attention_ref(flat(q), flat(k), flat(v), scale=scale,
+                                             causal=causal)
+        want = want.reshape(b, h, sq, hd).transpose(1, 2)
+        torch.cuda.synchronize()
+        err = close(got, want, 1e-3, 0.0 if dtype == torch.float32 else BF16_STEP)
+        # SDPA's is_causal is aligned at position 0 too (tril of ones(Sq, Skv))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def sdpa(qt=qt, kt=kt, vt=vt, causal=causal):
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                  scale=scale)
+
+        lib_err = float((sdpa().transpose(1, 2).float() - want.float()).abs().max())
+        check(lib_err <= (1e-3 if dtype == torch.float32 else 3e-2),
+              f"flash library call err {lib_err}")
+        bound, by = flash_bound(b, sq, skv, h, hd, causal, q.element_size())
+        row = {"kernel": "flash_attn", "dtype": str(dtype).split(".")[1],
+               "shape": [b, sq, skv, h, hd], "causal": causal, "max_abs_err": err,
+               "kernel_ms": cuda_ms(lambda: flash_ops.flash_mha(q, k, v, scale, causal)),
+               "kernel_device_ms": graph_ms(
+                   lambda: flash_ops.flash_mha(q, k, v, scale, causal)),
+               "plain_ms": cuda_ms(lambda: flash_ref.flash_attention_ref(
+                   flat(q), flat(k), flat(v), scale=scale, causal=causal)),
+               "library_ms": cuda_ms(sdpa),
+               "library": "scaled_dot_product_attention, is_causal aligned at 0 "
+                          "like the kernel (1 call)",
+               "bound_ms": bound, "bound_by": by,
+               "bound_bf16_tensor_core_ms":
+                   flash_flops(b, sq, skv, h, hd, causal) / BF16_FLOPS * 1e3}
+        emit(row)
+        if (sq, dtype) == (2048, torch.float32):
+            main["flash_attn"] = row
     return main
 
 
@@ -442,8 +673,8 @@ def serve_three(eng, requests, label: str, want) -> dict:
             res = eng.run(requests, schedule=schedule)
             run = eng.last_run
             got = {k: registry.LAUNCHES[k] - before[k] for k in before}
-            check(got == want(schedule), f"{label}/{schedule}: launches {got}, "
-                                         f"want {want(schedule)}")
+            expect = dict.fromkeys(before, 0) | want(schedule)
+            check(got == expect, f"{label}/{schedule}: launches {got}, want {expect}")
         check(not run["warmup"], f"{label}/{schedule}: no measured run")
         logp = np.stack([res[u].answer_logprobs for u in sorted(res)])
         check(bool(np.isfinite(logp).all()), f"{label}/{schedule}: non-finite output")
@@ -607,6 +838,115 @@ def phase_reasoners() -> dict[str, dict[str, int]]:
     return paths
 
 
+def phase_ops() -> dict[str, int]:
+    """The three kernel-level entry points at full width, on the card;
+    returns the path's launch counts."""
+    import torch
+
+    from repro_torch.backend import registry
+    from repro_torch.kernels.circ_conv import ops as circ_ops
+    from repro_torch.kernels.circ_conv import ref as circ_ref
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.kernels.flash_attn import ref as flash_ref
+    from repro_torch.vsa import ops as vsa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+
+    def launched(fn, kernel: str, want: int):
+        before = registry.LAUNCHES[kernel]
+        out = fn()
+        torch.cuda.synchronize()
+        got = registry.LAUNCHES[kernel] - before
+        check(got == want, f"{kernel}: {got} launches, want {want}")
+        return out
+
+    registry.reset_launches()
+    # vsa.match_prob: NVSA's block codes (4 x 256) against a 16-entry
+    # dictionary; the floor (d = 128) launches the kernel, d = 64 does not
+    for (n, m, b, d), dtype, want in (((512, 16, 4, 256), torch.float32, 1),
+                                      ((512, 16, 4, 256), torch.bfloat16, 1),
+                                      ((67, 16, 4, 128), torch.float32, 1),
+                                      ((67, 16, 4, 64), torch.float32, 0)):
+        q = unit_codes(gen, n, b, d, dtype=dtype)
+        dic = unit_codes(gen, m, b, d, dtype=dtype)
+        probs = launched(lambda: vsa.match_prob(q, dic, 0.1), "simd_fused", want)
+        cpu = vsa.match_prob(q.cpu(), dic.cpu(), 0.1)
+        rows = float((probs.sum(dim=-1) - 1).abs().max())
+        vs_cpu = float((probs.cpu() - cpu).abs().max())
+        check(probs.dtype == torch.float32 and probs.shape == (n, m)
+              and bool(probs.isfinite().all()), f"match_prob {(n, m, b, d)}: output")
+        check(rows <= 1e-5, f"match_prob {(n, m, b, d)}: rows sum to 1 within {rows}")
+        check(vs_cpu <= 1e-3, f"match_prob {(n, m, b, d)}: {vs_cpu} from the CPU")
+        emit({"phase": "ops", "entry": "vsa.match_prob", "shape": [n, m, b, d],
+              "dtype": str(dtype).split(".")[1], "launches": want,
+              "max_abs_row_sum_err": rows, "max_abs_diff_vs_cpu": vs_cpu})
+    q = unit_codes(gen, 512, 4, 256)
+    dic = unit_codes(gen, 16, 4, 256)
+    w = torch.randn(512, 16, device="cuda", generator=gen)
+    grads = []
+    for dev in ("cuda", "cpu"):
+        qq = q.to(dev).clone().requires_grad_()
+        dd = dic.to(dev).clone().requires_grad_()
+        probs = launched(lambda: vsa.match_prob(qq, dd, 0.1), "simd_fused",
+                         int(dev == "cuda"))
+        (w.to(dev) * probs).sum().backward()
+        grads.append((qq.grad.cpu(), dd.grad.cpu()))
+    grad_err = max(float((a - b).abs().max()) for a, b in zip(*grads))
+    check(grad_err <= 1e-4, f"match_prob gradient {grad_err} from the CPU's")
+    emit({"phase": "ops", "entry": "vsa.match_prob backward", "shape": [512, 16, 4, 256],
+          "max_abs_grad_diff_vs_cpu": grad_err})
+
+    # circ_bind_dict: N queries bound to each of M static entries
+    for mode, (n, m, b, d), dtype in (("conv", (256, 16, 4, 256), torch.float32),
+                                      ("corr", (256, 16, 4, 256), torch.float32),
+                                      ("conv", (67, 5, 4, 128), torch.float32),
+                                      ("corr", (256, 16, 4, 256), torch.bfloat16)):
+        x = unit_codes(gen, n, b, d, dtype=dtype)
+        dic = unit_codes(gen, m, b, d, dtype=dtype)
+        out = launched(lambda: circ_ops.circ_bind_dict(x, dic, mode), "circ_dict", 1)
+        check(out.shape == (n, m, b, d) and out.dtype == dtype
+              and bool(out.isfinite().all()), f"circ_bind_dict {(n, m, b, d)}: output")
+        rtol = BF16_STEP if dtype == torch.bfloat16 else 0.0
+        plain = close(out, circ_ref.circ_dict_ref(x, dic, mode).transpose(1, 2), 1e-3, rtol)
+        circulant = vsa.codebook_circulant(dic.float(), mode)  # (M, B, d, d)
+        via = torch.einsum("nbk,mbik->nmbi", x.float(), circulant)
+        einsum = close(out, via, 1e-3, rtol)
+        emit({"phase": "ops", "entry": "circ_bind_dict", "mode": mode,
+              "shape": [n, m, b, d], "dtype": str(dtype).split(".")[1], "launches": 1,
+              "max_abs_err_vs_plain": plain, "max_abs_err_vs_codebook_circulant": einsum})
+
+    # flash_mha at llama3.2-3b's attention width: 24 query heads of 128, k/v
+    # drawn as 8 heads and repeated (GQA) to 24
+    for (sq, skv), causal, dtype in (((2048, 2048), True, torch.float32),
+                                     ((2048, 2048), True, torch.bfloat16),
+                                     ((100, 300), True, torch.float32),
+                                     ((100, 300), False, torch.float32),
+                                     ((1000, 1000), True, torch.float32)):
+        b, h, kvh, hd = 1, 24, 8, 128
+        q = torch.randn(b, sq, h, hd, device="cuda", generator=gen).to(dtype)
+        k = torch.randn(b, skv, kvh, hd, device="cuda", generator=gen).to(dtype)
+        v = torch.randn(b, skv, kvh, hd, device="cuda", generator=gen).to(dtype)
+        k, v = (t.repeat_interleave(h // kvh, dim=2) for t in (k, v))
+        scale = hd ** -0.5
+        out = launched(lambda: flash_ops.flash_mha(q, k, v, scale, causal), "flash_attn", 1)
+        check(out.shape == q.shape and out.dtype == dtype and bool(out.isfinite().all()),
+              f"flash_mha {(sq, skv)}: output")
+        flat = lambda t: t.transpose(1, 2).reshape(b * h, t.shape[1], hd)  # noqa: E731
+        want = flash_ref.flash_attention_ref(flat(q), flat(k), flat(v), scale=scale,
+                                             causal=causal)
+        err = close(out, want.reshape(b, h, sq, hd).transpose(1, 2), 1e-3,
+                    0.0 if dtype == torch.float32 else BF16_STEP)
+        emit({"phase": "ops", "entry": "flash_mha", "shape": [b, sq, skv, h, hd],
+              "kv_heads": kvh, "causal": causal, "dtype": str(dtype).split(".")[1],
+              "launches": 1, "max_abs_err_vs_plain": err})
+    counts = dict(registry.LAUNCHES)
+    for name in ("circ_dict", "simd_fused", "flash_attn"):
+        check(counts[name] > 0, f"kernel {name} was not launched on the ops path")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -623,13 +963,14 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_device()
     main_rows = phase_kernels()
-    paths = {"nvsa": phase_serve(), "mimonet": phase_mimonet(), **phase_reasoners()}
+    paths = {"nvsa": phase_serve(), "mimonet": phase_mimonet(), **phase_reasoners(),
+             "ops": phase_ops()}
     emit({"phase": "launches_by_path", **paths})
     kernels = []
     for name, spec in registry.KERNELS.items():
         row = main_rows[name]
         launches = sum(p[name] for p in paths.values())
-        check(launches > 0, f"kernel {name} was launched on no served path")
+        check(launches > 0, f"kernel {name} was launched on no path")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{spec.source}",

@@ -12,11 +12,14 @@ buffer specs that way).
 Each entry keeps the reference's kernel name, its epsilon against the
 exact reference, and its ``dispatch_min_size``: below that block dim
 ``vsa.bind`` / ``vsa.unbind`` take the exact gather reference instead of
-the kernel, on every device, as the reference routes on every platform.
+the kernel, on every device, as the reference routes on every platform
+(``vsa.match_prob`` likewise at simd_fused's floor).
 
 ``LAUNCHES`` counts kernel launches per kernel: each wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that its path
-went through the kernels.
+went through the kernels.  The count is one per wrapper call that reached
+the card, whatever the device launches of that call: ``fused_match_prob``
+makes two (the dictionary's normalisation, then the match) and counts one.
 
 ``record_kernels()`` is the counterpart of the reference's
 ``registry.record_selections``: while it is open, every call of a kernel
@@ -73,6 +76,28 @@ KERNELS: dict[str, KernelSpec] = {
         source="unbind_classify.cu",
         replaces="src/repro/kernels/unbind_classify/kernel.py:56",
         epsilon=1e-3, dispatch_min_size=128),
+    "circ_dict": KernelSpec(
+        name="circ_dict",
+        describe="N queries bound to each of M static dictionary entries "
+                 "(circ_bind_dict); the reference registers it under "
+                 "circ_conv.  A kernel-level wrapper: no dispatch floor",
+        source="circ_dict.cu",
+        replaces="src/repro/kernels/circ_conv/kernel.py:115",
+        epsilon=1e-3),
+    "simd_fused": KernelSpec(
+        name="simd_fused",
+        describe="fused blockwise normalise / dot / softmax match_prob "
+                 "(the SIMD unit)",
+        source="simd_fused.cu",
+        replaces="src/repro/kernels/simd_fused/kernel.py:44",
+        epsilon=1e-3, dispatch_min_size=128),
+    "flash_attn": KernelSpec(
+        name="flash_attn",
+        describe="causal online-softmax attention over (B, S, H, hd), "
+                 "k/v pre-repeated to H heads",
+        source="flash_attn.cu",
+        replaces="src/repro/kernels/flash_attn/kernel.py:66",
+        epsilon=3e-2),
 }
 
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}

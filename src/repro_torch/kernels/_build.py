@@ -34,12 +34,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # each kernel's C entry point and its argument types (every pointer and the
 # stream as c_void_p: left undeclared, ctypes would pass a 32-bit int)
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 ENTRY_POINTS = {
     "circ_conv": ("circ_elem_launch", [_P, _P, _P, _L, _I, _I, _I, _P]),
     "qmatmul": ("qmatmul_launch", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "unbind_classify": ("unbind_classify_launch",
                         [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P]),
+    "circ_dict": ("circ_dict_launch", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "simd_fused": ("match_prob_launch",
+                   [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
+    "flash_attn": ("flash_attn_launch",
+                   [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P]),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -1,9 +1,14 @@
-"""Wrappers of the circ_conv kernel (``csrc/circ_conv.cu``).
+"""Wrappers of the circ_conv and circ_dict kernels (``csrc/circ_conv.cu``,
+``csrc/circ_dict.cu``).
 
-``circ_elem`` is the kernel call: on a CUDA tensor it launches the Hopper
-kernel or raises; on a CPU tensor it runs the plain version in ``ref``.
-``circ_bind`` is what ``vsa.bind`` / ``vsa.unbind`` call: it broadcasts the
-leading dims, materialises them contiguous and flattens to (N, B, d).
+``circ_elem`` and ``circ_bind_dict`` are the kernel calls: on a CUDA
+tensor they launch the Hopper kernel or raise; on a CPU tensor they run the
+plain version in ``ref``.  ``circ_bind`` is what ``vsa.bind`` /
+``vsa.unbind`` call: it broadcasts the leading dims, materialises them
+contiguous and flattens to (N, B, d).  ``circ_bind_dict`` binds N queries
+to each of M static dictionary entries and returns (N, M, B, d), which the
+kernel writes directly; ``circ_dict`` is its (N, B, M, d) view, the layout
+of the Pallas ``circ_dict``.
 
 Forward only: the autograd function and its backward kernels (conv:
 da = corr(b, g), db = corr(a, g); corr: da = corr(g, b), db = conv(g, a))
@@ -20,6 +25,9 @@ from repro_torch.kernels.circ_conv import ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SMEM = 227 * 1024   # bytes of shared memory one block may use on Hopper
+DICT_QUERY_TILE = 16     # circ_dict.cu's TN: queries per block
+# circ_dict stages (TN + 1) rows of d floats per block
+DICT_MAX_D = _MAX_SMEM // (4 * (DICT_QUERY_TILE + 1))
 
 
 def _launch(x: torch.Tensor, y: torch.Tensor, mode: str) -> torch.Tensor:
@@ -75,3 +83,57 @@ def circ_bind(a: torch.Tensor, b: torch.Tensor, mode: str = "conv") -> torch.Ten
     af = a.reshape(-1, blocks, d).contiguous()
     bf = b.reshape(-1, blocks, d).contiguous()
     return circ_elem(af, bf, mode).reshape(*lead, blocks, d)
+
+
+def _launch_dict(x: torch.Tensor, dictionary: torch.Tensor, mode: str) -> torch.Tensor:
+    if mode not in ("conv", "corr"):
+        raise ValueError(f"mode must be 'conv' or 'corr', got {mode!r}")
+    if x.dim() != 3 or dictionary.dim() != 3 or x.shape[1:] != dictionary.shape[1:]:
+        raise ValueError(f"circ_dict wants x (N, B, d) and a dictionary (M, B, d), "
+                         f"got {tuple(x.shape)} and {tuple(dictionary.shape)}")
+    if x.dtype not in _DTYPES or dictionary.dtype != x.dtype:
+        raise TypeError(f"circ_dict takes float32 or bfloat16 of one dtype, "
+                        f"got {x.dtype} and {dictionary.dtype}")
+    if dictionary.device != x.device:
+        raise ValueError(f"x on {x.device}, dictionary on {dictionary.device}")
+    if not (x.is_contiguous() and dictionary.is_contiguous()):
+        raise ValueError("circ_dict needs contiguous inputs")
+    n, b, d = x.shape
+    m = dictionary.shape[0]
+    if d > DICT_MAX_D:
+        raise ValueError(f"block dim d={d} exceeds the kernel's shared memory "
+                         f"(d <= {DICT_MAX_D})")
+    if m * b > 65535 or n >= 2 ** 31 - DICT_QUERY_TILE:
+        raise ValueError(f"(N, M, B) = {(n, m, b)} exceeds the kernel's grid")
+    out = torch.empty((n, m, b, d), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    fn = _build.entry("circ_dict")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), dictionary.data_ptr(), out.data_ptr(), n, m, b, d,
+                _DTYPES[x.dtype], int(mode == "corr"), stream)
+    _build.check(rc, "circ_dict")
+    registry.count_launch("circ_dict")
+    return out
+
+
+def circ_dict(x: torch.Tensor, dictionary: torch.Tensor,
+              mode: str = "conv") -> torch.Tensor:
+    """N queries against M dictionary entries, the Pallas ``circ_dict``.
+
+    x: (N, B, d), dictionary: (M, B, d) -> (N, B, M, d) in x's dtype, a
+    transposed view of ``circ_bind_dict``'s output."""
+    return circ_bind_dict(x, dictionary, mode).transpose(1, 2)
+
+
+def circ_bind_dict(x: torch.Tensor, dictionary: torch.Tensor,
+                   mode: str = "conv") -> torch.Tensor:
+    """x: (N, blocks, d) vs dictionary: (M, blocks, d) -> (N, M, blocks, d).
+
+    A kernel-level entry point, as in the reference: it ignores the
+    dispatch floor and goes to the circ_dict kernel at every d."""
+    registry.note_call("circ_dict")
+    if registry.on_card(x):
+        return _launch_dict(x, dictionary, mode)
+    return ref.circ_dict_ref(x, dictionary, mode).transpose(1, 2)

@@ -1,7 +1,8 @@
-"""Plain PyTorch version of the circ_conv kernel (exact gather formulation).
+"""Plain PyTorch versions of the circ_conv and circ_dict kernels (exact
+gather formulation).
 
-The CPU path of ``ops.circ_elem`` and the yardstick ``chip_smoke.py`` holds
-the CUDA kernel against on the card.
+The CPU paths of ``ops.circ_elem`` and ``ops.circ_dict`` and the
+yardsticks ``chip_smoke.py`` holds the CUDA kernels against on the card.
 """
 
 from __future__ import annotations
@@ -23,3 +24,11 @@ def circ_elem_ref(x: torch.Tensor, y: torch.Tensor, mode: str = "conv") -> torch
     """x, y: (..., d) -> (..., d), f32 accumulation, output in x's dtype."""
     ymat = y[..., circ_index(x.shape[-1], mode, x.device)]  # (..., d, d)
     return torch.einsum("...k,...nk->...n", x.float(), ymat.float()).to(x.dtype)
+
+
+def circ_dict_ref(x: torch.Tensor, dictionary: torch.Tensor,
+                  mode: str = "conv") -> torch.Tensor:
+    """x: (N, B, d), dictionary: (M, B, d) -> (N, B, M, d), f32
+    accumulation, output in x's dtype."""
+    dmat = dictionary[..., circ_index(x.shape[-1], mode, x.device)]  # (M, B, d, d)
+    return torch.einsum("xbk,mbnk->xbmn", x.float(), dmat.float()).to(x.dtype)

@@ -1,0 +1,68 @@
+"""Wrapper of the flash attention kernel (``csrc/flash_attn.cu``).
+
+``flash_mha`` is the kernel call, over the reference's (B, S, H, hd)
+layout with k and v already repeated to H heads: on a CUDA tensor it
+launches the Hopper kernel, which reads that layout in place, or raises;
+on a CPU tensor it runs the plain version in ``ref`` on (B·H, S, hd), as
+the reference's ``flash_mha`` transposes.  Forward only, as in the
+reference.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.backend import registry
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attn import ref
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 256   # flash_attn.cu's register accumulator and shared memory
+
+
+def _launch(q, k, v, scale: float, causal: bool) -> torch.Tensor:
+    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 \
+            or (q.shape[0], q.shape[2], q.shape[3]) != (k.shape[0], k.shape[2], k.shape[3]):
+        raise ValueError(f"flash_mha wants q (B, Sq, H, hd) and k, v (B, Skv, H, hd), "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_mha takes float32 or bfloat16 of one dtype, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_mha needs contiguous inputs")
+    b, sq, h, hd = q.shape
+    skv = k.shape[1]
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {hd} outside the kernel's 1..{MAX_HEAD_DIM}")
+    if b * h > 65535:
+        raise ValueError(f"B·H = {b * h} exceeds the kernel's grid (65535)")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    fn = _build.entry("flash_attn")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv,
+                h, hd, float(scale), int(causal), _DTYPES[q.dtype], stream)
+    _build.check(rc, "flash_attn")
+    registry.count_launch("flash_attn")
+    return out
+
+
+def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+              causal: bool = True) -> torch.Tensor:
+    """q: (B, Sq, H, hd); k, v: (B, Skv, H, hd) (GQA groups pre-repeated)
+    -> (B, Sq, H, hd) in q's dtype.  The causal mask is aligned at
+    position 0: query i sees keys 0..i, also when Sq != Skv."""
+    registry.note_call("flash_attn")
+    if registry.on_card(q):
+        return _launch(q, k, v, scale, causal)
+    b, sq, h, hd = q.shape
+    skv = k.shape[1]
+    out = ref.flash_attention_ref(q.transpose(1, 2).reshape(b * h, sq, hd),
+                                  k.transpose(1, 2).reshape(b * h, skv, hd),
+                                  v.transpose(1, 2).reshape(b * h, skv, hd),
+                                  scale=scale, causal=causal)
+    return out.reshape(b, h, sq, hd).transpose(1, 2)

@@ -6,7 +6,9 @@ correlation.  ``bind`` / ``unbind`` route through the kernel registry: at
 block dims at or above circ_conv's ``dispatch_min_size`` (128) they call
 the circ_conv kernel wrapper (the Hopper kernel on a CUDA tensor, its plain
 version on a CPU tensor); below it they take the exact gather reference on
-every device, as the reference does on every platform.
+every device, as the reference does on every platform.  ``match_prob``
+routes the same way at simd_fused's floor (128): the fused match_prob
+kernel at and above it, ``similarity_matrix`` + softmax below.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ import torch
 
 from repro_torch.backend import registry
 from repro_torch.kernels.circ_conv import ops as k_ops
-from repro_torch.kernels.circ_conv.ref import circ_elem_ref
+from repro_torch.kernels.circ_conv.ref import circ_elem_ref, circ_index
+from repro_torch.kernels.simd_fused import ops as simd_ops
 
 
 # ---------------------------------------------------------------------------
@@ -101,6 +104,27 @@ def similarity_matrix(q: torch.Tensor, dictionary: torch.Tensor) -> torch.Tensor
     qn = normalize(q.float())
     dn = normalize(dictionary.float())
     return torch.einsum("nbd,mbd->nm", qn, dn) / q.shape[-2]
+
+
+def match_prob(q: torch.Tensor, dictionary: torch.Tensor,
+               temp: float = 1.0) -> torch.Tensor:
+    """Paper Listing 1 ``match_prob_multi_batched``: probability that each
+    query matches each dictionary entry, a softmax over scaled
+    similarities.  q: (n, blocks, d), dictionary: (m, blocks, d) -> (n, m)
+    f32.  At block dims at or above simd_fused's floor (128) it is the fused
+    kernel (differentiable; its backward is the plain chain's), below it
+    ``similarity_matrix`` and a softmax, on every device."""
+    if registry.dispatch_path("simd_fused", q.shape[-1]) == "kernel":
+        return simd_ops.fused_match_prob(q.contiguous(), dictionary.contiguous(), temp)
+    return torch.softmax(similarity_matrix(q, dictionary) / temp, dim=-1)
+
+
+def codebook_circulant(dictionary: torch.Tensor, mode: str = "conv") -> torch.Tensor:
+    """Circulant expansion of a static codebook: dictionary (m, blocks, d)
+    -> (m, blocks, d, d) such that ``bind(x, dict_i) ==
+    einsum('bk,bnk->bn', x, out_i)`` (``unbind`` likewise with
+    ``mode="corr"``)."""
+    return dictionary[..., circ_index(dictionary.shape[-1], mode, dictionary.device)]
 
 
 def random_codebook(generator: torch.Generator, n: int, blocks: int, d: int,

@@ -11,10 +11,15 @@ import torch
 from repro_torch.backend import registry
 from repro_torch.kernels.circ_conv import ops as circ_ops
 from repro_torch.kernels.circ_conv import ref as circ_ref
+from repro_torch.kernels.flash_attn import ops as flash_ops
+from repro_torch.kernels.flash_attn import ref as flash_ref
 from repro_torch.kernels.qmatmul import ops as qops
 from repro_torch.kernels.qmatmul import ref as qref
+from repro_torch.kernels.simd_fused import ops as simd_ops
+from repro_torch.kernels.simd_fused import ref as simd_ref
 from repro_torch.kernels.unbind_classify import ops as uc_ops
 from repro_torch.kernels.unbind_classify import ref as uc_ref
+from repro_torch.vsa import ops as vsa
 
 torch.set_num_threads(2)
 
@@ -162,3 +167,165 @@ def test_unbind_classify_rejects_what_the_kernel_does_not_take(gen):
         uc_ops.fused_unbind_classify(keys, x, big_w, big_b)
     with pytest.raises(ValueError, match="do not agree"):
         uc_ops.fused_unbind_classify(keys, x[:, :2].contiguous(), w, b)
+
+
+# -- circ_dict -----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["conv", "corr"])
+@pytest.mark.parametrize("nmbd", [(256, 16, 4, 256), (67, 5, 4, 128), (13, 3, 2, 130)])
+def test_circ_dict_kernel(gen, nmbd, mode, dtype):
+    """circ_bind_dict's (N, M, B, d) and circ_dict's (N, B, M, d) view of it
+    within the registry epsilon (1e-3) of the plain version in f32, one bf16
+    step apart in bf16; one launch per call."""
+    n, m, b, d = nmbd
+    x = torch.randn(n, b, d, device="cuda", generator=gen).to(dtype)
+    dic = torch.randn(m, b, d, device="cuda", generator=gen).to(dtype)
+    before = registry.LAUNCHES["circ_dict"]
+    got = circ_ops.circ_dict(x, dic, mode)
+    bound = circ_ops.circ_bind_dict(x, dic, mode)
+    torch.cuda.synchronize()
+    assert registry.LAUNCHES["circ_dict"] == before + 2
+    want = circ_ref.circ_dict_ref(x, dic, mode)
+    assert got.dtype == dtype and got.shape == (n, b, m, d) and bound.shape == (n, m, b, d)
+    rtol = 0 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-3, rtol=rtol)
+    torch.testing.assert_close(bound, got.transpose(1, 2), atol=0, rtol=0)
+
+
+def test_circ_dict_rejects_what_the_kernel_does_not_take(gen):
+    x = torch.randn(4, 2, 64, device="cuda", generator=gen)
+    with pytest.raises(TypeError):
+        circ_ops.circ_dict(x.half(), x.half())
+    with pytest.raises(TypeError):
+        circ_ops.circ_dict(x, x.bfloat16())
+    with pytest.raises(ValueError, match="wants"):
+        circ_ops.circ_dict(x, x[:, :1].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        circ_ops.circ_dict(x.transpose(0, 1), x.transpose(0, 1))
+    big = torch.zeros(1, 1, circ_ops.DICT_MAX_D + 1, device="cuda")
+    with pytest.raises(ValueError, match="shared memory"):
+        circ_ops.circ_bind_dict(big, big)
+    edge = torch.randn(2, 1, circ_ops.DICT_MAX_D, device="cuda", generator=gen)
+    torch.testing.assert_close(circ_ops.circ_dict(edge, edge[:1]),
+                               circ_ref.circ_dict_ref(edge, edge[:1]), atol=1e-3, rtol=0)
+
+
+# -- fused match_prob ----------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nmbd,temp", [((512, 16, 4, 256), 0.1), ((67, 5, 4, 128), 1.0),
+                                       ((64, 1024, 4, 256), 0.1)])
+def test_match_prob_kernel(gen, nmbd, temp, dtype):
+    """Within 1e-6 + 1e-4 relative of the plain version (far inside the
+    registry epsilon, 1e-3, and far below a probability of 1/M), rows
+    summing to 1; M = 1024 streams the dictionary through shared memory in
+    chunks."""
+    n, m, b, d = nmbd
+    q = torch.randn(n, b, d, device="cuda", generator=gen).to(dtype)
+    dic = torch.randn(m, b, d, device="cuda", generator=gen).to(dtype)
+    before = registry.LAUNCHES["simd_fused"]
+    got = simd_ops.fused_match_prob(q, dic, temp)
+    torch.cuda.synchronize()
+    assert registry.LAUNCHES["simd_fused"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (n, m)
+    torch.testing.assert_close(got, simd_ref.fused_match_prob_ref(q, dic, temp),
+                               atol=1e-6, rtol=1e-4)
+    torch.testing.assert_close(got.sum(dim=-1), torch.ones(n, device="cuda"),
+                               atol=1e-5, rtol=0)
+
+
+def test_match_prob_gradient_on_the_card(gen):
+    """vsa.match_prob at d >= 128 goes through the kernel and back through
+    the plain chain: gradients within 1e-4 of the CPU's."""
+    q = torch.randn(32, 4, 128, device="cuda", generator=gen)
+    dic = torch.randn(7, 4, 128, device="cuda", generator=gen)
+    w = torch.randn(32, 7, device="cuda", generator=gen)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        qq = q.to(dev).clone().requires_grad_()
+        dd = dic.to(dev).clone().requires_grad_()
+        (w.to(dev) * vsa.match_prob(qq, dd, 0.1)).sum().backward()
+        grads[dev] = (qq.grad, dd.grad)
+    for g_gpu, g_cpu in zip(*grads.values()):
+        torch.testing.assert_close(g_gpu.cpu(), g_cpu, atol=1e-4, rtol=0)
+
+
+def test_match_prob_rejects_what_the_kernel_does_not_take(gen):
+    q = torch.randn(8, 4, 256, device="cuda", generator=gen)
+    with pytest.raises(TypeError):
+        simd_ops.fused_match_prob(q.double(), q.double())
+    with pytest.raises(TypeError):
+        simd_ops.fused_match_prob(q, q.bfloat16())
+    with pytest.raises(ValueError, match="wants"):
+        simd_ops.fused_match_prob(q, q[:, :2].contiguous())
+    limit = simd_ops.max_entries(4, 256)
+    dic = torch.randn(limit + 1, 4, 256, device="cuda", generator=gen)
+    with pytest.raises(ValueError, match=f"M <= {limit}"):
+        simd_ops.fused_match_prob(q, dic)
+    got = simd_ops.fused_match_prob(q, dic[:limit], 1.0)
+    torch.testing.assert_close(got, simd_ref.fused_match_prob_ref(q, dic[:limit], 1.0),
+                               atol=1e-6, rtol=1e-4)
+
+
+# -- flash attention -----------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,skv,causal", [
+    ((1, 1024, 8, 128), 1024, True), ((2, 100, 4, 64), 300, True),
+    ((2, 100, 4, 64), 300, False), ((1, 300, 2, 128), 100, True),
+    ((1, 1000, 2, 80), 1000, True),
+])
+def test_flash_attn_kernel(gen, shape, skv, causal, dtype):
+    """Within 1e-3 of the plain version at f32 and 1e-3 plus one bf16 step
+    (2^-7 relative) at bf16, far inside the registry epsilon (3e-2); Sq !=
+    Skv pins the top-left causal alignment, S = 1000 and hd = 80 the ragged
+    tiles."""
+    b, sq, h, hd = shape
+    q = torch.randn(b, sq, h, hd, device="cuda", generator=gen).to(dtype)
+    k = torch.randn(b, skv, h, hd, device="cuda", generator=gen).to(dtype)
+    v = torch.randn(b, skv, h, hd, device="cuda", generator=gen).to(dtype)
+    before = registry.LAUNCHES["flash_attn"]
+    got = flash_ops.flash_mha(q, k, v, hd ** -0.5, causal)
+    torch.cuda.synchronize()
+    assert registry.LAUNCHES["flash_attn"] == before + 1
+    flat = lambda t: t.transpose(1, 2).reshape(b * h, t.shape[1], hd)
+    want = flash_ref.flash_attention_ref(flat(q), flat(k), flat(v), scale=hd ** -0.5,
+                                         causal=causal)
+    want = want.reshape(b, h, sq, hd).transpose(1, 2)
+    assert got.dtype == dtype and got.shape == q.shape
+    rtol = 0 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-3, rtol=rtol)
+
+
+def test_flash_attn_rejects_what_the_kernel_does_not_take(gen):
+    q = torch.randn(1, 16, 2, 64, device="cuda", generator=gen)
+    with pytest.raises(TypeError):
+        flash_ops.flash_mha(q.half(), q.half(), q.half(), 0.125)
+    with pytest.raises(TypeError):
+        flash_ops.flash_mha(q, q.bfloat16(), q.bfloat16(), 0.125)
+    with pytest.raises(ValueError, match="wants"):
+        flash_ops.flash_mha(q, q[:, :, :1].contiguous(), q, 0.125)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_ops.flash_mha(q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2), 0.125)
+    big = torch.zeros(1, 4, 1, flash_ops.MAX_HEAD_DIM + 1, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        flash_ops.flash_mha(big, big, big, 0.0625)
+
+
+def test_new_kernels_are_deterministic(gen):
+    """No atomics and fixed reduction orders: repeated launches of the three
+    kernels give bit-identical outputs."""
+    x = torch.randn(67, 4, 256, device="cuda", generator=gen)
+    dic = torch.randn(16, 4, 256, device="cuda", generator=gen)
+    q = torch.randn(1, 300, 4, 128, device="cuda", generator=gen)
+    calls = [lambda: circ_ops.circ_bind_dict(x, dic),
+             lambda: simd_ops.fused_match_prob(x, dic, 0.1),
+             lambda: flash_ops.flash_mha(q, q, q, 128 ** -0.5)]
+    for call in calls:
+        first = call()
+        for _ in range(3):
+            assert torch.equal(call(), first)

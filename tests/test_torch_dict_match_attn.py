@@ -1,0 +1,243 @@
+"""Parity of the port's circ_dict, fused match_prob and flash attention
+modules with the JAX reference.
+
+On this host the port's wrappers get CPU tensors and run their plain
+versions; the reference runs its Pallas kernels in interpret mode.  The
+same numpy inputs go through both.  The CUDA kernels themselves are
+tested on the card by ``test_torch_cuda.py``.
+"""
+
+import pathlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.backend import registry as jregistry
+from repro.kernels.circ_conv import kernel as jcirc
+from repro.kernels.circ_conv import ops as jcirc_ops
+from repro.kernels.flash_attn import ops as jflash_ops
+from repro.kernels.simd_fused import kernel as jsimd
+from repro.kernels.simd_fused import ops as jsimd_ops
+from repro.vsa import ops as jvsa
+from repro_torch.backend import registry
+from repro_torch.kernels.circ_conv import ops as circ_ops
+from repro_torch.kernels.flash_attn import ops as flash_ops
+from repro_torch.kernels.simd_fused import ops as simd_ops
+from repro_torch.kernels.simd_fused import ref as simd_ref
+from repro_torch.vsa import ops as vsa
+
+torch.set_num_threads(2)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _normal(seed, *shape):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+# -- circ_dict -----------------------------------------------------------------
+
+DICT_SHAPES = [(5, 3, 2, 64), (13, 4, 4, 128)]
+
+
+@pytest.mark.parametrize("mode", ["conv", "corr"])
+@pytest.mark.parametrize("nmbd", DICT_SHAPES)
+def test_circ_dict_matches_pallas_interpret(nmbd, mode):
+    """(N, B, M, d) output of the port's circ_dict (plain version on the
+    CPU) against the Pallas circ_dict in interpret mode; atol 1e-4 (f32,
+    sums of d terms taken in another order)."""
+    n, m, b, d = nmbd
+    x, dic = _normal(n, n, b, d), _normal(m + 100, m, b, d)
+    want = np.asarray(jcirc.circ_dict(jnp.asarray(x), jnp.asarray(dic), mode=mode,
+                                      interpret=True))
+    got = circ_ops.circ_dict(torch.from_numpy(x), torch.from_numpy(dic), mode)
+    assert got.dtype == torch.float32 and got.shape == (n, b, m, d)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("mode", ["conv", "corr"])
+@pytest.mark.parametrize("nmbd", DICT_SHAPES)
+def test_circ_bind_dict_matches_reference(nmbd, mode):
+    """circ_bind_dict returns (N, M, B, d), as reference ``ops.py:95``, and
+    equals binding each query to each entry one pair at a time."""
+    n, m, b, d = nmbd
+    x, dic = _normal(n + 1, n, b, d), _normal(m + 200, m, b, d)
+    want = np.asarray(jcirc_ops.circ_bind_dict(jnp.asarray(x), jnp.asarray(dic), mode))
+    got = circ_ops.circ_bind_dict(torch.from_numpy(x), torch.from_numpy(dic), mode)
+    assert got.shape == (n, m, b, d)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
+    pairs = circ_ops.circ_bind(torch.from_numpy(x)[:, None], torch.from_numpy(dic)[None],
+                               mode)
+    torch.testing.assert_close(got, pairs, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("mode", ["conv", "corr"])
+def test_codebook_circulant_exact(mode):
+    """The circulant expansion equals the reference's bit for bit, and its
+    einsum is the binding (conv) or unbinding (corr) of a query."""
+    dic = _normal(5, 3, 2, 64)
+    got = vsa.codebook_circulant(torch.from_numpy(dic), mode)
+    want = np.asarray(jvsa.codebook_circulant(jnp.asarray(dic), mode))
+    assert got.shape == (3, 2, 64, 64)
+    np.testing.assert_array_equal(got.numpy(), want)
+    x = torch.from_numpy(_normal(6, 2, 64))
+    bound = torch.einsum("bk,mbnk->mbn", x, got)
+    torch.testing.assert_close(bound, circ_ops.circ_bind_dict(x[None], torch.from_numpy(dic),
+                                                              mode)[0], atol=1e-5, rtol=0)
+
+
+# -- fused match_prob ----------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,m,d,temp,dtype", [
+    (5, 3, 32, 1.0, "float32"),
+    (40, 7, 128, 0.1, "float32"),
+    (40, 7, 128, 0.1, "bfloat16"),
+])
+def test_fused_match_prob_matches_pallas_interpret(n, m, d, temp, dtype):
+    """The port's fused_match_prob (plain version of the kernel's
+    arithmetic) against the Pallas kernel in interpret mode, on the same
+    values (bf16 inputs rounded from the same f32 draws); f32 out, atol
+    1e-5."""
+    q, dic = _normal(n, n, 4, d), _normal(m, m, 4, d)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = getattr(torch, dtype)
+    want = np.asarray(jsimd.fused_match_prob(jnp.asarray(q, jdt), jnp.asarray(dic, jdt),
+                                             temp, interpret=True))
+    got = simd_ops.fused_match_prob(torch.from_numpy(q).to(tdt),
+                                    torch.from_numpy(dic).to(tdt), temp)
+    assert got.dtype == torch.float32 and got.shape == (n, m)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_match_prob_matches_reference(d):
+    """vsa.match_prob on both routes: similarity_matrix + softmax at d = 64,
+    the fused kernel at d = 128 (simd_fused's floor), as the reference."""
+    q, dic = _normal(d, 9, 4, d), _normal(d + 1, 6, 4, d)
+    want = np.asarray(jvsa.match_prob(jnp.asarray(q), jnp.asarray(dic), 0.1))
+    got = vsa.match_prob(torch.from_numpy(q), torch.from_numpy(dic), 0.1)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got.sum(dim=-1).numpy(), 1.0, atol=1e-6)
+
+
+@pytest.mark.parametrize("d,temp", [(128, 0.1), (32, 1.0)])
+def test_fused_match_prob_gradient_matches_jax(d, temp):
+    """The backward is the autograd of the reference's plain chain: the
+    gradients of sum(w * probs) in q and in the dictionary agree with
+    jax.grad through the reference's fused_match_prob (custom VJP) within
+    1e-5."""
+    q, dic, w = _normal(1, 8, 4, d), _normal(2, 5, 4, d), _normal(3, 8, 5)
+
+    def loss(qq, dd):
+        return jnp.sum(jnp.asarray(w) * jsimd_ops.fused_match_prob(qq, dd, temp,
+                                                                   use_kernel=True))
+
+    jgq, jgd = jax.grad(loss, argnums=(0, 1))(jnp.asarray(q), jnp.asarray(dic))
+    tq = torch.from_numpy(q).requires_grad_()
+    td = torch.from_numpy(dic).requires_grad_()
+    (torch.from_numpy(w) * simd_ops.fused_match_prob(tq, td, temp)).sum().backward()
+    np.testing.assert_allclose(tq.grad.numpy(), np.asarray(jgq), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(td.grad.numpy(), np.asarray(jgd), atol=1e-5, rtol=0)
+
+
+def test_match_prob_plain_versions_agree():
+    """The kernel's arithmetic (rsqrt(Σx² + 1e-18)) and the reference's
+    chain (norm clamped at 1e-9) differ only in rounding on nonzero rows."""
+    q, dic = torch.from_numpy(_normal(4, 16, 4, 256)), torch.from_numpy(_normal(5, 16, 4, 256))
+    torch.testing.assert_close(simd_ref.fused_match_prob_ref(q, dic, 0.1),
+                               simd_ref.match_prob_chain(q, dic, 0.1), atol=1e-6, rtol=0)
+
+
+def test_match_prob_entry_limit():
+    """The kernel holds a tile's logits on chip: M is bounded by shared
+    memory, and the bound is at least 1024 at NVSA's 4 x 256 (13248)."""
+    assert simd_ops.max_entries(4, 256) == 13248
+    assert simd_ops.max_entries(4, 256) >= 1024
+    assert simd_ops.max_entries(8, 1024) >= 1024
+
+
+# -- flash attention -----------------------------------------------------------
+
+
+def _bf16_ulp(x: np.ndarray) -> np.ndarray:
+    """One bf16 step (8 significant bits) at each value of ``x``."""
+    return 2.0 ** (np.floor(np.log2(np.maximum(np.abs(x), 2.0 ** -126))) - 7)
+
+
+@pytest.mark.parametrize("shape,skv,causal,dtype", [
+    ((2, 40, 4, 16), 40, True, "float32"),
+    ((2, 32, 4, 16), 40, True, "float32"),
+    ((2, 32, 4, 16), 40, False, "float32"),
+    ((2, 40, 4, 16), 40, True, "bfloat16"),
+])
+def test_flash_mha_matches_reference(shape, skv, causal, dtype):
+    """flash_mha against the reference's (Pallas kernel in interpret mode)
+    on (B, S, H, hd): 1e-4 at f32; at bf16 within one bf16 step of the
+    reference (both round an f32 result).  Sq = 32 against Skv = 40 pins
+    the causal mask's alignment at position 0."""
+    b, sq, h, hd = shape
+    q, k, v = _normal(1, b, sq, h, hd), _normal(2, b, skv, h, hd), _normal(3, b, skv, h, hd)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = getattr(torch, dtype)
+    scale = hd ** -0.5
+    want = np.asarray(jflash_ops.flash_mha(jnp.asarray(q, jdt), jnp.asarray(k, jdt),
+                                           jnp.asarray(v, jdt), scale, causal=causal,
+                                           use_kernel=True).astype(jnp.float32))
+    got = flash_ops.flash_mha(torch.from_numpy(q).to(tdt), torch.from_numpy(k).to(tdt),
+                              torch.from_numpy(v).to(tdt), scale, causal=causal)
+    assert got.dtype == tdt and got.shape == (b, sq, h, hd)
+    diff = np.abs(got.float().numpy() - want)
+    if dtype == "float32":
+        assert diff.max() <= 1e-4, diff.max()
+    else:
+        assert (diff <= _bf16_ulp(want)).all(), diff.max()
+
+
+# -- routes, launch counts, the registry ---------------------------------------
+
+
+def test_cpu_calls_count_no_launch_and_routes_are_recorded():
+    """CPU tensors take the plain versions: no launch is counted.  Below
+    simd_fused's floor match_prob records the gather route, at it the
+    kernel; circ_bind_dict and flash_mha are kernel-level entry points
+    that ignore any floor."""
+    before = dict(registry.LAUNCHES)
+    x = torch.randn(3, 2, 64)
+    with registry.record_kernels() as rec:
+        vsa.match_prob(x, x)
+        vsa.match_prob(torch.randn(3, 2, 128), torch.randn(4, 2, 128))
+        circ_ops.circ_bind_dict(x, x)
+        a = torch.randn(1, 8, 2, 16)
+        flash_ops.flash_mha(a, a, a, 0.25)
+    assert rec == [("simd_fused", "gather"), ("simd_fused", "kernel"),
+                   ("circ_dict", "kernel"), ("flash_attn", "kernel")]
+    assert registry.LAUNCHES == before
+
+
+def test_registry_names_each_pallas_kernel_once():
+    """One spec per Pallas function, with the reference's epsilons and
+    floors; ``replaces`` points at the def of a function that reaches
+    ``pl.pallas_call``, and ``source`` exists."""
+    assert len(registry.KERNELS) == 6
+    assert len({s.replaces for s in registry.KERNELS.values()}) == 6
+    for name, spec in registry.KERNELS.items():
+        assert (ROOT / "src" / "repro_torch" / "csrc" / spec.source).is_file()
+        path, line = spec.replaces.split(":")
+        lines = (ROOT / path).read_text().splitlines()
+        assert lines[int(line) - 1].startswith("def "), spec.replaces
+        body = "\n".join(lines[int(line) - 1:int(line) + 40])
+        assert "pl.pallas_call(" in body, spec.replaces
+    for name in ("simd_fused", "flash_attn"):
+        assert registry.KERNELS[name].epsilon == \
+            jregistry.KERNELS[name].lowerings[0].epsilon
+        assert registry.KERNELS[name].dispatch_min_size == \
+            jregistry.KERNELS[name].dispatch_min_size
+    assert registry.KERNELS["circ_dict"].epsilon == \
+        jregistry.KERNELS["circ_conv"].lowerings[0].epsilon == 1e-3
+    assert registry.KERNELS["circ_dict"].dispatch_min_size == 0
+    assert registry.KERNELS["simd_fused"].dispatch_min_size == 128
+    assert registry.KERNELS["flash_attn"].epsilon == 3e-2
