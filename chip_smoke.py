@@ -22,9 +22,12 @@ and prints no result line):
    and M = 1024 streamed in chunks, within 1e-6 + 1e-4 relative,
    bit-identical repeats) and ``flash_attn`` (``flash_mha`` at
    llama3.2-3b's (1, 2048, 24, 128), causal, within 1e-3 at f32 and 1e-3 +
-   one bf16 step at bf16), each beside its library
-   call (FFT chain; normalize, matmul, softmax; PyTorch's
-   scaled_dot_product_attention) and its bound.
+   one bf16 step at bf16, where the kernel runs on the tensor cores; also
+   Sq = 100 against Skv = 300 and S = 1000 at both dtypes), each beside
+   its library call (FFT chain; normalize, matmul, softmax; PyTorch's
+   scaled_dot_product_attention) and its bound: bytes over the HBM rate
+   or operations over the peak of the units that do them (the f32 CUDA
+   cores, and for flash_attn at bf16 the bf16 tensor cores).
 3. Serve: NVSA at ``make_config(d=256)`` (4 blocks x 256, cnn_width 16,
    cnn_feat 128, 32x32 images, the model's own width) through
    ``reason_engine``, with constants from ``nn/init.py`` on a seeded
@@ -55,12 +58,14 @@ and prints no result line):
    1e-4.  ``circ_bind_dict`` conv/corr within 1e-3 of the plain version and
    of the ``codebook_circulant`` einsum.  ``flash_mha`` at llama3.2-3b's
    attention (24 heads of 128, k/v drawn as 8 heads and repeated), causal
-   at S = 2048 (f32, bf16), Sq = 100 against Skv = 300 (causal and not)
-   and S = 1000, within 1e-3 of the plain version (+ one bf16 step at
-   bf16).
+   at S = 2048 (f32, bf16), Sq = 100 against Skv = 300 (causal and not,
+   f32; not causal, bf16) and S = 1000, within 1e-3 of the plain version
+   (+ one bf16 step at bf16).
 7. The ``kernels`` JSON line: every ported kernel with its launches on the
    paths (each path's counts set to 0 just before it runs and read just
-   after) and its times at its path's shape.
+   after) and its times at its path's shape; ``flash_attn``'s entry holds
+   the f32 row and, under ``bf16``, the bf16 row at the same shape (ms,
+   device_ms, library_ms, bound_ms, max_abs_err).
 8. The last line: ``{"ok": true, "device": {...}}``.
 
 It needs the repository's ``src/`` beside it and a CUDA device; without
@@ -218,9 +223,12 @@ def flash_flops(b: int, sq: int, skv: int, h: int, hd: int, causal: bool) -> int
 def flash_bound(b: int, sq: int, skv: int, h: int, hd: int, causal: bool,
                 elt: int) -> tuple[float, str]:
     """Least time (ms) for flash attention: q, k, v read once and the output
-    written once, against ``flash_flops`` on the f32 CUDA cores."""
+    written once, against ``flash_flops`` on the units the kernel computes
+    on: the bf16 tensor cores for bf16 inputs (``elt == 2``), the f32 CUDA
+    cores for f32."""
     t_bytes = elt * b * h * hd * (2 * sq + 2 * skv) / HBM_BYTES_PER_S
-    t_ops = flash_flops(b, sq, skv, h, hd, causal) / F32_FLOPS
+    peak = BF16_FLOPS if elt == 2 else F32_FLOPS
+    t_ops = flash_flops(b, sq, skv, h, hd, causal) / peak
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations"
 
 
@@ -485,7 +493,9 @@ def flash_kernel_rows(gen) -> dict:
     for sq, skv, causal, dtype in ((2048, 2048, True, torch.float32),
                                    (2048, 2048, True, torch.bfloat16),
                                    (100, 300, True, torch.float32),
-                                   (1000, 1000, True, torch.float32)):
+                                   (100, 300, True, torch.bfloat16),
+                                   (1000, 1000, True, torch.float32),
+                                   (1000, 1000, True, torch.bfloat16)):
         q = torch.randn(b, sq, h, hd, device="cuda", generator=gen).to(dtype)
         k = torch.randn(b, skv, h, hd, device="cuda", generator=gen).to(dtype)
         v = torch.randn(b, skv, h, hd, device="cuda", generator=gen).to(dtype)
@@ -521,8 +531,8 @@ def flash_kernel_rows(gen) -> dict:
                "bound_bf16_tensor_core_ms":
                    flash_flops(b, sq, skv, h, hd, causal) / BF16_FLOPS * 1e3}
         emit(row)
-        if (sq, dtype) == (2048, torch.float32):
-            main["flash_attn"] = row
+        if sq == 2048:
+            main["flash_attn" if dtype == torch.float32 else "flash_attn_bf16"] = row
     return main
 
 
@@ -923,6 +933,7 @@ def phase_ops() -> dict[str, int]:
                                      ((2048, 2048), True, torch.bfloat16),
                                      ((100, 300), True, torch.float32),
                                      ((100, 300), False, torch.float32),
+                                     ((100, 300), False, torch.bfloat16),
                                      ((1000, 1000), True, torch.float32)):
         b, h, kvh, hd = 1, 24, 8, 128
         q = torch.randn(b, sq, h, hd, device="cuda", generator=gen).to(dtype)
@@ -981,6 +992,12 @@ def main() -> int:
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})
+        if name == "flash_attn":
+            bf16 = main_rows["flash_attn_bf16"]
+            kernels[-1]["bf16"] = {
+                "ms": bf16["kernel_ms"], "device_ms": bf16["kernel_device_ms"],
+                "library_ms": bf16["library_ms"], "bound_ms": bf16["bound_ms"],
+                "bound_by": bf16["bound_by"], "max_abs_err": bf16["max_abs_err"]}
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -2,7 +2,8 @@
 
 ``flash_mha`` is the kernel call, over the reference's (B, S, H, hd)
 layout with k and v already repeated to H heads: on a CUDA tensor it
-launches the Hopper kernel, which reads that layout in place, or raises;
+launches the Hopper kernel, which reads that layout in place (f32 on the
+CUDA cores, bf16 on the tensor cores), or raises;
 on a CPU tensor it runs the plain version in ``ref`` on (B·H, S, hd), as
 the reference's ``flash_mha`` transposes.  Forward only, as in the
 reference.

@@ -273,21 +273,51 @@ def test_match_prob_rejects_what_the_kernel_does_not_take(gen):
 # -- flash attention -----------------------------------------------------------
 
 
+def _offset_by_one(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose data starts one element into its
+    storage, so that it is not 16-byte aligned."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,skv,causal", [
     ((1, 1024, 8, 128), 1024, True), ((2, 100, 4, 64), 300, True),
     ((2, 100, 4, 64), 300, False), ((1, 300, 2, 128), 100, True),
-    ((1, 1000, 2, 80), 1000, True),
+    ((1, 1000, 2, 80), 1000, True), ((1, 200, 2, 256), 200, True),
+    ((2, 130, 3, 36), 250, True), ((2, 130, 3, 36), 250, False),
+    ((1, 77, 2, 128), 333, True), ((1, 77, 2, 128), 333, False),
 ])
 def test_flash_attn_kernel(gen, shape, skv, causal, dtype):
     """Within 1e-3 of the plain version at f32 and 1e-3 plus one bf16 step
     (2^-7 relative) at bf16, far inside the registry epsilon (3e-2); Sq !=
-    Skv pins the top-left causal alignment, S = 1000 and hd = 80 the ragged
-    tiles."""
+    Skv pins the top-left causal alignment, S = 1000, Sq = 77 or 130 and hd
+    = 80 the ragged tiles, hd = 36 the element loads of the bf16 kernel
+    (hd % 8 != 0) and hd = 256 its largest head dim."""
+    _check_flash(gen, shape, skv, causal, dtype, aligned=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,skv,causal", [
+    ((1, 130, 2, 128), 250, True), ((2, 100, 4, 64), 300, False),
+])
+def test_flash_attn_kernel_unaligned(gen, shape, skv, causal, dtype):
+    """Inputs that start off a 16-byte boundary (contiguous views at an
+    offset) take the bf16 kernel's element loads at hd % 8 == 0; same
+    limits as ``test_flash_attn_kernel``."""
+    _check_flash(gen, shape, skv, causal, dtype, aligned=False)
+
+
+def _check_flash(gen, shape, skv, causal, dtype, aligned):
     b, sq, h, hd = shape
     q = torch.randn(b, sq, h, hd, device="cuda", generator=gen).to(dtype)
     k = torch.randn(b, skv, h, hd, device="cuda", generator=gen).to(dtype)
     v = torch.randn(b, skv, h, hd, device="cuda", generator=gen).to(dtype)
+    if not aligned:
+        q, k, v = (_offset_by_one(t) for t in (q, k, v))
+        assert q.data_ptr() % 16 != 0 and q.is_contiguous()
     before = registry.LAUNCHES["flash_attn"]
     got = flash_ops.flash_mha(q, k, v, hd ** -0.5, causal)
     torch.cuda.synchronize()
@@ -318,13 +348,15 @@ def test_flash_attn_rejects_what_the_kernel_does_not_take(gen):
 
 def test_new_kernels_are_deterministic(gen):
     """No atomics and fixed reduction orders: repeated launches of the three
-    kernels give bit-identical outputs."""
+    kernels (flash_attn at f32 and bf16) give bit-identical outputs."""
     x = torch.randn(67, 4, 256, device="cuda", generator=gen)
     dic = torch.randn(16, 4, 256, device="cuda", generator=gen)
     q = torch.randn(1, 300, 4, 128, device="cuda", generator=gen)
+    qb = q.bfloat16()
     calls = [lambda: circ_ops.circ_bind_dict(x, dic),
              lambda: simd_ops.fused_match_prob(x, dic, 0.1),
-             lambda: flash_ops.flash_mha(q, q, q, 128 ** -0.5)]
+             lambda: flash_ops.flash_mha(q, q, q, 128 ** -0.5),
+             lambda: flash_ops.flash_mha(qb, qb, qb, 128 ** -0.5)]
     for call in calls:
         first = call()
         for _ in range(3):
