@@ -21,13 +21,16 @@ and prints no result line):
    step), ``simd_fused`` (``fused_match_prob`` at (512, 16, 4, 256), bf16,
    and M = 1024 streamed in chunks, within 1e-6 + 1e-4 relative,
    bit-identical repeats) and ``flash_attn`` (``flash_mha`` at
-   llama3.2-3b's (1, 2048, 24, 128), causal, within 1e-3 at f32 and 1e-3 +
-   one bf16 step at bf16, where the kernel runs on the tensor cores; also
-   Sq = 100 against Skv = 300 and S = 1000 at both dtypes), each beside
-   its library call (FFT chain; normalize, matmul, softmax; PyTorch's
-   scaled_dot_product_attention) and its bound: bytes over the HBM rate
-   or operations over the peak of the units that do them (the f32 CUDA
-   cores, and for flash_attn at bf16 the bf16 tensor cores).
+   llama3.2-3b's (1, 2048, 24, 128), causal, within 2e-5 at f32 and 1e-3 +
+   one bf16 step at bf16, both on the tensor cores; also Sq = 100 against
+   Skv = 300 and S = 1000 at both dtypes; at S = 2048 f32 also the error
+   of one tf32 product per f32 product, the split dropped, which must
+   exceed the 2e-5), each beside its library call (FFT chain;
+   normalize, matmul, softmax; PyTorch's scaled_dot_product_attention,
+   with the backend it chose) and its bound: bytes over the HBM rate or
+   operations over the peak of the units that do them (the f32 CUDA
+   cores; for flash_attn the bf16 tensor cores at bf16 and, at f32, three
+   products on the TF32 tensor cores).
 3. Serve: NVSA at ``make_config(d=256)`` (4 blocks x 256, cnn_width 16,
    cnn_feat 128, 32x32 images, the model's own width) through
    ``reason_engine``, with constants from ``nn/init.py`` on a seeded
@@ -59,13 +62,17 @@ and prints no result line):
    of the ``codebook_circulant`` einsum.  ``flash_mha`` at llama3.2-3b's
    attention (24 heads of 128, k/v drawn as 8 heads and repeated), causal
    at S = 2048 (f32, bf16), Sq = 100 against Skv = 300 (causal and not,
-   f32; not causal, bf16) and S = 1000, within 1e-3 of the plain version
-   (+ one bf16 step at bf16).
+   f32; not causal, bf16) and S = 1000, within 2e-5 of the plain version
+   at f32 and 1e-3 + one bf16 step at bf16.  Gradients on the card:
+   ``vsa.bind`` and ``vsa.unbind`` at 4 x 256 (two circ_conv launches per
+   backward) and ``fused_unbind_classify`` at MIMONet's width, within 1e-4
+   of the CPU; ``flash_mha`` refusing grad and taking a transposed view
+   bit for bit as its contiguous copy.
 7. The ``kernels`` JSON line: every ported kernel with its launches on the
    paths (each path's counts set to 0 just before it runs and read just
    after) and its times at its path's shape; ``flash_attn``'s entry holds
    the f32 row and, under ``bf16``, the bf16 row at the same shape (ms,
-   device_ms, library_ms, bound_ms, max_abs_err).
+   device_ms, library_ms, bound_ms, bound_units, max_abs_err).
 8. The last line: ``{"ok": true, "device": {...}}``.
 
 It needs the repository's ``src/`` beside it and a CUDA device; without
@@ -89,6 +96,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12       # CUDA cores, outside the tensor cores
 INT8_OPS = 1979e12      # tensor cores
 BF16_FLOPS = 989e12     # tensor cores
+TF32_FLOPS = 495e12     # tensor cores
 
 N_REQUESTS = 34         # groups of 8 at batch_size 8: 8, 8, 8, 8, 2
 BUCKETS = (2, 4, 8)
@@ -221,15 +229,22 @@ def flash_flops(b: int, sq: int, skv: int, h: int, hd: int, causal: bool) -> int
 
 
 def flash_bound(b: int, sq: int, skv: int, h: int, hd: int, causal: bool,
-                elt: int) -> tuple[float, str]:
+                elt: int) -> tuple[float, str, str]:
     """Least time (ms) for flash attention: q, k, v read once and the output
-    written once, against ``flash_flops`` on the units the kernel computes
-    on: the bf16 tensor cores for bf16 inputs (``elt == 2``), the f32 CUDA
-    cores for f32."""
+    written once, against the work on the units the kernel computes on:
+    ``flash_flops`` on the bf16 tensor cores for bf16 inputs (``elt ==
+    2``); for f32, three TF32 products per f32 product (3xTF32), 3 x
+    ``flash_flops`` on the TF32 tensor cores.  Returns (ms, "bytes" or
+    "operations", the units of the operations)."""
     t_bytes = elt * b * h * hd * (2 * sq + 2 * skv) / HBM_BYTES_PER_S
-    peak = BF16_FLOPS if elt == 2 else F32_FLOPS
-    t_ops = flash_flops(b, sq, skv, h, hd, causal) / peak
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations"
+    if elt == 2:
+        t_ops = flash_flops(b, sq, skv, h, hd, causal) / BF16_FLOPS
+        units = "bf16 tensor cores"
+    else:
+        t_ops = 3 * flash_flops(b, sq, skv, h, hd, causal) / TF32_FLOPS
+        units = "TF32 tensor cores, 3 products per f32 product"
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations",
+            units)
 
 
 def phase_kernels() -> dict:
@@ -374,6 +389,10 @@ def unit_codes(gen, *shape, dtype=None):
 
 
 BF16_STEP = 2 ** -7  # one bf16 step, relative: where both round an f32 result to bf16
+# f32 flash_attn's limit: its 3xTF32 products keep f32 accuracy (a few 1e-6
+# at llama3.2-3b's width); products of operands rounded once to tf32 (the
+# hi/lo split lost) miss it by far, which ``single_tf32_attention`` shows
+FLASH_F32_ATOL = 2e-5
 
 
 def close(got, want, atol: float, rtol: float = 0.0) -> float:
@@ -480,9 +499,37 @@ def match_kernel_rows(gen) -> dict:
     return main
 
 
+def tf32(x):
+    """x (f32) rounded to tf32, to nearest with ties away from zero, as the
+    kernel's ``split_tf32`` rounds its hi part."""
+    import torch
+
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def single_tf32_attention(q, k, v, scale: float, causal: bool):
+    """(BH, S, hd) f32: the f32 kernel's arithmetic with the hi/lo split
+    dropped, one TF32 product for each f32 product.  q, k, the
+    probabilities and v are rounded to tf32 before their products, which
+    are then exact (f64), so the error against the plain version is the
+    rounding's alone."""
+    import torch
+
+    from repro_torch.kernels.flash_attn import ref as flash_ref
+
+    s = torch.einsum("bqd,bkd->bqk", tf32(q).double(), tf32(k).double()) * scale
+    if causal:
+        mask = torch.ones(q.shape[1], k.shape[1], dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~mask, flash_ref.NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True)).float()
+    out = torch.einsum("bqk,bkd->bqd", tf32(p).double(), tf32(v).double())
+    return (out / p.double().sum(dim=-1, keepdim=True)).float()
+
+
 def flash_kernel_rows(gen) -> dict:
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
 
     from repro_torch.kernels.flash_attn import ops as flash_ops
     from repro_torch.kernels.flash_attn import ref as flash_ref
@@ -505,7 +552,8 @@ def flash_kernel_rows(gen) -> dict:
                                              causal=causal)
         want = want.reshape(b, h, sq, hd).transpose(1, 2)
         torch.cuda.synchronize()
-        err = close(got, want, 1e-3, 0.0 if dtype == torch.float32 else BF16_STEP)
+        f32 = dtype == torch.float32
+        err = close(got, want, FLASH_F32_ATOL if f32 else 1e-3, 0.0 if f32 else BF16_STEP)
         # SDPA's is_causal is aligned at position 0 too (tril of ones(Sq, Skv))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
@@ -516,7 +564,9 @@ def flash_kernel_rows(gen) -> dict:
         lib_err = float((sdpa().transpose(1, 2).float() - want.float()).abs().max())
         check(lib_err <= (1e-3 if dtype == torch.float32 else 3e-2),
               f"flash library call err {lib_err}")
-        bound, by = flash_bound(b, sq, skv, h, hd, causal, q.element_size())
+        backend = SDPBackend(torch._fused_sdp_choice(qt, kt, vt, is_causal=causal,
+                                                     scale=scale)).name
+        bound, by, units = flash_bound(b, sq, skv, h, hd, causal, q.element_size())
         row = {"kernel": "flash_attn", "dtype": str(dtype).split(".")[1],
                "shape": [b, sq, skv, h, hd], "causal": causal, "max_abs_err": err,
                "kernel_ms": cuda_ms(lambda: flash_ops.flash_mha(q, k, v, scale, causal)),
@@ -527,9 +577,16 @@ def flash_kernel_rows(gen) -> dict:
                "library_ms": cuda_ms(sdpa),
                "library": "scaled_dot_product_attention, is_causal aligned at 0 "
                           "like the kernel (1 call)",
-               "bound_ms": bound, "bound_by": by,
-               "bound_bf16_tensor_core_ms":
-                   flash_flops(b, sq, skv, h, hd, causal) / BF16_FLOPS * 1e3}
+               "library_backend": backend,
+               "bound_ms": bound, "bound_by": by, "bound_units": units}
+        if f32 and sq == 2048:
+            single = single_tf32_attention(flat(q), flat(k), flat(v), scale, causal)
+            single = single.reshape(b, h, sq, hd).transpose(1, 2)
+            row["single_tf32_max_abs_err"] = float((single - want).abs().max())
+            check(row["single_tf32_max_abs_err"] > FLASH_F32_ATOL,
+                  f"one tf32 product per f32 product: err "
+                  f"{row['single_tf32_max_abs_err']} is within the f32 limit "
+                  f"{FLASH_F32_ATOL}, which so would not show a lost split")
         emit(row)
         if sq == 2048:
             main["flash_attn" if dtype == torch.float32 else "flash_attn_bf16"] = row
@@ -849,8 +906,9 @@ def phase_reasoners() -> dict[str, dict[str, int]]:
 
 
 def phase_ops() -> dict[str, int]:
-    """The three kernel-level entry points at full width, on the card;
-    returns the path's launch counts."""
+    """The three kernel-level entry points at full width, then the
+    gradients and layouts of ``ops_gradients``, on the card; returns the
+    path's launch counts."""
     import torch
 
     from repro_torch.backend import registry
@@ -947,15 +1005,87 @@ def phase_ops() -> dict[str, int]:
         flat = lambda t: t.transpose(1, 2).reshape(b * h, t.shape[1], hd)  # noqa: E731
         want = flash_ref.flash_attention_ref(flat(q), flat(k), flat(v), scale=scale,
                                              causal=causal)
-        err = close(out, want.reshape(b, h, sq, hd).transpose(1, 2), 1e-3,
-                    0.0 if dtype == torch.float32 else BF16_STEP)
+        f32 = dtype == torch.float32
+        err = close(out, want.reshape(b, h, sq, hd).transpose(1, 2),
+                    FLASH_F32_ATOL if f32 else 1e-3, 0.0 if f32 else BF16_STEP)
         emit({"phase": "ops", "entry": "flash_mha", "shape": [b, sq, skv, h, hd],
               "kv_heads": kvh, "causal": causal, "dtype": str(dtype).split(".")[1],
               "launches": 1, "max_abs_err_vs_plain": err})
+    ops_gradients(gen, launched)
     counts = dict(registry.LAUNCHES)
-    for name in ("circ_dict", "simd_fused", "flash_attn"):
+    for name in ("circ_conv", "unbind_classify", "circ_dict", "simd_fused", "flash_attn"):
         check(counts[name] > 0, f"kernel {name} was not launched on the ops path")
     return counts
+
+
+def ops_gradients(gen, launched) -> None:
+    """The ops phase's gradients and layouts on the card: vsa.bind and
+    vsa.unbind at NVSA's 4 x 256 (512 codes against one broadcast key; the
+    backward is two circ_conv launches) and fused_unbind_classify at
+    MIMONet's width (backward through the plain chain, no launch), each
+    within 1e-4 of the CPU; flash_mha refusing grad, and taking the (B, S,
+    H, hd) view of a (B, H, S, hd) tensor bit for bit as its copy."""
+    import torch
+
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.kernels.unbind_classify import ops as uc_ops
+    from repro_torch.vsa import ops as vsa
+
+    codes, key = unit_codes(gen, 512, 4, 256), unit_codes(gen, 1, 4, 256)
+    w = torch.randn(512, 4, 256, device="cuda", generator=gen)
+    for op in ("bind", "unbind"):
+        grads = []
+        for dev in ("cuda", "cpu"):
+            on_card = int(dev == "cuda")
+            aa = codes.to(dev).clone().requires_grad_()
+            kk = key.to(dev).clone().requires_grad_()
+            out = launched(lambda: getattr(vsa, op)(aa, kk), "circ_conv", on_card)
+            check(out.grad_fn is not None, f"vsa.{op} on {dev}: no grad_fn")
+            loss = (w.to(dev) * out).sum()
+            g = launched(lambda: torch.autograd.grad(loss, (aa, kk)), "circ_conv",
+                         2 * on_card)
+            grads.append([t.cpu() for t in g])
+        err = max(float((x - y).abs().max()) for x, y in zip(*grads))
+        check(err <= 1e-4, f"vsa.{op} gradient {err} from the CPU's")
+        emit({"phase": "ops", "entry": f"vsa.{op} backward", "shape": [512, 4, 256],
+              "key_shape": [1, 4, 256], "launches": {"forward": 1, "backward": 2},
+              "max_abs_grad_diff_vs_cpu": err})
+
+    n, k, blocks, d, c = 8, 2, 4, 128, 5
+    args = (unit_codes(gen, k, blocks, d), torch.randn(n, blocks, d, device="cuda", generator=gen),
+            torch.randn(blocks, d, c, device="cuda", generator=gen) / (blocks * d) ** 0.5,
+            torch.randn(1, c, device="cuda", generator=gen))
+    w = torch.randn(n, k, c, device="cuda", generator=gen)
+    grads = []
+    for dev in ("cuda", "cpu"):
+        leaves = [t.to(dev).clone().requires_grad_() for t in args]
+        out = launched(lambda: uc_ops.fused_unbind_classify(*leaves), "unbind_classify",
+                       int(dev == "cuda"))
+        loss = (w.to(dev) * out).sum()
+        g = launched(lambda: torch.autograd.grad(loss, leaves), "unbind_classify", 0)
+        grads.append([t.cpu() for t in g])
+    err = max(float((x - y).abs().max()) for x, y in zip(*grads))
+    check(err <= 1e-4, f"fused_unbind_classify gradient {err} from the CPU's")
+    emit({"phase": "ops", "entry": "fused_unbind_classify backward",
+          "shape": [n, k, blocks, d, c], "launches": {"forward": 1, "backward": 0},
+          "max_abs_grad_diff_vs_cpu": err})
+
+    b, sq, h, hd = 1, 2048, 24, 128
+    q, kk, v = (torch.randn(b, h, sq, hd, device="cuda", generator=gen).transpose(1, 2)
+                for _ in range(3))
+    try:
+        flash_ops.flash_mha(q.clone().requires_grad_(), kk, v, hd ** -0.5)
+        raise AssertionError("flash_mha under grad: no error")
+    except RuntimeError as err:
+        check("no backward" in str(err), f"flash_mha under grad: {err}")
+    view = launched(lambda: flash_ops.flash_mha(q, kk, v, hd ** -0.5), "flash_attn", 1)
+    copy = launched(lambda: flash_ops.flash_mha(q.contiguous(), kk.contiguous(),
+                                                v.contiguous(), hd ** -0.5), "flash_attn", 1)
+    check(not q.is_contiguous() and torch.equal(view, copy),
+          "flash_mha: the transposed view differs from its contiguous copy")
+    emit({"phase": "ops", "entry": "flash_mha, (B, H, S, hd) transposed",
+          "shape": [b, sq, sq, h, hd], "dtype": "float32", "launches": 2,
+          "bit_identical_to_contiguous": True})
 
 
 def main() -> int:
@@ -994,10 +1124,12 @@ def main() -> int:
             "library_ms": row["library_ms"]})
         if name == "flash_attn":
             bf16 = main_rows["flash_attn_bf16"]
+            kernels[-1]["bound_units"] = row["bound_units"]
             kernels[-1]["bf16"] = {
                 "ms": bf16["kernel_ms"], "device_ms": bf16["kernel_device_ms"],
                 "library_ms": bf16["library_ms"], "bound_ms": bf16["bound_ms"],
-                "bound_by": bf16["bound_by"], "max_abs_err": bf16["max_abs_err"]}
+                "bound_by": bf16["bound_by"], "bound_units": bf16["bound_units"],
+                "max_abs_err": bf16["max_abs_err"]}
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -134,6 +134,18 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+def refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise where autograd would need a backward that ``kernel`` does not
+    have (as its Pallas twin has no VJP): grad mode on and an input that
+    requires grad.  Called by a forward-only wrapper before its launch, so
+    that a CUDA output never silently lacks a ``grad_fn``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel} has no backward on the card (nor has the reference's "
+            f"kernel): call it under torch.no_grad() or on inputs that do not "
+            f"require grad")
+
+
 def on_card(t: torch.Tensor) -> bool:
     """True when ``t`` must go to the hand kernel (a CUDA tensor), False
     for the plain version (CPU, or ``meta`` for shape evaluation)."""

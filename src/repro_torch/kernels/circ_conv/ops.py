@@ -1,18 +1,21 @@
 """Wrappers of the circ_conv and circ_dict kernels (``csrc/circ_conv.cu``,
 ``csrc/circ_dict.cu``).
 
-``circ_elem`` and ``circ_bind_dict`` are the kernel calls: on a CUDA
-tensor they launch the Hopper kernel or raise; on a CPU tensor they run the
-plain version in ``ref``.  ``circ_bind`` is what ``vsa.bind`` /
-``vsa.unbind`` call: it broadcasts the leading dims, materialises them
-contiguous and flattens to (N, B, d).  ``circ_bind_dict`` binds N queries
-to each of M static dictionary entries and returns (N, M, B, d), which the
-kernel writes directly; ``circ_dict`` is its (N, B, M, d) view, the layout
-of the Pallas ``circ_dict``.
+``circ_elem`` and ``circ_bind_dict`` are the kernel calls: they take any
+layout (copied contiguous first); on a CUDA tensor they launch the Hopper
+kernel or raise; on a CPU tensor they run the plain version in ``ref``.
+``circ_bind`` is what ``vsa.bind`` / ``vsa.unbind`` call: it broadcasts
+the leading dims, materialises them contiguous and flattens to (N, B, d).
+``circ_bind_dict`` binds N queries to each of M static dictionary entries
+and returns (N, M, B, d), which the kernel writes directly; ``circ_dict``
+is its (N, B, M, d) view, the layout of the Pallas ``circ_dict``.
 
-Forward only: the autograd function and its backward kernels (conv:
-da = corr(b, g), db = corr(a, g); corr: da = corr(g, b), db = conv(g, a))
-come with the training slice.
+``circ_elem`` is differentiable, as the reference's custom VJPs: its
+backward is ``circ_elem`` again (conv: da = corr(b, g), db = corr(a, g);
+corr: da = corr(g, b), db = conv(g, a)), so on the card it launches the
+same kernel twice.  ``circ_bind_dict`` has no backward, as the
+reference's ``circ_dict``: on the card it raises when autograd would need
+one.
 """
 
 from __future__ import annotations
@@ -62,15 +65,33 @@ def _launch(x: torch.Tensor, y: torch.Tensor, mode: str) -> torch.Tensor:
     return out
 
 
+class _CircElem(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, y, mode):
+        ctx.mode = mode
+        ctx.save_for_backward(x, y)
+        if registry.on_card(x):
+            return _launch(x, y, mode)
+        return ref.circ_elem_ref(x, y, mode)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        g = g.contiguous()
+        if ctx.mode == "conv":
+            dx, dy = circ_elem(y, g, "corr"), circ_elem(x, g, "corr")
+        else:
+            dx, dy = circ_elem(g, y, "corr"), circ_elem(g, x, "conv")
+        return dx.to(x.dtype), dy.to(y.dtype), None
+
+
 def circ_elem(x: torch.Tensor, y: torch.Tensor, mode: str = "conv") -> torch.Tensor:
     """Pairwise binding. x, y: (N, B, d) -> (N, B, d), output in x's dtype.
 
     ``mode`` is ``"conv"`` (out[n] = Σ_k x[k]·y[(n−k) mod d]) or ``"corr"``
-    (out[n] = Σ_k x[k]·y[(n+k) mod d])."""
+    (out[n] = Σ_k x[k]·y[(n+k) mod d]).  Differentiable."""
     registry.note_call("circ_conv")
-    if registry.on_card(x):
-        return _launch(x, y, mode)
-    return ref.circ_elem_ref(x, y, mode)
+    return _CircElem.apply(x.contiguous(), y.contiguous(), mode)
 
 
 def circ_bind(a: torch.Tensor, b: torch.Tensor, mode: str = "conv") -> torch.Tensor:
@@ -132,8 +153,11 @@ def circ_bind_dict(x: torch.Tensor, dictionary: torch.Tensor,
     """x: (N, blocks, d) vs dictionary: (M, blocks, d) -> (N, M, blocks, d).
 
     A kernel-level entry point, as in the reference: it ignores the
-    dispatch floor and goes to the circ_dict kernel at every d."""
+    dispatch floor and goes to the circ_dict kernel at every d.  Forward
+    only on the card, as the reference."""
     registry.note_call("circ_dict")
+    x, dictionary = x.contiguous(), dictionary.contiguous()
     if registry.on_card(x):
+        registry.refuse_grad("circ_dict", x, dictionary)
         return _launch_dict(x, dictionary, mode)
     return ref.circ_dict_ref(x, dictionary, mode).transpose(1, 2)

@@ -1,12 +1,13 @@
 """Wrapper of the flash attention kernel (``csrc/flash_attn.cu``).
 
 ``flash_mha`` is the kernel call, over the reference's (B, S, H, hd)
-layout with k and v already repeated to H heads: on a CUDA tensor it
-launches the Hopper kernel, which reads that layout in place (f32 on the
-CUDA cores, bf16 on the tensor cores), or raises;
-on a CPU tensor it runs the plain version in ``ref`` on (B·H, S, hd), as
-the reference's ``flash_mha`` transposes.  Forward only, as in the
-reference.
+layout with k and v already repeated to H heads, in any strides (a view
+is copied contiguous first): on a CUDA tensor it launches the Hopper
+kernel, which reads that layout in place on the tensor cores (f32 in
+3xTF32, bf16 with p split into hi + lo), or raises; on a CPU tensor it
+runs the plain version in ``ref`` on (B·H, S, hd), as the reference's
+``flash_mha`` transposes.  Forward only, as in the reference: on the card
+it raises when autograd would need a backward.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from repro_torch.kernels.flash_attn import ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256   # flash_attn.cu's register accumulator and shared memory
+QUERY_TILE = 64      # flash_attn.cu's TC_BQ: query rows per block
 
 
 def _launch(q, k, v, scale: float, causal: bool) -> torch.Tensor:
@@ -37,8 +39,8 @@ def _launch(q, k, v, scale: float, causal: bool) -> torch.Tensor:
     skv = k.shape[1]
     if not 1 <= hd <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {hd} outside the kernel's 1..{MAX_HEAD_DIM}")
-    if b * h > 65535:
-        raise ValueError(f"B·H = {b * h} exceeds the kernel's grid (65535)")
+    if -(-sq // QUERY_TILE) * b * h >= 2 ** 31:
+        raise ValueError(f"(B, Sq, H) = {(b, sq, h)} exceeds the kernel's grid")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -58,7 +60,9 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     -> (B, Sq, H, hd) in q's dtype.  The causal mask is aligned at
     position 0: query i sees keys 0..i, also when Sq != Skv."""
     registry.note_call("flash_attn")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if registry.on_card(q):
+        registry.refuse_grad("flash_attn", q, k, v)
         return _launch(q, k, v, scale, causal)
     b, sq, h, hd = q.shape
     skv = k.shape[1]

@@ -1,8 +1,9 @@
 """Wrapper of the fused match_prob kernel (``csrc/simd_fused.cu``).
 
-``fused_match_prob`` is the kernel call, an autograd function: its forward
-launches the Hopper kernel on a CUDA tensor (or raises) and runs the plain
-version in ``ref`` on a CPU tensor; its backward is the autograd of the
+``fused_match_prob`` is the kernel call, an autograd function that takes
+any layout (copied contiguous first): its forward launches the Hopper
+kernel on a CUDA tensor (or raises) and runs the plain version in ``ref``
+on a CPU tensor; its backward is the autograd of the
 reference's plain chain (``ref.match_prob_chain``), as the reference's
 custom VJP does.  The JAX package has no backward kernel, so neither has
 the port.
@@ -92,4 +93,4 @@ def fused_match_prob(q: torch.Tensor, dictionary: torch.Tensor,
     """q: (N, B, d), dictionary: (M, B, d), f32 or bf16 -> probs (N, M)
     f32: softmax over M of the mean blockwise cosine similarity / temp."""
     registry.note_call("simd_fused")
-    return _FusedMatchProb.apply(q, dictionary, temp)
+    return _FusedMatchProb.apply(q.contiguous(), dictionary.contiguous(), temp)

@@ -1,12 +1,13 @@
 """Wrappers of the fused unbind -> classify kernel (``csrc/unbind_classify.cu``).
 
-``fused_unbind_classify`` is the kernel call: on a CUDA tensor it launches
-the Hopper kernel or raises; on a CPU or ``meta`` tensor it runs the plain
-version in ``ref``.  ``unbind_classify`` is what ``models.mimonet`` calls:
-it reshapes the dense head's parameters as the reference's ``ops.py`` does.
-
-Forward only: the reference's backward goes through its plain chain; the
-port's autograd function comes with the training slice.
+``fused_unbind_classify`` is the kernel call: it takes any layout (copied
+contiguous first); on a CUDA tensor it launches the Hopper kernel or
+raises; on a CPU or ``meta`` tensor it runs the plain version in ``ref``.
+It is differentiable: the forward stays fused and the backward is the
+autograd of the plain chain (``ref.fused_unbind_classify_ref``), as the
+reference's custom VJP.  ``unbind_classify`` is what ``models.mimonet``
+calls: it reshapes the dense head's parameters as the reference's
+``ops.py`` does.
 """
 
 from __future__ import annotations
@@ -60,14 +61,27 @@ def _launch(keys, x, w, b) -> torch.Tensor:
     return out
 
 
+class _FusedUnbindClassify(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, keys, x, w, b):
+        ctx.save_for_backward(keys, x, w, b)
+        if registry.on_card(x):
+            return _launch(keys, x, w, b)
+        return ref.fused_unbind_classify_ref(keys, x, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            args = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            return torch.autograd.grad(ref.fused_unbind_classify_ref(*args), args, g)
+
+
 def fused_unbind_classify(keys: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
                           b: torch.Tensor) -> torch.Tensor:
     """keys: (K, B, d), x: (N, B, d), w: (B, d, C), b: (1, C) -> logits
     (N, K, C) f32: ``b + Σ_blk corr(keys[k, blk], x[n, blk]) @ w[blk]``."""
     registry.note_call("unbind_classify")
-    if registry.on_card(x):
-        return _launch(keys, x, w, b)
-    return ref.fused_unbind_classify_ref(keys, x, w, b)
+    return _FusedUnbindClassify.apply(*(t.contiguous() for t in (keys, x, w, b)))
 
 
 def unbind_classify(head, keys: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -75,10 +89,8 @@ def unbind_classify(head, keys: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     logits (N, K, C) through the fused kernel."""
     k, blocks, d = keys.shape
     c = head["w"].shape[-1]
-    w = head["w"].reshape(blocks, d, c).contiguous()
+    w = head["w"].reshape(blocks, d, c)
     bias = head.get("b")
     bias = torch.zeros((1, c), dtype=torch.float32, device=x.device) \
-        if bias is None else bias.reshape(1, c).float().contiguous()
-    return fused_unbind_classify(keys.contiguous(),
-                                 x.reshape(x.shape[0], blocks, d).contiguous(),
-                                 w, bias)
+        if bias is None else bias.reshape(1, c).float()
+    return fused_unbind_classify(keys, x.reshape(x.shape[0], blocks, d), w, bias)

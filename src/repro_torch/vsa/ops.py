@@ -115,7 +115,7 @@ def match_prob(q: torch.Tensor, dictionary: torch.Tensor,
     kernel (differentiable; its backward is the plain chain's), below it
     ``similarity_matrix`` and a softmax, on every device."""
     if registry.dispatch_path("simd_fused", q.shape[-1]) == "kernel":
-        return simd_ops.fused_match_prob(q.contiguous(), dictionary.contiguous(), temp)
+        return simd_ops.fused_match_prob(q, dictionary, temp)
     return torch.softmax(similarity_matrix(q, dictionary) / temp, dim=-1)
 
 

@@ -79,10 +79,25 @@ def test_qmatmul_kernel(gen, mkn, int4):
                                atol=0, rtol=1e-6)
 
 
+def _same_as_contiguous(call, kernel, *views):
+    """``call`` on non-contiguous views makes one launch of ``kernel`` and
+    gives bit for bit what it gives on their contiguous copies."""
+    assert not all(v.is_contiguous() for v in views)
+    before = registry.LAUNCHES[kernel]
+    got = call(*views)
+    torch.cuda.synchronize()
+    assert registry.LAUNCHES[kernel] == before + 1
+    assert torch.equal(got, call(*[v.contiguous() for v in views]))
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(gen):
+    """The public call copies a view contiguous, as the reference takes any
+    layout; the launch itself still refuses one."""
     x = torch.randn(4, 2, 64, device="cuda", generator=gen)
+    _same_as_contiguous(circ_ops.circ_elem, "circ_conv", x.transpose(0, 1),
+                        x.transpose(0, 1))
     with pytest.raises(ValueError, match="contiguous"):
-        circ_ops.circ_elem(x.transpose(0, 1), x.transpose(0, 1))
+        circ_ops._launch(x.transpose(0, 1), x.transpose(0, 1), "conv")
     with pytest.raises(TypeError):
         circ_ops.circ_elem(x.half(), x.half())
     with pytest.raises(ValueError, match="shared memory"):
@@ -158,15 +173,86 @@ def test_unbind_classify_rejects_what_the_kernel_does_not_take(gen):
     keys, x, w, b = _uc_inputs(gen, 4, 128)
     with pytest.raises(TypeError, match="float32"):
         uc_ops.fused_unbind_classify(keys, x.double(), w, b)
+    view = x.transpose(0, 1).contiguous().transpose(0, 1)
+    _same_as_contiguous(lambda xx: uc_ops.fused_unbind_classify(keys, xx, w, b),
+                        "unbind_classify", view)
     with pytest.raises(ValueError, match="contiguous"):
-        uc_ops.fused_unbind_classify(keys, x.transpose(0, 1).contiguous()
-                                     .transpose(0, 1), w, b)
+        uc_ops._launch(keys, view, w, b)
     big_w = torch.zeros(4, 128, uc_ops.MAX_CLASSES + 1, device="cuda")
     big_b = torch.zeros(1, uc_ops.MAX_CLASSES + 1, device="cuda")
     with pytest.raises(ValueError, match="classes"):
         uc_ops.fused_unbind_classify(keys, x, big_w, big_b)
     with pytest.raises(ValueError, match="do not agree"):
         uc_ops.fused_unbind_classify(keys, x[:, :2].contiguous(), w, b)
+
+
+# -- gradients -----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["bind", "unbind"])
+@pytest.mark.parametrize("d", [128, 256])
+def test_bind_unbind_gradient_on_the_card(gen, d, op, dtype):
+    """vsa.bind / vsa.unbind at d >= 128 on the card are differentiable:
+    the backward is two circ_conv launches, and the gradients (a (1, B, d)
+    key broadcast against (N, B, d) codes) are within 1e-4 of the CPU's;
+    at bf16 both round an f32 sum to bf16, so they may also sit one bf16
+    step (2^-7 relative) apart."""
+    a = torch.randn(9, 4, d, device="cuda", generator=gen) / d ** 0.5
+    b = torch.randn(1, 4, d, device="cuda", generator=gen) / d ** 0.5
+    w = torch.randn(9, 4, d, device="cuda", generator=gen)
+    a, b, w = (t.to(dtype) for t in (a, b, w))
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        aa = a.to(dev).clone().requires_grad_()
+        bb = b.to(dev).clone().requires_grad_()
+        out = getattr(vsa, op)(aa, bb)
+        assert out.grad_fn is not None and out.dtype == dtype
+        before = registry.LAUNCHES["circ_conv"]
+        grads[dev] = torch.autograd.grad((w.to(dev) * out).sum(), (aa, bb))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert registry.LAUNCHES["circ_conv"] == before + 2
+    rtol = 0 if dtype == torch.float32 else 2 ** -7
+    for g_gpu, g_cpu in zip(grads["cuda"], grads["cpu"]):
+        assert g_gpu.dtype == dtype
+        torch.testing.assert_close(g_gpu.cpu().float(), g_cpu.float(), atol=1e-4, rtol=rtol)
+
+
+def test_unbind_classify_gradient_on_the_card(gen):
+    """fused_unbind_classify on the card: the forward is one kernel launch,
+    the backward the plain chain's autograd (no launch); gradients in all
+    four inputs within 1e-4 of the CPU's."""
+    args = _uc_inputs(gen, 13, 256)
+    w = torch.randn(13, 2, 5, device="cuda", generator=gen)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [t.to(dev).clone().requires_grad_() for t in args]
+        before = registry.LAUNCHES["unbind_classify"]
+        out = uc_ops.fused_unbind_classify(*leaves)
+        grads[dev] = torch.autograd.grad((w.to(dev) * out).sum(), leaves)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert registry.LAUNCHES["unbind_classify"] == before + 1
+    for g_gpu, g_cpu in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(g_gpu.cpu(), g_cpu, atol=1e-4, rtol=0)
+
+
+def test_forward_only_kernels_refuse_grad_on_the_card(gen):
+    """flash_mha and circ_bind_dict have no backward (nor have their
+    Pallas twins): on the card they raise where autograd would need one,
+    and run under no_grad or on inputs that need none."""
+    q = torch.randn(1, 16, 2, 64, device="cuda", generator=gen)
+    x = torch.randn(4, 2, 64, device="cuda", generator=gen)
+    qg, xg = q.clone().requires_grad_(), x.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_ops.flash_mha(qg, q, q, 0.125)
+    with pytest.raises(RuntimeError, match="no backward"):
+        circ_ops.circ_bind_dict(xg, x)
+    with torch.no_grad():
+        assert torch.equal(flash_ops.flash_mha(qg, q, q, 0.125),
+                           flash_ops.flash_mha(q, q, q, 0.125))
+        assert torch.equal(circ_ops.circ_bind_dict(xg, x), circ_ops.circ_bind_dict(x, x))
 
 
 # -- circ_dict -----------------------------------------------------------------
@@ -202,8 +288,10 @@ def test_circ_dict_rejects_what_the_kernel_does_not_take(gen):
         circ_ops.circ_dict(x, x.bfloat16())
     with pytest.raises(ValueError, match="wants"):
         circ_ops.circ_dict(x, x[:, :1].contiguous())
+    _same_as_contiguous(circ_ops.circ_dict, "circ_dict", x.transpose(0, 1),
+                        x.transpose(0, 1))
     with pytest.raises(ValueError, match="contiguous"):
-        circ_ops.circ_dict(x.transpose(0, 1), x.transpose(0, 1))
+        circ_ops._launch_dict(x.transpose(0, 1), x.transpose(0, 1), "conv")
     big = torch.zeros(1, 1, circ_ops.DICT_MAX_D + 1, device="cuda")
     with pytest.raises(ValueError, match="shared memory"):
         circ_ops.circ_bind_dict(big, big)
@@ -282,14 +370,18 @@ def _offset_by_one(t: torch.Tensor) -> torch.Tensor:
     return out
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,skv,causal", [
+FLASH_CASES = [
     ((1, 1024, 8, 128), 1024, True), ((2, 100, 4, 64), 300, True),
     ((2, 100, 4, 64), 300, False), ((1, 300, 2, 128), 100, True),
     ((1, 1000, 2, 80), 1000, True), ((1, 200, 2, 256), 200, True),
     ((2, 130, 3, 36), 250, True), ((2, 130, 3, 36), 250, False),
     ((1, 77, 2, 128), 333, True), ((1, 77, 2, 128), 333, False),
-])
+]
+FLASH_UNALIGNED_CASES = [((1, 130, 2, 128), 250, True), ((2, 100, 4, 64), 300, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,skv,causal", FLASH_CASES)
 def test_flash_attn_kernel(gen, shape, skv, causal, dtype):
     """Within 1e-3 of the plain version at f32 and 1e-3 plus one bf16 step
     (2^-7 relative) at bf16, far inside the registry epsilon (3e-2); Sq !=
@@ -300,9 +392,7 @@ def test_flash_attn_kernel(gen, shape, skv, causal, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,skv,causal", [
-    ((1, 130, 2, 128), 250, True), ((2, 100, 4, 64), 300, False),
-])
+@pytest.mark.parametrize("shape,skv,causal", FLASH_UNALIGNED_CASES)
 def test_flash_attn_kernel_unaligned(gen, shape, skv, causal, dtype):
     """Inputs that start off a 16-byte boundary (contiguous views at an
     offset) take the bf16 kernel's element loads at hd % 8 == 0; same
@@ -310,7 +400,18 @@ def test_flash_attn_kernel_unaligned(gen, shape, skv, causal, dtype):
     _check_flash(gen, shape, skv, causal, dtype, aligned=False)
 
 
-def _check_flash(gen, shape, skv, causal, dtype, aligned):
+@pytest.mark.parametrize("shape,skv,causal,aligned",
+                         [case + (True,) for case in FLASH_CASES]
+                         + [case + (False,) for case in FLASH_UNALIGNED_CASES])
+def test_flash_attn_f32_keeps_f32_accuracy(gen, shape, skv, causal, aligned):
+    """The f32 kernel's 3xTF32 products keep f32 accuracy: within 2e-5 of
+    the plain version on every f32 case above.  One tf32 product per f32
+    product (the hi/lo split lost) is off by about 1e-3 here: a causal
+    row 0 returns v rounded to tf32."""
+    _check_flash(gen, shape, skv, causal, torch.float32, aligned, atol=2e-5)
+
+
+def _check_flash(gen, shape, skv, causal, dtype, aligned, atol=1e-3):
     b, sq, h, hd = shape
     q = torch.randn(b, sq, h, hd, device="cuda", generator=gen).to(dtype)
     k = torch.randn(b, skv, h, hd, device="cuda", generator=gen).to(dtype)
@@ -328,7 +429,7 @@ def _check_flash(gen, shape, skv, causal, dtype, aligned):
     want = want.reshape(b, h, sq, hd).transpose(1, 2)
     assert got.dtype == dtype and got.shape == q.shape
     rtol = 0 if dtype == torch.float32 else 2 ** -7
-    torch.testing.assert_close(got.float(), want.float(), atol=1e-3, rtol=rtol)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
 def test_flash_attn_rejects_what_the_kernel_does_not_take(gen):
@@ -339,8 +440,11 @@ def test_flash_attn_rejects_what_the_kernel_does_not_take(gen):
         flash_ops.flash_mha(q, q.bfloat16(), q.bfloat16(), 0.125)
     with pytest.raises(ValueError, match="wants"):
         flash_ops.flash_mha(q, q[:, :, :1].contiguous(), q, 0.125)
+    qt = q.transpose(1, 2)
+    _same_as_contiguous(lambda a, b, c: flash_ops.flash_mha(a, b, c, 0.125), "flash_attn",
+                        qt, qt, qt)
     with pytest.raises(ValueError, match="contiguous"):
-        flash_ops.flash_mha(q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2), 0.125)
+        flash_ops._launch(qt, qt, qt, 0.125, True)
     big = torch.zeros(1, 4, 1, flash_ops.MAX_HEAD_DIM + 1, device="cuda")
     with pytest.raises(ValueError, match="head dim"):
         flash_ops.flash_mha(big, big, big, 0.0625)
