@@ -13,8 +13,14 @@ and prints no result line):
 2. Kernels: each kernel against its plain PyTorch version on the card, at
    the serving paths' shapes and around them, with times (CUDA events,
    warm, median of 21 samples): ``circ_conv`` conv/corr within 1e-3
-   absolute (the registry epsilon), ``qmatmul`` int8/int4 with exact int32
-   accumulators and f32 outputs within 1e-6 relative, ``unbind_classify``
+   absolute (the registry epsilon), and on the strided and broadcast
+   operands of NVSA's served binds at (8, 4, 256) and (64, 4, 256), f32
+   and bf16 (row slices, keys broadcast over one and two lead dims, an
+   unaligned row slice): one launch and one allocation each (no copy), bit
+   for bit the call on contiguous copies; ``qmatmul`` int8/int4 with exact
+   int32 accumulators and f32 outputs equal to the plain version, up to
+   (512, 1024, 256), beside ``torch._int_mm`` with the same epilogue (the
+   whole function); ``unbind_classify``
    within 1e-3 absolute and bit-identical from launch to launch; then
    ``circ_dict`` (``circ_bind_dict`` at (N, M, B, d) = (256, 16, 4, 256),
    conv/corr, and around it, within 1e-3; bf16 within 1e-3 + one bf16
@@ -31,6 +37,8 @@ and prints no result line):
    operations over the peak of the units that do them (the f32 CUDA
    cores; for flash_attn the bf16 tensor cores at bf16 and, at f32, three
    products on the TF32 tensor cores).
+   Then the host time of each step of the circ_elem and qmatmul wrappers
+   (``host_breakdown``: host clock, µs per call).
 3. Serve: NVSA at ``make_config(d=256)`` (4 blocks x 256, cnn_width 16,
    cnn_feat 128, 32x32 images, the model's own width) through
    ``reason_engine``, with constants from ``nn/init.py`` on a seeded
@@ -70,7 +78,9 @@ and prints no result line):
    bit for bit as its contiguous copy.
 7. The ``kernels`` JSON line: every ported kernel with its launches on the
    paths (each path's counts set to 0 just before it runs and read just
-   after) and its times at its path's shape; ``flash_attn``'s entry holds
+   after) and its times at its path's shape; ``circ_conv``'s entry holds
+   the (64, 4, 256) row and, under ``served``, the (8, 4, 256) row (39 of
+   NVSA's 42 calls); ``flash_attn``'s entry holds
    the f32 row and, under ``bf16``, the bf16 row at the same shape (ms,
    device_ms, library_ms, bound_ms, bound_units, max_abs_err).
 8. The last line: ``{"ok": true, "device": {...}}``.
@@ -292,8 +302,12 @@ def phase_kernels() -> dict:
                 emit(row)
                 if (mode, n, d) == ("conv", 64, 256):
                     main["circ_conv"] = row
+                if (mode, n, d) == ("conv", 8, 256):  # 39 of NVSA's 42 calls
+                    main["circ_conv_served"] = row
+    strided_circ_rows(gen)
     for int4 in (False, True):
-        for m, k, n in ((16, 128, 5), (64, 128, 6), (64, 128, 8), (67, 130, 7)):
+        for m, k, n in ((16, 128, 5), (64, 128, 6), (64, 128, 8), (67, 130, 7),
+                        (512, 1024, 256)):
             lim = 8 if int4 else 128
             xq = torch.randint(-128, 128, (m, k), device="cuda", generator=gen,
                                dtype=torch.int8)
@@ -315,10 +329,17 @@ def phase_kernels() -> dict:
                   f"qmatmul int4={int4} {(m, k, n)}: int32 accumulators differ")
             rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
             check(rel <= 1e-6, f"qmatmul int4={int4} {(m, k, n)}: rel err {rel}")
+            check(torch.equal(got, want),
+                  f"qmatmul int4={int4} {(m, k, n)}: output differs from the plain version")
             library_ms, library = None, "n/a: torch._int_mm needs M > 16, K and N % 8"
             if m > 16 and k % 8 == 0 and n_out % 8 == 0:
-                library_ms = cuda_ms(lambda: torch._int_mm(xq, w_full))
-                library = "torch._int_mm (int32 accumulator only)"
+                def int_mm(xq=xq, w_full=w_full, xs=xs, ws=ws):
+                    return torch._int_mm(xq, w_full).float() * (xs[:, None] * ws)
+
+                check(torch.equal(int_mm(), want), "qmatmul library chain differs")
+                library_ms = cuda_ms(int_mm)
+                library = ("torch._int_mm(xq, w).float() * (xs[:, None] * ws): the "
+                           "whole function, 4 calls")
             bound, by = qmm_bound(m, k, n_out, int4)
             row = {"kernel": "qmatmul", "int4": int4, "shape": [m, k, n],
                    "max_abs_err": float((got - want).abs().max()),
@@ -377,6 +398,60 @@ def phase_kernels() -> dict:
     main.update(match_kernel_rows(gen))
     main.update(flash_kernel_rows(gen))
     return main
+
+
+def strided_circ_rows(gen) -> None:
+    """circ_elem on the operands NVSA's served binds hand it, at the served
+    (8, 4, 256) and at (64, 4, 256), f32 and bf16: row slices ``codes[:,
+    r0]`` of an (n, 8, 4, 256) tensor, a key broadcast over the batch
+    (``circ_bind`` with ``key[None]``), a key broadcast over two lead dims
+    (``key[None, None]`` against (n, 8, 4, 256), merged to stride 0), and a
+    row slice one element past a 16-byte boundary (element loads).  Each:
+    one launch and one allocation (no copy), bit for bit the call on
+    contiguous copies and itself, within 1e-3 (bf16: + one bf16 step) of the
+    plain version; timed as views and as the copies the parent made."""
+    import torch
+
+    from repro_torch.backend import registry
+    from repro_torch.kernels.circ_conv import ops as circ_ops
+    from repro_torch.kernels.circ_conv import ref as circ_ref
+
+    for rows in (8, 64):
+        for dtype in (torch.float32, torch.bfloat16):
+            codes = torch.randn(rows, 8, 4, 256, device="cuda", generator=gen).to(dtype)
+            odd = torch.randn(rows, 8, 4, 257, device="cuda", generator=gen).to(dtype)
+            key = torch.randn(4, 256, device="cuda", generator=gen).to(dtype)
+            cases = {"row slices": (circ_ops.circ_elem, codes[:, 1], codes[:, 0]),
+                     "key over one lead dim": (circ_ops.circ_bind, codes[:, 1], key[None]),
+                     "key over two lead dims": (circ_ops.circ_bind, codes[: rows // 8],
+                                                key[None, None]),
+                     "unaligned row slices": (circ_ops.circ_elem, odd[:, 1, :, 1:],
+                                              odd[:, 2, :, 1:])}
+            for case, (call, x, y) in cases.items():
+                xx, yy = torch.broadcast_tensors(x, y)
+                check(not (xx.is_contiguous() and yy.is_contiguous()), f"{case}: no view")
+                torch.cuda.synchronize()
+                launches = registry.LAUNCHES["circ_conv"]
+                allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+                got = call(x, y, "conv")
+                torch.cuda.synchronize()
+                check(registry.LAUNCHES["circ_conv"] == launches + 1
+                      and torch.cuda.memory_stats()["allocation.all.allocated"]
+                      == allocs + 1, f"circ_elem {case}: a copy or another launch")
+                xc, yc = xx.contiguous(), yy.contiguous()
+                check(torch.equal(got, call(xc, yc, "conv"))
+                      and torch.equal(got, call(x, y, "conv")),
+                      f"circ_elem {case} {dtype}: not bit-identical to contiguous copies")
+                rtol = BF16_STEP if dtype == torch.bfloat16 else 0.0
+                err = close(got, circ_ref.circ_elem_ref(xx, yy, "conv"), 1e-3, rtol)
+                emit({"kernel": "circ_conv", "operands": case,
+                      "dtype": str(dtype).split(".")[1], "shape": [rows, 4, 256],
+                      "launches": 1, "allocations": 1, "max_abs_err": err,
+                      "bit_identical_to_contiguous": True,
+                      "kernel_ms": cuda_ms(lambda: call(x, y, "conv")),
+                      "kernel_device_ms": graph_ms(lambda: call(x, y, "conv")),
+                      "with_copies_ms": cuda_ms(
+                          lambda: call(xx.contiguous(), yy.contiguous(), "conv"))})
 
 
 def unit_codes(gen, *shape, dtype=None):
@@ -591,6 +666,129 @@ def flash_kernel_rows(gen) -> dict:
         if sq == 2048:
             main["flash_attn" if dtype == torch.float32 else "flash_attn_bf16"] = row
     return main
+
+
+def host_us(fn, calls: int = 200, windows: int = 15) -> float:
+    """Host time per call of ``fn`` in µs: the median over ``windows`` of
+    the host clock around ``calls`` back-to-back calls, with no
+    synchronisation inside a window (so the enqueue, not the device's work;
+    200 launches stay well inside the launch queue), after a warm-up call."""
+    import torch
+
+    fn()
+    per_call = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per_call.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(per_call)
+
+
+def host_breakdown() -> list[dict]:
+    """Host time of each step of the circ_elem and qmatmul wrappers, at
+    their served shapes: the whole call, its parts as the wrapper of the
+    importable ``repro_torch`` makes them, and each torch or ctypes step on
+    its own.  The C entry point is called with the arguments its declared
+    signature takes (``_build.ENTRY_POINTS``), so one function times this
+    tree's wrappers and an earlier tree's alike.  Returns the rows."""
+    import torch
+
+    from repro_torch.backend import registry
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.circ_conv import ops as circ_ops
+    from repro_torch.kernels.qmatmul import ops as qops
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    idx = dev.index
+    rows = []
+    # circ_elem at (64, 4, 256) conv, then the served bind: a row slice of an
+    # (n, 8, B, d) tensor against a key broadcast over the batch
+    x = torch.randn(64, 4, 256, device="cuda", generator=gen)
+    y = torch.randn(64, 4, 256, device="cuda", generator=gen)
+    codes = torch.randn(8, 8, 4, 256, device="cuda", generator=gen)
+    key = torch.randn(4, 256, device="cuda", generator=gen)
+    out = torch.empty_like(x)
+    fn = _build.entry("circ_conv")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if len(_build.ENTRY_POINTS["circ_conv"][1]) == 8:   # (x, y, out, rows, d, ...)
+        args = (x.data_ptr(), y.data_ptr(), out.data_ptr(), 256, 256, 0, 0, stream)
+    else:                                                # with N, B and strides
+        args = (x.data_ptr(), y.data_ptr(), out.data_ptr(), 64, 4, 256,
+                1024, 256, 1024, 256, 0, 0, stream)
+    def guarded(t):
+        with torch.cuda.device(t.device):
+            pass
+
+    common = {
+        "registry.note_call": lambda: registry.note_call("circ_conv"),
+        "registry.count_launch": lambda: registry.count_launch("circ_conv"),
+        "_build.entry": lambda: _build.entry("circ_conv"),
+        "torch.empty_like": lambda: torch.empty_like(x),
+        "torch.empty_like(x, memory_format=contiguous)":
+            lambda: torch.empty_like(x, memory_format=torch.contiguous_format),
+        "x.new_empty(x.shape)": lambda: x.new_empty(x.shape),
+        "x.contiguous() (already contiguous)": lambda: x.contiguous(),
+        "x.data_ptr()": lambda: x.data_ptr(),
+        "x.device": lambda: x.device,
+        "x.get_device()": lambda: x.get_device(),
+        "x.stride()": lambda: x.stride(),
+        "with torch.cuda.device(x.device): pass": lambda: guarded(x),
+        "torch.cuda.current_stream(dev).cuda_stream":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "torch._C._cuda_getCurrentRawStream(idx)":
+            lambda: torch._C._cuda_getCurrentRawStream(idx),
+        "torch._C._cuda_getDevice()": lambda: torch._C._cuda_getDevice(),
+    }
+    steps = {
+        "circ_elem (whole call)": lambda: circ_ops.circ_elem(x, y, "conv"),
+        "_CircElem.apply": lambda: circ_ops._CircElem.apply(x, y, "conv"),
+        "_launch": lambda: circ_ops._launch(x, y, "conv"),
+        "C entry point (ctypes, launch included)": lambda: fn(*args),
+        **({"_build.launch (entry, raw stream, ctypes, check)":
+            lambda: _build.launch("circ_conv", idx, *args[:-1])}
+           if hasattr(_build, "launch") else {}),
+        "circ_bind, served row slice x broadcast key":
+            lambda: circ_ops.circ_bind(codes[:, 1], key[None], "conv"),
+        "torch.broadcast_tensors (row slice, key)":
+            lambda: torch.broadcast_tensors(codes[:, 1], key[None]),
+        "row slice .contiguous() (a copy kernel)": lambda: codes[:, 1].contiguous(),
+        **common,
+    }
+    us = {name: host_us(step) for name, step in steps.items()}
+    rows.append({"phase": "host_breakdown", "kernel": "circ_conv",
+                 "shape": [64, 4, 256], "us_per_call": us})
+
+    xq = torch.randint(-128, 128, (64, 128), device="cuda", generator=gen,
+                       dtype=torch.int8)
+    wq = torch.randint(-128, 128, (128, 8), device="cuda", generator=gen,
+                       dtype=torch.int8)
+    xs = torch.rand(64, device="cuda", generator=gen) + 0.01
+    ws = torch.rand(8, device="cuda", generator=gen) + 0.01
+    feats = torch.randn(64, 128, device="cuda", generator=gen)
+    w = torch.randn(128, 8, device="cuda", generator=gen)
+    qout = torch.empty((64, 8), device="cuda")
+    qfn = _build.entry("qmatmul")
+    qargs = (xq.data_ptr(), wq.data_ptr(), xs.data_ptr(), ws.data_ptr(),
+             qout.data_ptr(), 64, 8, 128, 0, stream)
+    steps = {
+        "qmatmul (whole call)": lambda: qops.qmatmul(xq, wq, xs, ws, False),
+        "_launch": lambda: qops._launch(xq, wq, xs, ws, False),
+        "C entry point (ctypes, launch included)": lambda: qfn(*qargs),
+        "qdense (quantise x and w, then qmatmul)": lambda: qops.qdense(feats, w),
+        "torch.empty((M, N), device=x.device)":
+            lambda: torch.empty((64, 8), dtype=torch.float32, device=xq.device),
+        "x.new_empty((M, N), dtype=float32)":
+            lambda: xq.new_empty((64, 8), dtype=torch.float32),
+    }
+    us = {name: host_us(step) for name, step in steps.items()}
+    rows.append({"phase": "host_breakdown", "kernel": "qmatmul",
+                 "shape": [64, 128, 8], "us_per_call": us})
+    torch.cuda.synchronize()
+    return rows
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -1104,6 +1302,8 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_device()
     main_rows = phase_kernels()
+    for row in host_breakdown():
+        emit(row)
     paths = {"nvsa": phase_serve(), "mimonet": phase_mimonet(), **phase_reasoners(),
              "ops": phase_ops()}
     emit({"phase": "launches_by_path", **paths})
@@ -1122,6 +1322,13 @@ def main() -> int:
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})
+        if name == "circ_conv":
+            served = main_rows["circ_conv_served"]
+            kernels[-1]["served"] = {
+                "shape": served["shape"], "ms": served["kernel_ms"],
+                "device_ms": served["kernel_device_ms"], "plain_ms": served["plain_ms"],
+                "library_ms": served["library_ms"], "bound_ms": served["bound_ms"],
+                "bound_by": served["bound_by"], "max_abs_err": served["max_abs_err"]}
         if name == "flash_attn":
             bf16 = main_rows["flash_attn_bf16"]
             kernels[-1]["bound_units"] = row["bound_units"]

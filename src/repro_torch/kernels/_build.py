@@ -25,6 +25,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 from repro_torch.backend import registry
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -36,7 +38,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # stream as c_void_p: left undeclared, ctypes would pass a 32-bit int)
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 ENTRY_POINTS = {
-    "circ_conv": ("circ_elem_launch", [_P, _P, _P, _L, _I, _I, _I, _P]),
+    "circ_conv": ("circ_elem_launch",
+                  [_P, _P, _P, _L, _I, _I, _L, _L, _L, _L, _I, _I, _P]),
     "qmatmul": ("qmatmul_launch", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "unbind_classify": ("unbind_classify_launch",
                         [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P]),
@@ -113,6 +116,22 @@ def entry(name: str):
     if name not in _LIBS:
         build_all()
     return getattr(_LIBS[name], ENTRY_POINTS[name][0])
+
+
+def launch(name: str, index: int, *args) -> None:
+    """Call kernel ``name``'s C entry point with ``args`` and the current
+    stream of CUDA device ``index``, and raise on a launch error.  The
+    kernel launches on the current device, so the device guard is entered
+    only where ``index`` is not the current device; the stream is read on
+    every call (``torch.cuda.current_stream`` builds a Stream object, some
+    30 times the host time of reading the raw handle)."""
+    fn = entry(name)
+    if index == torch._C._cuda_getDevice():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    check(rc, name)
 
 
 def check(rc: int, kernel: str) -> None:

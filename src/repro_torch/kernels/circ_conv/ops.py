@@ -1,21 +1,27 @@
 """Wrappers of the circ_conv and circ_dict kernels (``csrc/circ_conv.cu``,
 ``csrc/circ_dict.cu``).
 
-``circ_elem`` and ``circ_bind_dict`` are the kernel calls: they take any
-layout (copied contiguous first); on a CUDA tensor they launch the Hopper
-kernel or raise; on a CPU tensor they run the plain version in ``ref``.
+``circ_elem`` and ``circ_bind_dict`` are the kernel calls: on a CUDA
+tensor they launch the Hopper kernel or raise; on a CPU tensor they run
+the plain version in ``ref``.  ``circ_elem`` reads its operands by stride:
+any (N, B) strides, 0 included (a broadcast key), with the last dimension
+contiguous; it copies only an operand whose last dimension is not.
 ``circ_bind`` is what ``vsa.bind`` / ``vsa.unbind`` call: it broadcasts
-the leading dims, materialises them contiguous and flattens to (N, B, d).
-``circ_bind_dict`` binds N queries to each of M static dictionary entries
-and returns (N, M, B, d), which the kernel writes directly; ``circ_dict``
-is its (N, B, M, d) view, the layout of the Pallas ``circ_dict``.
+the leading dims and merges them into N by ``reshape``, which stays a
+view wherever they merge into one stride (a row slice of a stacked tensor,
+a key broadcast over the batch), so a served bind makes no copy.
+``circ_bind_dict`` (any layout, copied contiguous first) binds N queries to
+each of M static dictionary entries and returns (N, M, B, d), which the
+kernel writes directly; ``circ_dict`` is its (N, B, M, d) view, the layout
+of the Pallas ``circ_dict``.
 
 ``circ_elem`` is differentiable, as the reference's custom VJPs: its
 backward is ``circ_elem`` again (conv: da = corr(b, g), db = corr(a, g);
 corr: da = corr(g, b), db = conv(g, a)), so on the card it launches the
-same kernel twice.  ``circ_bind_dict`` has no backward, as the
-reference's ``circ_dict``: on the card it raises when autograd would need
-one.
+same kernel twice; the gradient of a broadcast operand is summed by
+autograd's own expand backward.  ``circ_bind_dict`` has no backward, as
+the reference's ``circ_dict``: on the card it raises when autograd would
+need one.
 """
 
 from __future__ import annotations
@@ -31,6 +37,19 @@ _MAX_SMEM = 227 * 1024   # bytes of shared memory one block may use on Hopper
 DICT_QUERY_TILE = 16     # circ_dict.cu's TN: queries per block
 # circ_dict stages (TN + 1) rows of d floats per block
 DICT_MAX_D = _MAX_SMEM // (4 * (DICT_QUERY_TILE + 1))
+_ELEM_TILE = 64          # circ_conv.cu's TILE: outputs per tile
+
+
+def _elem_geometry(d: int) -> tuple[int, int]:
+    """circ_conv.cu's padded block dim and k-split for block dim ``d``:
+    (dp, S).  A block of one tile needs 4·(3·dp + 64·S) bytes of shared
+    memory."""
+    dp = -(-d // 128) * 128 if d <= 512 else -(-d // 256) * 256
+    return dp, (dp // 32 if dp <= 512 else 16)
+
+
+def _dense_last(t: torch.Tensor) -> bool:
+    return t.stride(-1) == 1 or t.shape[-1] == 1
 
 
 def _launch(x: torch.Tensor, y: torch.Tensor, mode: str) -> torch.Tensor:
@@ -39,28 +58,27 @@ def _launch(x: torch.Tensor, y: torch.Tensor, mode: str) -> torch.Tensor:
     if x.dim() != 3 or x.shape != y.shape:
         raise ValueError(f"circ_elem wants two (N, B, d) tensors of one shape, "
                          f"got {tuple(x.shape)} and {tuple(y.shape)}")
-    if x.dtype not in _DTYPES or y.dtype != x.dtype:
+    dtype = _DTYPES.get(x.dtype)
+    if dtype is None or y.dtype != x.dtype:
         raise TypeError(f"circ_elem takes float32 or bfloat16 of one dtype, "
                         f"got {x.dtype} and {y.dtype}")
-    if y.device != x.device:
+    index = x.get_device()
+    if y.get_device() != index:
         raise ValueError(f"x on {x.device}, y on {y.device}")
-    if not (x.is_contiguous() and y.is_contiguous()):
-        raise ValueError("circ_elem needs contiguous inputs")
+    if not (_dense_last(x) and _dense_last(y)):
+        raise ValueError("circ_elem needs a contiguous last dimension")
     n, b, d = x.shape
-    if 2 * d * 4 > _MAX_SMEM:
+    dp, splits = _elem_geometry(d)
+    if 4 * (3 * dp + _ELEM_TILE * splits) > _MAX_SMEM:
         raise ValueError(f"block dim d={d} exceeds the kernel's shared memory")
-    rows = n * b
-    if rows >= 2 ** 31:
-        raise ValueError(f"{rows} rows exceed the kernel's grid")
-    out = torch.empty_like(x)
-    if rows == 0:
+    if n * b * (dp // _ELEM_TILE) >= 2 ** 31:
+        raise ValueError(f"{n * b} rows exceed the kernel's grid")
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    if out.numel() == 0:
         return out
-    fn = _build.entry("circ_conv")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), rows, d,
-                _DTYPES[x.dtype], int(mode == "corr"), stream)
-    _build.check(rc, "circ_conv")
+    (x_sn, x_sb, _), (y_sn, y_sb, _) = x.stride(), y.stride()
+    _build.launch("circ_conv", index, x.data_ptr(), y.data_ptr(), out.data_ptr(), n, b,
+                  d, x_sn, x_sb, y_sn, y_sb, dtype, int(mode == "corr"))
     registry.count_launch("circ_conv")
     return out
 
@@ -77,7 +95,6 @@ class _CircElem(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, y = ctx.saved_tensors
-        g = g.contiguous()
         if ctx.mode == "conv":
             dx, dy = circ_elem(y, g, "corr"), circ_elem(x, g, "corr")
         else:
@@ -86,24 +103,31 @@ class _CircElem(torch.autograd.Function):
 
 
 def circ_elem(x: torch.Tensor, y: torch.Tensor, mode: str = "conv") -> torch.Tensor:
-    """Pairwise binding. x, y: (N, B, d) -> (N, B, d), output in x's dtype.
+    """Pairwise binding. x, y: (N, B, d) -> contiguous (N, B, d), output in
+    x's dtype.  The operands may be any strided views; only one whose last
+    dimension is not contiguous is copied.
 
     ``mode`` is ``"conv"`` (out[n] = Σ_k x[k]·y[(n−k) mod d]) or ``"corr"``
     (out[n] = Σ_k x[k]·y[(n+k) mod d]).  Differentiable."""
     registry.note_call("circ_conv")
-    return _CircElem.apply(x.contiguous(), y.contiguous(), mode)
+    if not _dense_last(x):
+        x = x.contiguous()
+    if not _dense_last(y):
+        y = y.contiguous()
+    return _CircElem.apply(x, y, mode)
 
 
 def circ_bind(a: torch.Tensor, b: torch.Tensor, mode: str = "conv") -> torch.Tensor:
     """Elementwise blockwise circular conv/corr with leading-dim broadcast.
 
-    a, b: (..., blocks, d) -> (..., blocks, d)."""
+    a, b: (..., blocks, d) -> (..., blocks, d).  The broadcast operands
+    reach ``circ_elem`` as views (``reshape`` copies only where the lead
+    dims cannot merge into one stride)."""
     a, b = torch.broadcast_tensors(a, b)
     lead = a.shape[:-2]
     blocks, d = a.shape[-2:]
-    af = a.reshape(-1, blocks, d).contiguous()
-    bf = b.reshape(-1, blocks, d).contiguous()
-    return circ_elem(af, bf, mode).reshape(*lead, blocks, d)
+    out = circ_elem(a.reshape(-1, blocks, d), b.reshape(-1, blocks, d), mode)
+    return out.reshape(*lead, blocks, d)
 
 
 def _launch_dict(x: torch.Tensor, dictionary: torch.Tensor, mode: str) -> torch.Tensor:
@@ -129,12 +153,8 @@ def _launch_dict(x: torch.Tensor, dictionary: torch.Tensor, mode: str) -> torch.
     out = torch.empty((n, m, b, d), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    fn = _build.entry("circ_dict")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), dictionary.data_ptr(), out.data_ptr(), n, m, b, d,
-                _DTYPES[x.dtype], int(mode == "corr"), stream)
-    _build.check(rc, "circ_dict")
+    _build.launch("circ_dict", x.get_device(), x.data_ptr(), dictionary.data_ptr(),
+                  out.data_ptr(), n, m, b, d, _DTYPES[x.dtype], int(mode == "corr"))
     registry.count_launch("circ_dict")
     return out
 

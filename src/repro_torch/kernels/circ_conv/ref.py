@@ -21,9 +21,14 @@ def circ_index(d: int, mode: str, device) -> torch.Tensor:
 
 
 def circ_elem_ref(x: torch.Tensor, y: torch.Tensor, mode: str = "conv") -> torch.Tensor:
-    """x, y: (..., d) -> (..., d), f32 accumulation, output in x's dtype."""
+    """x, y: (..., d) -> (..., d), f32 accumulation, output in x's dtype.
+
+    Like the kernel, the result does not depend on the operands' strides:
+    both enter the einsum contiguous (a no-op for contiguous operands),
+    since its summation order would otherwise follow their layout."""
     ymat = y[..., circ_index(x.shape[-1], mode, x.device)]  # (..., d, d)
-    return torch.einsum("...k,...nk->...n", x.float(), ymat.float()).to(x.dtype)
+    return torch.einsum("...k,...nk->...n", x.float().contiguous(),
+                        ymat.float().contiguous()).to(x.dtype)
 
 
 def circ_dict_ref(x: torch.Tensor, dictionary: torch.Tensor,

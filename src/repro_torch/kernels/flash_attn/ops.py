@@ -44,12 +44,9 @@ def _launch(q, k, v, scale: float, causal: bool) -> torch.Tensor:
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    fn = _build.entry("flash_attn")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv,
-                h, hd, float(scale), int(causal), _DTYPES[q.dtype], stream)
-    _build.check(rc, "flash_attn")
+    _build.launch("flash_attn", q.get_device(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  out.data_ptr(), b, sq, skv, h, hd, float(scale), int(causal),
+                  _DTYPES[q.dtype])
     registry.count_launch("flash_attn")
     return out
 

@@ -57,9 +57,13 @@ def pack_int4(q: torch.Tensor) -> torch.Tensor:
     return ((pairs[..., 0] & 0x0F) | (pairs[..., 1] << 4)).to(torch.int8)
 
 
+_BLOCK_M = 64  # qmatmul.cu's BM: output rows per block
+
+
 def _launch(x_q, w_q, x_scale, w_scale, int4: bool) -> torch.Tensor:
-    tensors = (x_q, w_q, x_scale, w_scale)
-    if any(t.device != x_q.device for t in tensors):
+    index = x_q.get_device()
+    if (w_q.get_device() != index or x_scale.get_device() != index
+            or w_scale.get_device() != index):
         raise ValueError("qmatmul operands must lie on one device")
     if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
         raise TypeError(f"qmatmul wants int8 operands, got {x_q.dtype} and "
@@ -75,19 +79,16 @@ def _launch(x_q, w_q, x_scale, w_scale, int4: bool) -> torch.Tensor:
             f"qmatmul shapes do not agree: x_q {tuple(x_q.shape)}, w_q "
             f"{tuple(w_q.shape)} (int4={int4}), x_scale "
             f"{tuple(x_scale.shape)}, w_scale {tuple(w_scale.shape)}")
-    if not all(t.is_contiguous() for t in tensors):
+    if not (x_q.is_contiguous() and w_q.is_contiguous() and x_scale.is_contiguous()
+            and w_scale.is_contiguous()):
         raise ValueError("qmatmul needs contiguous operands")
-    if m >= 65535 * 16 or n >= 2 ** 31:
-        raise ValueError(f"({m}, {n}) output exceeds the kernel's grid")
-    out = torch.empty((m, n), dtype=torch.float32, device=x_q.device)
+    if m >= 65535 * _BLOCK_M or n >= 2 ** 31 or k >= 2 ** 31:
+        raise ValueError(f"({m}, {k}, {n}) exceeds the kernel's grid")
+    out = x_q.new_empty((m, n), dtype=torch.float32)
     if m == 0 or n == 0:
         return out
-    fn = _build.entry("qmatmul")
-    with torch.cuda.device(x_q.device):
-        stream = torch.cuda.current_stream(x_q.device).cuda_stream
-        rc = fn(x_q.data_ptr(), w_q.data_ptr(), x_scale.data_ptr(),
-                w_scale.data_ptr(), out.data_ptr(), m, n, k, int(int4), stream)
-    _build.check(rc, "qmatmul")
+    _build.launch("qmatmul", index, x_q.data_ptr(), w_q.data_ptr(), x_scale.data_ptr(),
+                  w_scale.data_ptr(), out.data_ptr(), m, n, k, int(int4))
     registry.count_launch("qmatmul")
     return out
 

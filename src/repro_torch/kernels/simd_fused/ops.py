@@ -57,13 +57,9 @@ def _launch(q: torch.Tensor, dictionary: torch.Tensor, temp: float) -> torch.Ten
     f = b * d
     chunk = min(m, (_SMEM_FLOATS - QUERY_TILE * (f + m)) // f)
     scratch = torch.empty((m, b, d), dtype=torch.float32, device=q.device)
-    fn = _build.entry("simd_fused")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), dictionary.data_ptr(), scratch.data_ptr(),
-                out.data_ptr(), n, m, b, d, chunk, float(temp), _DTYPES[q.dtype],
-                stream)
-    _build.check(rc, "simd_fused")
+    _build.launch("simd_fused", q.get_device(), q.data_ptr(), dictionary.data_ptr(),
+                  scratch.data_ptr(), out.data_ptr(), n, m, b, d, chunk, float(temp),
+                  _DTYPES[q.dtype])
     registry.count_launch("simd_fused")  # one per call: normalise_rows + match
     return out
 

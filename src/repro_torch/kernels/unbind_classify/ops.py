@@ -51,12 +51,8 @@ def _launch(keys, x, w, b) -> torch.Tensor:
     out = torch.empty((n, k, c), dtype=torch.float32, device=x.device)
     if n * k == 0:
         return out
-    fn = _build.entry("unbind_classify")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(keys.data_ptr(), x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                out.data_ptr(), n, k, blocks, d, c, stream)
-    _build.check(rc, "unbind_classify")
+    _build.launch("unbind_classify", x.get_device(), keys.data_ptr(), x.data_ptr(),
+                  w.data_ptr(), b.data_ptr(), out.data_ptr(), n, k, blocks, d, c)
     registry.count_launch("unbind_classify")
     return out
 

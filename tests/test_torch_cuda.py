@@ -91,13 +91,19 @@ def _same_as_contiguous(call, kernel, *views):
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(gen):
-    """The public call copies a view contiguous, as the reference takes any
-    layout; the launch itself still refuses one."""
+    """The public call takes any layout, as the reference does: circ_elem
+    reads (N, B) strides in place and copies only an operand whose last
+    dimension is not contiguous; the launch itself refuses one."""
     x = torch.randn(4, 2, 64, device="cuda", generator=gen)
     _same_as_contiguous(circ_ops.circ_elem, "circ_conv", x.transpose(0, 1),
                         x.transpose(0, 1))
-    with pytest.raises(ValueError, match="contiguous"):
-        circ_ops._launch(x.transpose(0, 1), x.transpose(0, 1), "conv")
+    _same_as_contiguous(circ_ops.circ_elem, "circ_conv", x.transpose(1, 2),
+                        x.transpose(1, 2))
+    assert torch.equal(circ_ops._launch(x.transpose(0, 1), x.transpose(0, 1), "conv"),
+                       circ_ops.circ_elem(x.transpose(0, 1).contiguous(),
+                                          x.transpose(0, 1).contiguous()))
+    with pytest.raises(ValueError, match="contiguous last dimension"):
+        circ_ops._launch(x.transpose(1, 2), x.transpose(1, 2), "conv")
     with pytest.raises(TypeError):
         circ_ops.circ_elem(x.half(), x.half())
     with pytest.raises(ValueError, match="shared memory"):
@@ -107,6 +113,84 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError, match="do not agree"):
         qops.qmatmul(xq, torch.zeros(8, 3, dtype=torch.int8, device="cuda"),
                      torch.ones(4, device="cuda"), torch.ones(4, device="cuda"))
+
+
+@pytest.mark.parametrize("int4", [False, True])
+@pytest.mark.parametrize("mkn", [(16, 128, 5), (16, 128, 6), (16, 128, 8), (64, 128, 5),
+                                 (64, 128, 6), (64, 128, 8), (67, 130, 7), (64, 640, 8),
+                                 (33, 1000, 13), (512, 1024, 256)])
+def test_qmatmul_equals_plain_version(gen, mkn, int4):
+    """The served shapes (M = 8·bucket in {16, 64}, K = 128, N in {5, 6,
+    8}), ragged edges (K = 130 by element loads, K = 1000 through the ring
+    by element loads, K = 640 through the ring by cp.async) and one large
+    shape: exact int32 accumulators, and outputs equal to qmatmul_ref bit
+    for bit (the same epilogue on the same exact sums)."""
+    m, k, n = mkn
+    lim = 8 if int4 else 128
+    xq = torch.randint(-128, 128, (m, k), device="cuda", generator=gen, dtype=torch.int8)
+    wq = torch.randint(-lim, lim, (k, n), device="cuda", generator=gen, dtype=torch.int8)
+    if int4:  # an odd N is padded for packing, as qdense does
+        wq = qops.pack_int4(wq)
+    n_out = wq.shape[1] * (2 if int4 else 1)
+    xs = torch.rand(m, device="cuda", generator=gen) + 0.01
+    ws = torch.rand(n_out, device="cuda", generator=gen) + 0.01
+    before = registry.LAUNCHES["qmatmul"]
+    acc = qops.qmatmul(xq, wq, torch.ones_like(xs), torch.ones_like(ws), int4)
+    got = qops.qmatmul(xq, wq, xs, ws, int4)
+    torch.cuda.synchronize()
+    assert registry.LAUNCHES["qmatmul"] == before + 2
+    assert torch.equal(acc, qref.qmatmul_acc_ref(xq, wq, int4).float())
+    assert torch.equal(got, qref.qmatmul_ref(xq, wq, xs, ws, int4))
+
+
+def _allocations() -> int:
+    return torch.cuda.memory_stats()["allocation.all.allocated"]
+
+
+def _strided_operands(gen, case, dtype, d=256):
+    """(x, y) views as NVSA's served binds make them, with the wrapper that
+    takes them: a row slice ``codes[:, r0]`` of an (n, 8, B, d) tensor
+    against another (stride 8·B·d over N), a key broadcast over the batch
+    (``shifts[i][None]``, stride 0), a role broadcast over two lead dims
+    (``roles[a][None, None]`` against (n, 8, B, d), merged to stride 0 by
+    ``reshape``), and a bf16 or f32 row slice that starts one element past
+    a 16-byte boundary (element loads)."""
+    codes = torch.randn(8, 8, 4, d, device="cuda", generator=gen).to(dtype)
+    key = torch.randn(4, d, device="cuda", generator=gen).to(dtype)
+    if case == "row slices":
+        return circ_ops.circ_elem, codes[:, 1], codes[:, 0]
+    if case == "key over one lead dim":
+        return circ_ops.circ_bind, codes[:, 1], key[None]
+    if case == "key over two lead dims":
+        return circ_ops.circ_bind, codes, key[None, None]
+    odd = torch.randn(8, 8, 4, d + 1, device="cuda", generator=gen).to(dtype)
+    return circ_ops.circ_elem, odd[:, 1, :, 1:], odd[:, 2, :, 1:]
+
+
+@pytest.mark.parametrize("mode", ["conv", "corr"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["row slices", "key over one lead dim",
+                                  "key over two lead dims", "unaligned row slices"])
+def test_circ_elem_reads_strided_operands(gen, case, dtype, mode):
+    """Strided and broadcast operands go to the kernel as they are: one
+    launch and one allocation (the output; a copy would add one each), bit
+    for bit the result on their contiguous copies, the same from launch to
+    launch, and within 1e-3 of the plain version (bf16: also one bf16 step,
+    2^-7 relative)."""
+    call, x, y = _strided_operands(gen, case, dtype)
+    xx, yy = torch.broadcast_tensors(x, y)
+    assert not (xx.is_contiguous() and yy.is_contiguous())
+    torch.cuda.synchronize()
+    launches, allocs = registry.LAUNCHES["circ_conv"], _allocations()
+    got = call(x, y, mode)
+    torch.cuda.synchronize()
+    assert registry.LAUNCHES["circ_conv"] == launches + 1
+    assert _allocations() == allocs + 1
+    assert torch.equal(got, call(xx.contiguous(), yy.contiguous(), mode))
+    assert torch.equal(got, call(x, y, mode))
+    want = circ_ref.circ_elem_ref(xx, yy, mode)
+    rtol = 0 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-3, rtol=rtol)
 
 
 def test_quantisers_round_like_the_cpu(gen):
