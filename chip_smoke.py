@@ -35,10 +35,12 @@ and prints no result line):
    normalize, matmul, softmax; PyTorch's scaled_dot_product_attention,
    with the backend it chose) and its bound: bytes over the HBM rate or
    operations over the peak of the units that do them (the f32 CUDA
-   cores; for flash_attn the bf16 tensor cores at bf16 and, at f32, three
-   products on the TF32 tensor cores).
-   Then the host time of each step of the circ_elem and qmatmul wrappers
-   (``host_breakdown``: host clock, µs per call).
+   cores for circ_conv, unbind_classify and simd_fused, the int8 tensor
+   cores for qmatmul; for circ_dict and flash_attn the bf16 tensor cores
+   at bf16 and, at f32, three products on the TF32 tensor cores).
+   Then the host time of each step of the circ_elem, qmatmul,
+   circ_bind_dict and fused_unbind_classify wrappers (``host_breakdown``:
+   host clock, µs per call).
 3. Serve: NVSA at ``make_config(d=256)`` (4 blocks x 256, cnn_width 16,
    cnn_feat 128, 32x32 images, the model's own width) through
    ``reason_engine``, with constants from ``nn/init.py`` on a seeded
@@ -78,11 +80,12 @@ and prints no result line):
    bit for bit as its contiguous copy.
 7. The ``kernels`` JSON line: every ported kernel with its launches on the
    paths (each path's counts set to 0 just before it runs and read just
-   after) and its times at its path's shape; ``circ_conv``'s entry holds
-   the (64, 4, 256) row and, under ``served``, the (8, 4, 256) row (39 of
-   NVSA's 42 calls); ``flash_attn``'s entry holds
-   the f32 row and, under ``bf16``, the bf16 row at the same shape (ms,
-   device_ms, library_ms, bound_ms, bound_units, max_abs_err).
+   after) and its times at its path's shape, its bound and the units the
+   bound counts; entries carry other rows (``SUB_ROWS``): ``circ_conv``
+   the (8, 4, 256) bucket under ``served`` (39 of NVSA's 42 calls),
+   ``circ_dict`` corr and bf16 at (256, 16, 4, 256), ``unbind_classify``
+   (8, 2, 4, 256, 5) under ``d256``, ``flash_attn`` bf16 at the same shape
+   (ms, device_ms, library_ms, bound_ms, bound_units, max_abs_err).
 8. The last line: ``{"ok": true, "device": {...}}``.
 
 It needs the repository's ``src/`` beside it and a CUDA device; without
@@ -200,22 +203,32 @@ def qmm_bound(m: int, k: int, n: int, int4: bool) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations"
 
 
-def uc_bound(n: int, k: int, b: int, d: int, c: int) -> tuple[float, str]:
+def uc_bound(n: int, k: int, b: int, d: int, c: int) -> tuple[float, str, str]:
     """Least time (ms) for f32 fused_unbind_classify: keys, x, w and b read
     once and the logits written once, against 2·N·K·B·(d² + d·C) flops
-    (the correlation, then the head) on the f32 CUDA cores."""
+    (the correlation, then the head) on the units the kernel uses, the f32
+    CUDA cores.  Returns (ms, "bytes" or "operations", the units)."""
     t_bytes = 4 * (k * b * d + n * b * d + b * d * c + c + n * k * c) / HBM_BYTES_PER_S
     t_ops = 2 * n * k * b * (d * d + d * c) / F32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations"
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations",
+            "f32 CUDA cores")
 
 
-def dict_bound(n: int, m: int, b: int, d: int, elt: int) -> tuple[float, str]:
+def dict_bound(n: int, m: int, b: int, d: int, elt: int) -> tuple[float, str, str]:
     """Least time (ms) for circ_dict: x and the dictionary read once and the
-    (N, M, B, d) output written once, against 2·N·M·B·d² flops on the f32
-    CUDA cores."""
+    (N, M, B, d) output written once, against 2·N·M·B·d² flops on the units
+    the kernel uses: for f32 three TF32 products per f32 product (3xTF32) on
+    the TF32 tensor cores, for bf16 one product on the bf16 tensor cores.
+    Returns (ms, "bytes" or "operations", the units)."""
     t_bytes = elt * (n * b * d + m * b * d + n * m * b * d) / HBM_BYTES_PER_S
-    t_ops = 2 * n * m * b * d * d / F32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations"
+    flops = 2 * n * m * b * d * d
+    if elt == 2:
+        t_ops, units = flops / BF16_FLOPS, "bf16 tensor cores"
+    else:
+        t_ops = 3 * flops / TF32_FLOPS
+        units = "TF32 tensor cores, 3 products per f32 product"
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations",
+            units)
 
 
 def match_bound(n: int, m: int, b: int, d: int, elt: int) -> tuple[float, str]:
@@ -298,7 +311,8 @@ def phase_kernels() -> dict:
                        "plain_ms": cuda_ms(lambda: circ_ref.circ_elem_ref(x, y, mode)),
                        "library_ms": cuda_ms(fft_chain),
                        "library": "rfft, rfft, irfft (3 calls)",
-                       "bound_ms": bound, "bound_by": by}
+                       "bound_ms": bound, "bound_by": by,
+                       "bound_units": "f32 CUDA cores"}
                 emit(row)
                 if (mode, n, d) == ("conv", 64, 256):
                     main["circ_conv"] = row
@@ -349,7 +363,8 @@ def phase_kernels() -> dict:
                        lambda: qops.qmatmul(xq, wq, xs, ws, int4)),
                    "plain_ms": cuda_ms(lambda: qref.qmatmul_ref(xq, wq, xs, ws, int4)),
                    "library_ms": library_ms, "library": library,
-                   "bound_ms": bound, "bound_by": by}
+                   "bound_ms": bound, "bound_by": by,
+                   "bound_units": "int8 tensor cores"}
             emit(row)
             if (int4, m, k, n) == (False, 64, 128, 8):
                 main["qmatmul"] = row
@@ -379,7 +394,7 @@ def phase_kernels() -> dict:
 
             lib_err = float((fft_chain().reshape(n, k, c) - want).abs().max())
             check(lib_err <= 1e-3, f"unbind_classify library chain err {lib_err}")
-            bound, by = uc_bound(n, k, blocks, d, c)
+            bound, by, units = uc_bound(n, k, blocks, d, c)
             row = {"kernel": "unbind_classify", "shape": [n, k, blocks, d, c],
                    "max_abs_err": err,
                    "kernel_ms": cuda_ms(
@@ -390,10 +405,12 @@ def phase_kernels() -> dict:
                        lambda: uc_ref.fused_unbind_classify_ref(keys, x, w, bias)),
                    "library_ms": cuda_ms(fft_chain),
                    "library": "rfft, rfft, mul (conj), irfft, addmm (5 calls)",
-                   "bound_ms": bound, "bound_by": by}
+                   "bound_ms": bound, "bound_by": by, "bound_units": units}
             emit(row)
             if (n, d) == (8, 128):
                 main["unbind_classify"] = row
+            if (n, d) == (8, 256):
+                main["unbind_classify_d256"] = row
     main.update(dict_kernel_rows(gen))
     main.update(match_kernel_rows(gen))
     main.update(flash_kernel_rows(gen))
@@ -510,7 +527,7 @@ def dict_kernel_rows(gen) -> dict:
             library_ms = cuda_ms(fft_chain)
             library = "rfft, rfft, broadcast mul, irfft (4 calls)"
         elt = x.element_size()
-        bound, by = dict_bound(n, m, b, d, elt)
+        bound, by, units = dict_bound(n, m, b, d, elt)
         row = {"kernel": "circ_dict", "mode": mode, "dtype": str(dtype).split(".")[1],
                "shape": [n, m, b, d], "max_abs_err": err,
                "kernel_ms": cuda_ms(lambda: circ_ops.circ_bind_dict(x, dic, mode)),
@@ -519,10 +536,12 @@ def dict_kernel_rows(gen) -> dict:
                "plain_ms": cuda_ms(
                    lambda: circ_ref.circ_dict_ref(x, dic, mode).transpose(1, 2)),
                "library_ms": library_ms, "library": library,
-               "bound_ms": bound, "bound_by": by}
+               "bound_ms": bound, "bound_by": by, "bound_units": units}
         emit(row)
-        if (mode, n, dtype) == ("conv", 256, torch.float32):
-            main["circ_dict"] = row
+        if (n, dtype) == (256, torch.float32):
+            main["circ_dict" if mode == "conv" else "circ_dict_corr"] = row
+        if (n, dtype) == (256, torch.bfloat16):
+            main["circ_dict_bf16"] = row
     return main
 
 
@@ -567,7 +586,8 @@ def match_kernel_rows(gen) -> dict:
                "plain_ms": cuda_ms(lambda: simd_ref.fused_match_prob_ref(q, dic, temp)),
                "library_ms": cuda_ms(lib_chain),
                "library": "normalize, normalize, matmul, softmax (4 calls)",
-               "bound_ms": bound, "bound_by": by}
+               "bound_ms": bound, "bound_by": by,
+               "bound_units": "f32 CUDA cores"}
         emit(row)
         if (n, m, dtype) == (512, 16, torch.float32):
             main["simd_fused"] = row
@@ -688,10 +708,10 @@ def host_us(fn, calls: int = 200, windows: int = 15) -> float:
 
 
 def host_breakdown() -> list[dict]:
-    """Host time of each step of the circ_elem and qmatmul wrappers, at
-    their served shapes: the whole call, its parts as the wrapper of the
-    importable ``repro_torch`` makes them, and each torch or ctypes step on
-    its own.  The C entry point is called with the arguments its declared
+    """Host time of each step of the circ_elem, qmatmul, circ_bind_dict
+    and fused_unbind_classify wrappers, at their paths' shapes: the whole
+    call, its parts as the wrapper of the importable ``repro_torch`` makes
+    them, and each torch or ctypes step on its own.  The C entry point is called with the arguments its declared
     signature takes (``_build.ENTRY_POINTS``), so one function times this
     tree's wrappers and an earlier tree's alike.  Returns the rows."""
     import torch
@@ -700,6 +720,7 @@ def host_breakdown() -> list[dict]:
     from repro_torch.kernels import _build
     from repro_torch.kernels.circ_conv import ops as circ_ops
     from repro_torch.kernels.qmatmul import ops as qops
+    from repro_torch.kernels.unbind_classify import ops as uc_ops
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -787,6 +808,60 @@ def host_breakdown() -> list[dict]:
     us = {name: host_us(step) for name, step in steps.items()}
     rows.append({"phase": "host_breakdown", "kernel": "qmatmul",
                  "shape": [64, 128, 8], "us_per_call": us})
+
+    # circ_bind_dict at the ops shape (256, 16, 4, 256) conv
+    xd = torch.randn(256, 4, 256, device="cuda", generator=gen)
+    dd = torch.randn(16, 4, 256, device="cuda", generator=gen)
+    dout = torch.empty((256, 16, 4, 256), device="cuda")
+    dfn = _build.entry("circ_dict")
+    dargs = (xd.data_ptr(), dd.data_ptr(), dout.data_ptr(), 256, 16, 4, 256, 0, 0, stream)
+    steps = {
+        "circ_bind_dict (whole call)": lambda: circ_ops.circ_bind_dict(xd, dd),
+        "_launch_dict": lambda: circ_ops._launch_dict(xd, dd, "conv"),
+        "C entry point (ctypes, launch included)": lambda: dfn(*dargs),
+        "registry.refuse_grad (two tensors)":
+            lambda: registry.refuse_grad("circ_dict", xd, dd),
+        "dictionary.device != x.device": lambda: dd.device != xd.device,
+        "dictionary.get_device() != x.get_device()":
+            lambda: dd.get_device() != xd.get_device(),
+        "torch.empty((N, M, B, d), dtype=, device=x.device)":
+            lambda: torch.empty((256, 16, 4, 256), dtype=xd.dtype, device=xd.device),
+        "x.new_empty((N, M, B, d))": lambda: xd.new_empty((256, 16, 4, 256)),
+    }
+    us = {name: host_us(step) for name, step in steps.items()}
+    rows.append({"phase": "host_breakdown", "kernel": "circ_dict",
+                 "shape": [256, 16, 4, 256], "us_per_call": us})
+
+    # fused_unbind_classify at MIMONet's (8, 2, 4, 128, 5)
+    keys = torch.randn(2, 4, 128, device="cuda", generator=gen)
+    xu = torch.randn(8, 4, 128, device="cuda", generator=gen)
+    wu = torch.randn(4, 128, 5, device="cuda", generator=gen)
+    bu = torch.randn(1, 5, device="cuda", generator=gen)
+    uout = torch.empty((8, 2, 5), device="cuda")
+    ufn = _build.entry("unbind_classify")
+    uargs = (keys.data_ptr(), xu.data_ptr(), wu.data_ptr(), bu.data_ptr(),
+             uout.data_ptr(), 8, 2, 4, 128, 5, stream)
+    four = (keys, xu, wu, bu)
+    steps = {
+        "fused_unbind_classify (whole call)":
+            lambda: uc_ops.fused_unbind_classify(keys, xu, wu, bu),
+        "_FusedUnbindClassify.apply":
+            lambda: uc_ops._FusedUnbindClassify.apply(keys, xu, wu, bu),
+        "_launch": lambda: uc_ops._launch(keys, xu, wu, bu),
+        "C entry point (ctypes, launch included)": lambda: ufn(*uargs),
+        "four .contiguous() (already contiguous)":
+            lambda: [t.contiguous() for t in four],
+        "four t.device != x.device": lambda: [t.device != xu.device for t in four],
+        "four t.get_device()": lambda: [t.get_device() for t in four],
+        "torch.is_grad_enabled() and any(t.requires_grad)":
+            lambda: torch.is_grad_enabled() and any(t.requires_grad for t in four),
+        "torch.empty((N, K, C), device=x.device)":
+            lambda: torch.empty((8, 2, 5), dtype=torch.float32, device=xu.device),
+        "x.new_empty((N, K, C))": lambda: xu.new_empty((8, 2, 5)),
+    }
+    us = {name: host_us(step) for name, step in steps.items()}
+    rows.append({"phase": "host_breakdown", "kernel": "unbind_classify",
+                 "shape": [8, 2, 4, 128, 5], "us_per_call": us})
     torch.cuda.synchronize()
     return rows
 
@@ -1286,6 +1361,15 @@ def ops_gradients(gen, launched) -> None:
           "bit_identical_to_contiguous": True})
 
 
+# the other rows a kernel's entry of the ``kernels`` line carries, under
+# these keys: circ_conv at NVSA's served bucket, circ_dict corr and bf16,
+# unbind_classify at d = 256, flash_attn bf16
+SUB_ROWS = {"circ_conv": (("served", "circ_conv_served"),),
+            "circ_dict": (("corr", "circ_dict_corr"), ("bf16", "circ_dict_bf16")),
+            "unbind_classify": (("d256", "unbind_classify_d256"),),
+            "flash_attn": (("bf16", "flash_attn_bf16"),)}
+
+
 def main() -> int:
     import torch
 
@@ -1321,22 +1405,15 @@ def main() -> int:
             "ms": row["kernel_ms"], "device_ms": row["kernel_device_ms"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"]})
-        if name == "circ_conv":
-            served = main_rows["circ_conv_served"]
-            kernels[-1]["served"] = {
-                "shape": served["shape"], "ms": served["kernel_ms"],
-                "device_ms": served["kernel_device_ms"], "plain_ms": served["plain_ms"],
-                "library_ms": served["library_ms"], "bound_ms": served["bound_ms"],
-                "bound_by": served["bound_by"], "max_abs_err": served["max_abs_err"]}
-        if name == "flash_attn":
-            bf16 = main_rows["flash_attn_bf16"]
-            kernels[-1]["bound_units"] = row["bound_units"]
-            kernels[-1]["bf16"] = {
-                "ms": bf16["kernel_ms"], "device_ms": bf16["kernel_device_ms"],
-                "library_ms": bf16["library_ms"], "bound_ms": bf16["bound_ms"],
-                "bound_by": bf16["bound_by"], "bound_units": bf16["bound_units"],
-                "max_abs_err": bf16["max_abs_err"]}
+            "bound_units": row["bound_units"], "library_ms": row["library_ms"]})
+        for sub, key in SUB_ROWS.get(name, ()):
+            other = main_rows[key]
+            kernels[-1][sub] = {
+                "shape": other["shape"], "ms": other["kernel_ms"],
+                "device_ms": other["kernel_device_ms"], "plain_ms": other["plain_ms"],
+                "library_ms": other["library_ms"], "bound_ms": other["bound_ms"],
+                "bound_by": other["bound_by"], "bound_units": other["bound_units"],
+                "max_abs_err": other["max_abs_err"]}
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -34,10 +34,35 @@ from repro_torch.kernels.circ_conv import ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SMEM = 227 * 1024   # bytes of shared memory one block may use on Hopper
-DICT_QUERY_TILE = 16     # circ_dict.cu's TN: queries per block
-# circ_dict stages (TN + 1) rows of d floats per block
-DICT_MAX_D = _MAX_SMEM // (4 * (DICT_QUERY_TILE + 1))
 _ELEM_TILE = 64          # circ_conv.cu's TILE: outputs per tile
+DICT_COLS = 64           # circ_dict.cu's WCOLS: d pads to a multiple
+DICT_MIN_ROWS = 16       # circ_dict.cu's WROWS: the smallest query tile
+
+
+def dict_smem_bytes(d: int, elt: int, rows: int = DICT_MIN_ROWS, entries: int = 1) -> int:
+    """circ_dict.cu's ``smem_bytes``: shared memory of a block that stages
+    ``rows`` queries and ``entries`` dictionary rows at block dim ``d``
+    (``elt`` bytes per element).  f32: the query tile as tf32 hi and lo
+    words, each row padded by 16 bytes, and each entry's row as hi and lo
+    over 2·dp; bf16: the tile as bf16, each entry's row as two word copies
+    of dp words, 16 words apart, and the output buffers of the block's 8
+    warps, 16 rows of 72 bf16 each."""
+    dp = -(-d // DICT_COLS) * DICT_COLS
+    if elt == 2:
+        return 2 * rows * (dp + 8) + 4 * entries * (2 * dp + 16) + 2 * 8 * 16 * 72
+    return 8 * rows * (dp + 4) + 16 * entries * dp
+
+
+def _dict_max_d(elt: int) -> int:
+    """The largest d whose smallest block (16 queries, one entry) fits."""
+    d = DICT_COLS
+    while dict_smem_bytes(d + DICT_COLS, elt) <= _MAX_SMEM:
+        d += DICT_COLS
+    return d
+
+
+DICT_MAX_D = _dict_max_d(4)        # f32
+DICT_MAX_D_BF16 = _dict_max_d(2)
 
 
 def _elem_geometry(d: int) -> tuple[int, int]:
@@ -139,21 +164,23 @@ def _launch_dict(x: torch.Tensor, dictionary: torch.Tensor, mode: str) -> torch.
     if x.dtype not in _DTYPES or dictionary.dtype != x.dtype:
         raise TypeError(f"circ_dict takes float32 or bfloat16 of one dtype, "
                         f"got {x.dtype} and {dictionary.dtype}")
-    if dictionary.device != x.device:
+    index = x.get_device()
+    if dictionary.get_device() != index:
         raise ValueError(f"x on {x.device}, dictionary on {dictionary.device}")
     if not (x.is_contiguous() and dictionary.is_contiguous()):
         raise ValueError("circ_dict needs contiguous inputs")
     n, b, d = x.shape
     m = dictionary.shape[0]
-    if d > DICT_MAX_D:
+    if dict_smem_bytes(d, x.element_size()) > _MAX_SMEM:
+        limit = DICT_MAX_D if x.dtype == torch.float32 else DICT_MAX_D_BF16
         raise ValueError(f"block dim d={d} exceeds the kernel's shared memory "
-                         f"(d <= {DICT_MAX_D})")
-    if m * b > 65535 or n >= 2 ** 31 - DICT_QUERY_TILE:
+                         f"(d <= {limit} at {x.dtype})")
+    if n >= 2 ** 31 or -(-n // DICT_MIN_ROWS) * b * m >= 2 ** 31:
         raise ValueError(f"(N, M, B) = {(n, m, b)} exceeds the kernel's grid")
-    out = torch.empty((n, m, b, d), dtype=x.dtype, device=x.device)
+    out = x.new_empty((n, m, b, d))
     if out.numel() == 0:
         return out
-    _build.launch("circ_dict", x.get_device(), x.data_ptr(), dictionary.data_ptr(),
+    _build.launch("circ_dict", index, x.data_ptr(), dictionary.data_ptr(),
                   out.data_ptr(), n, m, b, d, _DTYPES[x.dtype], int(mode == "corr"))
     registry.count_launch("circ_dict")
     return out

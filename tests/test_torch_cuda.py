@@ -244,6 +244,33 @@ def test_unbind_classify_kernel_odd_shapes(gen, d, c):
                                atol=1e-3, rtol=0)
 
 
+@pytest.mark.parametrize("c", [1, 32])
+@pytest.mark.parametrize("d", [1, 7, 130, 512])
+@pytest.mark.parametrize("blocks", [1, 9])
+def test_unbind_classify_kernel_blocks_dims_classes(gen, blocks, d, c):
+    """The split d-sum at B = 1 and 9, d around its 64-output tiles and C at
+    both ends: within the registry epsilon (1e-3) of the plain version, and
+    bit-identical on a second launch."""
+    keys, x, w, b = _uc_inputs(gen, 7, d, k=3, blocks=blocks, c=c)
+    got = uc_ops.fused_unbind_classify(keys, x, w, b)
+    assert got.shape == (7, 3, c)
+    torch.testing.assert_close(got, uc_ref.fused_unbind_classify_ref(keys, x, w, b),
+                               atol=1e-3, rtol=0)
+    assert torch.equal(uc_ops.fused_unbind_classify(keys, x, w, b), got)
+
+
+def test_unbind_classify_at_its_shared_memory_limit(gen):
+    """At MAX_D one staged VSA block fills the shared memory: the kernel
+    runs there and is right; one more and the wrapper raises."""
+    keys, x, w, b = _uc_inputs(gen, 2, uc_ops.MAX_D, k=1, blocks=1, c=3)
+    torch.testing.assert_close(uc_ops.fused_unbind_classify(keys, x, w, b),
+                               uc_ref.fused_unbind_classify_ref(keys, x, w, b),
+                               atol=1e-3, rtol=0)
+    keys, x, w, b = _uc_inputs(gen, 2, uc_ops.MAX_D + 1, k=1, blocks=1, c=3)
+    with pytest.raises(ValueError, match="shared memory"):
+        uc_ops.fused_unbind_classify(keys, x, w, b)
+
+
 def test_unbind_classify_is_deterministic(gen):
     """A fixed-order reduction without atomics: repeated launches give
     bit-identical logits."""
@@ -382,6 +409,45 @@ def test_circ_dict_rejects_what_the_kernel_does_not_take(gen):
     edge = torch.randn(2, 1, circ_ops.DICT_MAX_D, device="cuda", generator=gen)
     torch.testing.assert_close(circ_ops.circ_dict(edge, edge[:1]),
                                circ_ref.circ_dict_ref(edge, edge[:1]), atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["conv", "corr"])
+def test_circ_dict_is_bit_identical_across_launches_and_n(gen, mode, dtype):
+    """Each output's k-sum runs in an order that depends on d alone: two
+    launches agree bit for bit, and row n of circ_bind_dict(x, dic) equals
+    the same row computed from x[n0:n1], whatever tile of 16 or 32 queries
+    it lands in (N = 1, 13, 67, 257, at offsets that move the tiles)."""
+    x = torch.randn(300, 4, 256, device="cuda", generator=gen).to(dtype)
+    dic = torch.randn(16, 4, 256, device="cuda", generator=gen).to(dtype)
+    full = circ_ops.circ_bind_dict(x, dic, mode)
+    assert torch.equal(circ_ops.circ_bind_dict(x, dic, mode), full)
+    for n in (1, 13, 67, 257):
+        for n0 in (0, 5, 300 - n):
+            part = circ_ops.circ_bind_dict(x[n0:n0 + n], dic, mode)
+            assert torch.equal(part, full[n0:n0 + n]), (n, n0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["conv", "corr"])
+@pytest.mark.parametrize("d", [1, 7, 8, 16, 130, 512, "max"])
+def test_circ_dict_kernel_block_dims(gen, d, mode, dtype):
+    """circ_dict at block dims around its 64-column tiles, up to the
+    largest d its shared memory takes (DICT_MAX_D, DICT_MAX_D_BF16): within
+    1e-3 of the plain version in f32 and one bf16 step more in bf16 (the
+    limits of test_circ_dict_kernel), on x that starts at an odd element
+    (element loads) as well as on an aligned one."""
+    if d == "max":
+        d = circ_ops.DICT_MAX_D if dtype == torch.float32 else circ_ops.DICT_MAX_D_BF16
+    n, m, b = 21, 3, 2
+    flat = torch.randn(n * b * d + 1, device="cuda", generator=gen).to(dtype)
+    dic = torch.randn(m, b, d, device="cuda", generator=gen).to(dtype)
+    rtol = 0 if dtype == torch.float32 else 2 ** -7
+    for x in (flat[: n * b * d].view(n, b, d), flat[1:].view(n, b, d)):
+        got = circ_ops.circ_bind_dict(x, dic, mode)
+        want = circ_ref.circ_dict_ref(x, dic, mode).transpose(1, 2)
+        assert got.dtype == dtype and got.shape == (n, m, b, d)
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-3, rtol=rtol)
 
 
 # -- fused match_prob ----------------------------------------------------------

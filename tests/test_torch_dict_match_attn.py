@@ -40,7 +40,11 @@ def _normal(seed, *shape):
 
 # -- circ_dict -----------------------------------------------------------------
 
-DICT_SHAPES = [(5, 3, 2, 64), (13, 4, 4, 128)]
+# the last three sit on the CUDA kernel's tiling edges: one query (a
+# 16-row tile almost empty), 65 queries (one past two 32-row tiles), one
+# entry, one block, and d = 8 and 24 (one 64-column tile, mostly padding)
+DICT_SHAPES = [(5, 3, 2, 64), (13, 4, 4, 128), (1, 1, 1, 8), (65, 1, 1, 24),
+               (65, 2, 3, 8)]
 
 
 @pytest.mark.parametrize("mode", ["conv", "corr"])
@@ -72,6 +76,31 @@ def test_circ_bind_dict_matches_reference(nmbd, mode):
     pairs = circ_ops.circ_bind(torch.from_numpy(x)[:, None], torch.from_numpy(dic)[None],
                                mode)
     torch.testing.assert_close(got, pairs, atol=1e-4, rtol=0)
+
+
+def test_circ_dict_shared_memory_geometry():
+    """The wrapper's copy of circ_dict.cu's shared-memory formula, and the
+    raise where it says a launch would fail: the query tile as tf32 hi and
+    lo (f32) or bf16, rows padded by 16 bytes, and each staged entry's row
+    (hi and lo over 2·dp words, or two bf16 word copies of dp words, 16
+    words apart, and at bf16 the 16 x 64 output buffers of 8 warps), with
+    d padded to a multiple of 64."""
+    assert circ_ops.dict_smem_bytes(256, 4, rows=32, entries=2) == 8 * 32 * 260 + 16 * 2 * 256
+    assert circ_ops.dict_smem_bytes(256, 2, rows=32, entries=2) == \
+        2 * 32 * 264 + 4 * 2 * 528 + 2 * 8 * 16 * 72
+    assert circ_ops.dict_smem_bytes(1, 4) == circ_ops.dict_smem_bytes(64, 4) == 8 * 16 * 68 + 16 * 64
+    assert circ_ops.dict_smem_bytes(130, 2) == circ_ops.dict_smem_bytes(192, 2)
+    limit = 227 * 1024
+    for elt, max_d in ((4, circ_ops.DICT_MAX_D), (2, circ_ops.DICT_MAX_D_BF16)):
+        assert max_d % 64 == 0
+        assert circ_ops.dict_smem_bytes(max_d, elt) <= limit
+        assert circ_ops.dict_smem_bytes(max_d + 1, elt) > limit
+    assert (circ_ops.DICT_MAX_D, circ_ops.DICT_MAX_D_BF16) == (1600, 5312)
+    for dtype, max_d in ((torch.float32, circ_ops.DICT_MAX_D),
+                         (torch.bfloat16, circ_ops.DICT_MAX_D_BF16)):
+        big = torch.zeros(1, 1, max_d + 1, dtype=dtype)
+        with pytest.raises(ValueError, match="shared memory"):
+            circ_ops._launch_dict(big, big, "conv")
 
 
 @pytest.mark.parametrize("mode", ["conv", "corr"])

@@ -91,12 +91,19 @@ def _uc_inputs(n, d, k=2, blocks=4, c=5, seed=0):
     return keys, x, w, b
 
 
-@pytest.mark.parametrize("d", [8, 128])
-@pytest.mark.parametrize("n", [1, 5, 9])
-def test_fused_unbind_classify_matches_pallas_interpret(n, d):
+# (n, d, blocks): MIMONet's 4 blocks at d = 8, 128 and 256, and one block
+_UC_PALLAS_CASES = [(n, d, blocks) for blocks in (4, 1) for d in (8, 128, 256)
+                    for n in (1, 5, 9)]
+
+
+@pytest.mark.parametrize(
+    "n,d,blocks", _UC_PALLAS_CASES,
+    ids=[f"{n}-{d}" + ("" if blocks == 4 else f"-B{blocks}")
+         for n, d, blocks in _UC_PALLAS_CASES])
+def test_fused_unbind_classify_matches_pallas_interpret(n, d, blocks):
     """The kernel's plain version (the CPU path of the wrapper) against the
     Pallas kernel in interpret mode, within the registry epsilon 1e-3."""
-    keys, x, w, b = _uc_inputs(n, d)
+    keys, x, w, b = _uc_inputs(n, d, blocks=blocks)
     want = np.asarray(juc.fused_unbind_classify(
         jnp.asarray(keys), jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
         interpret=True))
@@ -105,6 +112,30 @@ def test_fused_unbind_classify_matches_pallas_interpret(n, d):
     assert registry.LAUNCHES == before  # CPU tensors launch nothing
     assert got.dtype == torch.float32 and got.shape == (n, 2, 5)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-3, rtol=0)
+
+
+def test_unbind_classify_kernel_geometry():
+    """The wrapper's copy of unbind_classify.cu's geometry: d padded to a
+    multiple of 64 and S slices of the i-sum, the largest power of two up
+    to 16 (4 above dp = 1024) with slices a multiple of 16 and at least 32
+    long; one staged VSA block takes x twice over, the key and S partial
+    sums, (3 + S)·dp floats; the wrapper raises exactly where that exceeds
+    Hopper's 227 KB less the 2 KB reduction array."""
+    cases = {1: (64, 2), 7: (64, 2), 128: (128, 4), 130: (192, 4), 256: (256, 8),
+             512: (512, 16), 640: (640, 8), 1024: (1024, 16), 1088: (1088, 4)}
+    for d, want in cases.items():
+        dp, s = uc_ops.geometry(d)
+        assert (dp, s) == want
+        assert dp % s == 0 and (dp // s) % 16 == 0 and dp // s >= 32
+        assert uc_ops.smem_bytes(d, rows=3) == 3 * 4 * (3 + s) * dp
+    limit = 227 * 1024 - 16 * 32 * 4
+    assert uc_ops.smem_bytes(uc_ops.MAX_D) <= limit < uc_ops.smem_bytes(uc_ops.MAX_D + 1)
+    assert uc_ops.MAX_D == 8192
+    d = uc_ops.MAX_D + 1
+    args = (torch.zeros(1, 1, d), torch.zeros(1, 1, d), torch.zeros(1, d, 2),
+            torch.zeros(1, 2))
+    with pytest.raises(ValueError, match="shared memory"):
+        uc_ops._launch(*args)
 
 
 @pytest.mark.parametrize("d", [8, 128])
