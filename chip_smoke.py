@@ -25,8 +25,10 @@ and prints no result line):
    ``circ_dict`` (``circ_bind_dict`` at (N, M, B, d) = (256, 16, 4, 256),
    conv/corr, and around it, within 1e-3; bf16 within 1e-3 + one bf16
    step), ``simd_fused`` (``fused_match_prob`` at (512, 16, 4, 256), bf16,
-   and M = 1024 streamed in chunks, within 1e-6 + 1e-4 relative,
-   bit-identical repeats) and ``flash_attn`` (``flash_mha`` at
+   (67, 5, 4, 128) and M = 1024 split over a cluster of 8 CTAs, within
+   1e-6 + 1e-4 relative, bit-identical repeats, one launch a call; each
+   row with its cluster size S and, where S > 1, the device time of the
+   same launch at S = 1) and ``flash_attn`` (``flash_mha`` at
    llama3.2-3b's (1, 2048, 24, 128), causal, within 2e-5 at f32 and 1e-3 +
    one bf16 step at bf16, both on the tensor cores; also Sq = 100 against
    Skv = 300 and S = 1000 at both dtypes; at S = 2048 f32 also the error
@@ -39,8 +41,8 @@ and prints no result line):
    cores for qmatmul; for circ_dict and flash_attn the bf16 tensor cores
    at bf16 and, at f32, three products on the TF32 tensor cores).
    Then the host time of each step of the circ_elem, qmatmul,
-   circ_bind_dict and fused_unbind_classify wrappers (``host_breakdown``:
-   host clock, µs per call).
+   circ_bind_dict, fused_unbind_classify and fused_match_prob wrappers
+   (``host_breakdown``: host clock, µs per call).
 3. Serve: NVSA at ``make_config(d=256)`` (4 blocks x 256, cnn_width 16,
    cnn_feat 128, 32x32 images, the model's own width) through
    ``reason_engine``, with constants from ``nn/init.py`` on a seeded
@@ -84,7 +86,9 @@ and prints no result line):
    bound counts; entries carry other rows (``SUB_ROWS``): ``circ_conv``
    the (8, 4, 256) bucket under ``served`` (39 of NVSA's 42 calls),
    ``circ_dict`` corr and bf16 at (256, 16, 4, 256), ``unbind_classify``
-   (8, 2, 4, 256, 5) under ``d256``, ``flash_attn`` bf16 at the same shape
+   (8, 2, 4, 256, 5) under ``d256``, ``simd_fused`` bf16, (67, 5, 4, 128)
+   under ``d128`` and (64, 1024, 4, 256) under ``m1024``, ``flash_attn``
+   bf16 at the same shape
    (ms, device_ms, library_ms, bound_ms, bound_units, max_abs_err).
 8. The last line: ``{"ok": true, "device": {...}}``.
 
@@ -549,6 +553,8 @@ def match_kernel_rows(gen) -> dict:
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.backend import registry
+    from repro_torch.kernels import _build
     from repro_torch.kernels.simd_fused import ops as simd_ops
     from repro_torch.kernels.simd_fused import ref as simd_ref
 
@@ -559,12 +565,15 @@ def match_kernel_rows(gen) -> dict:
                                       ((64, 1024, 4, 256), 0.1, torch.float32)):
         q = torch.randn(n, b, d, device="cuda", generator=gen).to(dtype)
         dic = torch.randn(m, b, d, device="cuda", generator=gen).to(dtype)
+        before = registry.LAUNCHES["simd_fused"]
         got = simd_ops.fused_match_prob(q, dic, temp)
+        launches = registry.LAUNCHES["simd_fused"] - before
         again = simd_ops.fused_match_prob(q, dic, temp)
         want = simd_ref.fused_match_prob_ref(q, dic, temp)
         torch.cuda.synchronize()
+        check(launches == 1, f"match_prob {(n, m, b, d)}: {launches} launches a call")
         # far inside the registry epsilon (1e-3) and below a probability of
-        # 1/M, so that a chunk of the M = 1024 dictionary read at the wrong
+        # 1/M, so that a slice of the M = 1024 dictionary read at the wrong
         # offset shows
         err = close(got, want, 1e-6, 1e-4)
         check(torch.equal(got, again), f"match_prob {(n, m, b, d)}: launches differ")
@@ -587,10 +596,26 @@ def match_kernel_rows(gen) -> dict:
                "library_ms": cuda_ms(lib_chain),
                "library": "normalize, normalize, matmul, softmax (4 calls)",
                "bound_ms": bound, "bound_by": by,
-               "bound_units": "f32 CUDA cores"}
+               "bound_units": "f32 CUDA cores", "launches_per_call": launches,
+               "splits": simd_ops.cluster_size(n, m, b, d)}
+        if row["splits"] > 1:
+            # the same launch with the dictionary left whole (S = 1): what
+            # the cluster split buys
+            one = torch.empty_like(got)
+
+            def whole(q=q, dic=dic, one=one, n=n, m=m, b=b, d=d, temp=temp):
+                _build.launch("simd_fused", q.get_device(), q.data_ptr(), dic.data_ptr(),
+                              one.data_ptr(), n, m, b, d, 1, float(temp),
+                              simd_ops._DTYPES[q.dtype])
+
+            whole()
+            torch.cuda.synchronize()
+            row["max_abs_err_splits_1"] = close(one, want, 1e-6, 1e-4)
+            row["device_ms_splits_1"] = graph_ms(whole)
         emit(row)
-        if (n, m, dtype) == (512, 16, torch.float32):
-            main["simd_fused"] = row
+        key = {(512, torch.float32): "simd_fused", (512, torch.bfloat16): "simd_fused_bf16",
+               (67, torch.float32): "simd_fused_d128", (64, torch.float32): "simd_fused_m1024"}
+        main[key[n, dtype]] = row
     return main
 
 
@@ -708,18 +733,20 @@ def host_us(fn, calls: int = 200, windows: int = 15) -> float:
 
 
 def host_breakdown() -> list[dict]:
-    """Host time of each step of the circ_elem, qmatmul, circ_bind_dict
-    and fused_unbind_classify wrappers, at their paths' shapes: the whole
-    call, its parts as the wrapper of the importable ``repro_torch`` makes
-    them, and each torch or ctypes step on its own.  The C entry point is called with the arguments its declared
-    signature takes (``_build.ENTRY_POINTS``), so one function times this
-    tree's wrappers and an earlier tree's alike.  Returns the rows."""
+    """Host time of each step of the circ_elem, qmatmul, circ_bind_dict,
+    fused_unbind_classify and fused_match_prob wrappers, at their paths'
+    shapes: the whole call, its parts as the wrapper of the importable
+    ``repro_torch`` makes them, and each torch or ctypes step on its own.
+    The C entry point is called with the arguments its declared signature
+    takes (``_build.ENTRY_POINTS``), so one function times this tree's
+    wrappers and an earlier tree's alike.  Returns the rows."""
     import torch
 
     from repro_torch.backend import registry
     from repro_torch.kernels import _build
     from repro_torch.kernels.circ_conv import ops as circ_ops
     from repro_torch.kernels.qmatmul import ops as qops
+    from repro_torch.kernels.simd_fused import ops as simd_ops
     from repro_torch.kernels.unbind_classify import ops as uc_ops
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -862,6 +889,42 @@ def host_breakdown() -> list[dict]:
     us = {name: host_us(step) for name, step in steps.items()}
     rows.append({"phase": "host_breakdown", "kernel": "unbind_classify",
                  "shape": [8, 2, 4, 128, 5], "us_per_call": us})
+
+    # fused_match_prob at the ops shape (512, 16, 4, 256), temp 0.1
+    qm = torch.randn(512, 4, 256, device="cuda", generator=gen)
+    dm = torch.randn(16, 4, 256, device="cuda", generator=gen)
+    mout = torch.empty((512, 16), device="cuda")
+    mfn = _build.entry("simd_fused")
+    if len(_build.ENTRY_POINTS["simd_fused"][1]) == 12:  # with an f32 scratch, chunk
+        scratch = torch.empty((16, 4, 256), device="cuda")
+        margs = (qm.data_ptr(), dm.data_ptr(), scratch.data_ptr(), mout.data_ptr(),
+                 512, 16, 4, 256, 16, 0.1, 0, stream)
+    else:                                                # with the cluster size
+        margs = (qm.data_ptr(), dm.data_ptr(), mout.data_ptr(), 512, 16, 4, 256, 1, 0.1,
+                 0, stream)
+    steps = {
+        "fused_match_prob (whole call)": lambda: simd_ops.fused_match_prob(qm, dm, 0.1),
+        "_FusedMatchProb.apply": lambda: simd_ops._FusedMatchProb.apply(qm, dm, 0.1),
+        "_launch": lambda: simd_ops._launch(qm, dm, 0.1),
+        "C entry point (ctypes, launch included)": lambda: mfn(*margs),
+        "registry.note_call": lambda: registry.note_call("simd_fused"),
+        "two .contiguous() (already contiguous)": lambda: (qm.contiguous(), dm.contiguous()),
+        "two .is_contiguous()": lambda: qm.is_contiguous() and dm.is_contiguous(),
+        "torch.is_grad_enabled() and (q or dict).requires_grad":
+            lambda: torch.is_grad_enabled() and (qm.requires_grad or dm.requires_grad),
+        "max_entries(B, d)": lambda: simd_ops.max_entries(4, 256),
+        **({"cluster_size(N, M, B, d)": lambda: simd_ops.cluster_size(512, 16, 4, 256)}
+           if hasattr(simd_ops, "cluster_size") else {}),
+        "torch.empty((N, M), device=q.device)":
+            lambda: torch.empty((512, 16), dtype=torch.float32, device=qm.device),
+        "q.new_empty((N, M), dtype=float32)":
+            lambda: qm.new_empty((512, 16), dtype=torch.float32),
+        "torch.empty((M, B, d)) (an f32 scratch of the dictionary)":
+            lambda: torch.empty((16, 4, 256), dtype=torch.float32, device=qm.device),
+    }
+    us = {name: host_us(step) for name, step in steps.items()}
+    rows.append({"phase": "host_breakdown", "kernel": "simd_fused",
+                 "shape": [512, 16, 4, 256], "us_per_call": us})
     torch.cuda.synchronize()
     return rows
 
@@ -1363,10 +1426,13 @@ def ops_gradients(gen, launched) -> None:
 
 # the other rows a kernel's entry of the ``kernels`` line carries, under
 # these keys: circ_conv at NVSA's served bucket, circ_dict corr and bf16,
-# unbind_classify at d = 256, flash_attn bf16
+# unbind_classify at d = 256, simd_fused bf16, at d = 128 and at M = 1024,
+# flash_attn bf16
 SUB_ROWS = {"circ_conv": (("served", "circ_conv_served"),),
             "circ_dict": (("corr", "circ_dict_corr"), ("bf16", "circ_dict_bf16")),
             "unbind_classify": (("d256", "unbind_classify_d256"),),
+            "simd_fused": (("bf16", "simd_fused_bf16"), ("d128", "simd_fused_d128"),
+                           ("m1024", "simd_fused_m1024")),
             "flash_attn": (("bf16", "flash_attn_bf16"),)}
 
 

@@ -17,9 +17,8 @@ the kernel, on every device, as the reference routes on every platform
 
 ``LAUNCHES`` counts kernel launches per kernel: each wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that its path
-went through the kernels.  The count is one per wrapper call that reached
-the card, whatever the device launches of that call: ``fused_match_prob``
-makes two (the dictionary's normalisation, then the match) and counts one.
+went through the kernels.  Each wrapper call that reaches the card makes
+one device launch and counts one.
 
 ``record_kernels()`` is the counterpart of the reference's
 ``registry.record_selections``: while it is open, every call of a kernel

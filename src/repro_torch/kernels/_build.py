@@ -45,7 +45,7 @@ ENTRY_POINTS = {
                         [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P]),
     "circ_dict": ("circ_dict_launch", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "simd_fused": ("match_prob_launch",
-                   [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
+                   [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
     "flash_attn": ("flash_attn_launch",
                    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P]),
 }

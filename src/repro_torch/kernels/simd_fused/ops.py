@@ -1,18 +1,25 @@
 """Wrapper of the fused match_prob kernel (``csrc/simd_fused.cu``).
 
-``fused_match_prob`` is the kernel call, an autograd function that takes
-any layout (copied contiguous first): its forward launches the Hopper
-kernel on a CUDA tensor (or raises) and runs the plain version in ``ref``
-on a CPU tensor; its backward is the autograd of the
-reference's plain chain (``ref.match_prob_chain``), as the reference's
-custom VJP does.  The JAX package has no backward kernel, so neither has
-the port.
+``fused_match_prob`` is the kernel call: it takes any layout (copied
+contiguous first); on a CUDA tensor it launches the Hopper kernel or
+raises; on a CPU or ``meta`` tensor it runs the plain version in ``ref``.
+It is differentiable: the backward is the autograd of the reference's
+plain chain (``ref.match_prob_chain``), as the reference's custom VJP.
+The JAX package has no backward kernel, so neither has the port.  Where
+autograd records nothing (grad mode off, or no input that requires grad)
+the wrapper launches the kernel without the autograd Function.
 
-The kernel keeps a query tile's logits and rows in shared memory and
-streams the dictionary through it, so M is bounded by ``max_entries``.
+A call is one launch and allocates only its output.  The grid is
+(query tiles of ``QUERY_TILE``) x S CTAs, and the S CTAs of a tile are one
+thread-block cluster that splits the dictionary's M entries between them;
+``cluster_size`` picks S, and ``smem_bytes`` repeats the kernel's
+shared-memory formula.  Each CTA keeps its slice's logits in shared
+memory, so M is bounded by ``max_entries``.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -21,15 +28,53 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.simd_fused import ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SMEM_FLOATS = 227 * 1024 // 4   # Hopper's per-block shared memory, in floats
-QUERY_TILE = 4                   # simd_fused.cu's TQ: queries per block
+QUERY_TILE = 4                 # simd_fused.cu's TQ: queries per CTA
+PASS = 32                      # simd_fused.cu's PASS: entries a CTA takes at once
+MAX_CLUSTER = 8                # the portable cluster size
+SMS = 132                      # an H100's streaming multiprocessors
+_MAX_SMEM = 227 * 1024         # Hopper's per-block shared memory
+_RING = 16 * 256 * 3 * 4       # simd_fused.cu's rings: THREADS x RING x E 16-byte units
+
+
+def smem_bytes(entries: int, blocks: int, d: int, elt: int = 4) -> int:
+    """simd_fused.cu's dynamic shared memory for a CTA holding ``entries``
+    logits per query at (blocks, d) and element size ``elt``: the
+    threads' rings of dictionary units, the query tile (rows padded to 16
+    bytes), the tile's B scales, the cluster's exchange slots and the
+    logits."""
+    w = 16 // elt
+    dp = -(-d // w) * w
+    return (_RING + QUERY_TILE * blocks * dp * elt + 4 * QUERY_TILE * blocks
+            + 8 * QUERY_TILE + 4 * QUERY_TILE * entries)
+
+
+@functools.lru_cache(maxsize=64)
+def slice_entries(blocks: int, d: int) -> int:
+    """The most entries one CTA takes at (blocks, d), f32 (bf16 needs less
+    shared memory): what is left of it for the logits."""
+    return max(0, (_MAX_SMEM - smem_bytes(0, blocks, d)) // (4 * QUERY_TILE))
 
 
 def max_entries(blocks: int, d: int) -> int:
-    """Largest dictionary M the kernel takes at (blocks, d): a tile's
-    ``QUERY_TILE`` query rows and ``QUERY_TILE`` x M logits plus one
-    dictionary entry must fit in shared memory (13248 at 4 x 256)."""
-    return (_SMEM_FLOATS - (QUERY_TILE + 1) * blocks * d) // QUERY_TILE
+    """Largest dictionary M the kernel takes at (blocks, d): a cluster of
+    ``MAX_CLUSTER`` CTAs, each holding ``slice_entries`` logits per query
+    (83408 at 4 x 256)."""
+    return MAX_CLUSTER * slice_entries(blocks, d)
+
+
+@functools.lru_cache(maxsize=256)
+def cluster_size(n: int, m: int, blocks: int, d: int) -> int:
+    """The cluster size S of a call: enough CTAs per query tile that tiles
+    x S about fills the card's ``SMS`` (S = 1 at N = 512, 8 at N = 64), at
+    most ``MAX_CLUSTER`` and no more ranks than the dictionary has passes
+    of ``PASS`` entries (a smaller slice leaves warps idle and adds the
+    cluster's exchange: S = 1 at M = 16), and at least what the slices need
+    to fit shared memory; then the fewest ranks that give each its
+    ceil(M / S) entries, so that none is empty."""
+    tiles = -(-n // QUERY_TILE)
+    s = max(1, min(MAX_CLUSTER, SMS // max(tiles, 1), -(-m // PASS)),
+            -(-m // max(slice_entries(blocks, d), 1)))
+    return -(-m // -(-m // s))
 
 
 def _launch(q: torch.Tensor, dictionary: torch.Tensor, temp: float) -> torch.Tensor:
@@ -40,27 +85,27 @@ def _launch(q: torch.Tensor, dictionary: torch.Tensor, temp: float) -> torch.Ten
     if q.dtype not in _DTYPES or dictionary.dtype != q.dtype:
         raise TypeError(f"fused_match_prob takes float32 or bfloat16 of one "
                         f"dtype, got {q.dtype} and {dictionary.dtype}")
-    if dictionary.device != q.device:
+    index = q.get_device()
+    if dictionary.get_device() != index:
         raise ValueError(f"q on {q.device}, dictionary on {dictionary.device}")
     if not (q.is_contiguous() and dictionary.is_contiguous()):
         raise ValueError("fused_match_prob needs contiguous inputs")
     n, b, d = q.shape
     m = dictionary.shape[0]
+    if b * d == 0:
+        raise ValueError(f"fused_match_prob needs B, d >= 1, got {(b, d)}")
     if m > max_entries(b, d):
         raise ValueError(f"M={m} dictionary entries exceed the kernel's shared "
                          f"memory at (B, d) = {(b, d)}: M <= {max_entries(b, d)}")
-    if n >= 2 ** 31 - QUERY_TILE or m * b >= 2 ** 31:
-        raise ValueError(f"(N, M, B) = {(n, m, b)} exceeds the kernel's grid")
-    out = torch.empty((n, m), dtype=torch.float32, device=q.device)
+    if n >= 2 ** 31 - QUERY_TILE:
+        raise ValueError(f"N={n} exceeds the kernel's grid")
+    out = q.new_empty((n, m), dtype=torch.float32)
     if n == 0 or m == 0:
         return out
-    f = b * d
-    chunk = min(m, (_SMEM_FLOATS - QUERY_TILE * (f + m)) // f)
-    scratch = torch.empty((m, b, d), dtype=torch.float32, device=q.device)
-    _build.launch("simd_fused", q.get_device(), q.data_ptr(), dictionary.data_ptr(),
-                  scratch.data_ptr(), out.data_ptr(), n, m, b, d, chunk, float(temp),
+    _build.launch("simd_fused", index, q.data_ptr(), dictionary.data_ptr(),
+                  out.data_ptr(), n, m, b, d, cluster_size(n, m, b, d), float(temp),
                   _DTYPES[q.dtype])
-    registry.count_launch("simd_fused")  # one per call: normalise_rows + match
+    registry.count_launch("simd_fused")
     return out
 
 
@@ -89,4 +134,11 @@ def fused_match_prob(q: torch.Tensor, dictionary: torch.Tensor,
     """q: (N, B, d), dictionary: (M, B, d), f32 or bf16 -> probs (N, M)
     f32: softmax over M of the mean blockwise cosine similarity / temp."""
     registry.note_call("simd_fused")
-    return _FusedMatchProb.apply(q.contiguous(), dictionary.contiguous(), temp)
+    if not q.is_contiguous():
+        q = q.contiguous()
+    if not dictionary.is_contiguous():
+        dictionary = dictionary.contiguous()
+    if registry.on_card(q) and not (torch.is_grad_enabled() and (
+            q.requires_grad or dictionary.requires_grad)):
+        return _launch(q, dictionary, temp)  # autograd records nothing
+    return _FusedMatchProb.apply(q, dictionary, temp)

@@ -459,8 +459,7 @@ def test_circ_dict_kernel_block_dims(gen, d, mode, dtype):
 def test_match_prob_kernel(gen, nmbd, temp, dtype):
     """Within 1e-6 + 1e-4 relative of the plain version (far inside the
     registry epsilon, 1e-3, and far below a probability of 1/M), rows
-    summing to 1; M = 1024 streams the dictionary through shared memory in
-    chunks."""
+    summing to 1; M = 1024 splits the dictionary over a cluster of 8 CTAs."""
     n, m, b, d = nmbd
     q = torch.randn(n, b, d, device="cuda", generator=gen).to(dtype)
     dic = torch.randn(m, b, d, device="cuda", generator=gen).to(dtype)
@@ -506,6 +505,72 @@ def test_match_prob_rejects_what_the_kernel_does_not_take(gen):
     got = simd_ops.fused_match_prob(q, dic[:limit], 1.0)
     torch.testing.assert_close(got, simd_ref.fused_match_prob_ref(q, dic[:limit], 1.0),
                                atol=1e-6, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nmbd,splits", [
+    ((20, 1003, 4, 256), 8),    # M not a multiple of S (7 x 126 + 121)
+    ((67, 300, 4, 128), 7),     # N not a multiple of the query tile, M of S
+    ((8, 1, 4, 256), 1),        # one entry
+    ((8, 13249, 4, 256), 8),    # above the first design's limit: 13 passes a CTA
+    ((9, 37, 3, 130), 2),       # rows of 130 elements: element copies, zero padding
+])
+def test_match_prob_kernel_cluster_split(gen, nmbd, splits, dtype):
+    """The dictionary split over a cluster of S CTAs, at the edges of its
+    geometry: within the limit of test_match_prob_kernel (1e-6 + 1e-4
+    relative of the plain version), rows summing to 1."""
+    n, m, b, d = nmbd
+    assert simd_ops.cluster_size(n, m, b, d) == splits
+    q = torch.randn(n, b, d, device="cuda", generator=gen).to(dtype)
+    dic = torch.randn(m, b, d, device="cuda", generator=gen).to(dtype)
+    got = simd_ops.fused_match_prob(q, dic, 0.1)
+    torch.testing.assert_close(got, simd_ref.fused_match_prob_ref(q, dic, 0.1),
+                               atol=1e-6, rtol=1e-4)
+    torch.testing.assert_close(got.sum(dim=-1), torch.ones(n, device="cuda"),
+                               atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_match_prob_rows_across_n(gen, dtype):
+    """Each (query, entry) sum runs in an order fixed by B and d: a row of
+    q[n0:n0 + n] equals the same row of every other call with the same
+    cluster size S bit for bit, whatever tile it lands in, and the full
+    call's within the kernel's limit where S differs.  An operand that
+    starts one element into its storage (copied element by element, not
+    by cp.async) gives the aligned call's bits."""
+    q = torch.randn(300, 4, 256, device="cuda", generator=gen).to(dtype)
+    dic = torch.randn(1024, 4, 256, device="cuda", generator=gen).to(dtype)
+    full = simd_ops.fused_match_prob(q, dic, 0.1)
+    seen = {}
+    for n in (1, 13, 64, 257, 295, 300):
+        for n0 in sorted({0, min(5, 300 - n), 300 - n}):
+            part = simd_ops.fused_match_prob(q[n0:n0 + n], dic, 0.1)
+            s = simd_ops.cluster_size(n, 1024, 4, 256)
+            torch.testing.assert_close(part, full[n0:n0 + n], atol=1e-6, rtol=1e-4)
+            for i in range(n):
+                if (s, n0 + i) in seen:
+                    assert torch.equal(part[i], seen[s, n0 + i]), (n, n0, i)
+                seen[s, n0 + i] = part[i]
+    assert {s for s, _ in seen} == {1, 2, 8}
+    shifted = simd_ops.fused_match_prob(_offset_by_one(q[:64]), _offset_by_one(dic), 0.1)
+    assert torch.equal(shifted, simd_ops.fused_match_prob(q[:64], dic, 0.1))
+
+
+def test_match_prob_is_one_device_launch(gen):
+    """A call runs one kernel on the card (no normalisation pass) and
+    allocates its output and nothing else."""
+    q = torch.randn(512, 4, 256, device="cuda", generator=gen)
+    dic = torch.randn(16, 4, 256, device="cuda", generator=gen)
+    simd_ops.fused_match_prob(q, dic, 0.1)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = simd_ops.fused_match_prob(q, dic, 0.1)
+        torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() - before == out.numel() * 4
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "match_prob_kernel" in kernels[0], kernels
 
 
 # -- flash attention -----------------------------------------------------------

@@ -183,10 +183,46 @@ def test_match_prob_plain_versions_agree():
 
 def test_match_prob_entry_limit():
     """The kernel holds a tile's logits on chip: M is bounded by shared
-    memory, and the bound is at least 1024 at NVSA's 4 x 256 (13248)."""
-    assert simd_ops.max_entries(4, 256) == 13248
+    memory, and the bound is at least 1024 at NVSA's 4 x 256 (83408: eight
+    CTAs of a cluster with 10426 logits per query each)."""
+    assert simd_ops.max_entries(4, 256) == 83408
     assert simd_ops.max_entries(4, 256) >= 1024
     assert simd_ops.max_entries(8, 1024) >= 1024
+
+
+def test_match_prob_cluster_geometry():
+    """The wrapper's copy of simd_fused.cu's shared-memory formula (48 KB
+    of the threads' rings, the query tile with rows padded to 16 bytes, the
+    tile's B scales, 8 exchange floats and 4 logits per entry) and its
+    cluster size: S = 1 at (512, 16, 4, 256) and wherever M is one pass of
+    32 entries, 8 at (64, 1024, 4, 256), never above M or 8, every rank
+    owning an entry and fitting shared memory; the limit at least the first design's 13248 at (4, 256), and
+    the raise where it says a launch would fail."""
+    ring, limit = 16 * 256 * 3 * 4, 227 * 1024
+    assert simd_ops.smem_bytes(128, 4, 256) == 4 * 4 * 256 * 4 + ring + 64 + 32 + 16 * 128
+    assert simd_ops.smem_bytes(16, 4, 256, elt=2) == 4 * 4 * 256 * 2 + ring + 64 + 32 + 16 * 16
+    assert simd_ops.smem_bytes(1, 1, 7) == 4 * 8 * 4 + ring + 16 + 32 + 16
+    assert simd_ops.smem_bytes(1, 1, 130, elt=2) == 4 * 136 * 2 + ring + 16 + 32 + 16
+    assert simd_ops.cluster_size(512, 16, 4, 256) == 1
+    assert simd_ops.cluster_size(64, 1024, 4, 256) == 8
+    assert simd_ops.cluster_size(67, 5, 4, 128) == 1       # one pass: no split
+    assert simd_ops.cluster_size(67, 300, 4, 128) == 7
+    for b, d in ((4, 256), (4, 128), (8, 1024), (1, 7)):
+        cap = simd_ops.slice_entries(b, d)
+        assert simd_ops.smem_bytes(cap, b, d) <= limit < simd_ops.smem_bytes(cap + 1, b, d)
+        assert simd_ops.max_entries(b, d) == 8 * cap
+        for n in (1, 8, 64, 67, 512, 5000):
+            for m in {1, 2, 5, 9, 16, 1003, 1024, 13249, simd_ops.max_entries(b, d)}:
+                if m > simd_ops.max_entries(b, d):
+                    continue
+                s = simd_ops.cluster_size(n, m, b, d)
+                ms = -(-m // s)
+                assert 1 <= s <= min(m, 8) and (s - 1) * ms < m, (n, m, s)
+                assert simd_ops.smem_bytes(ms, b, d) <= limit, (n, m, s)
+    assert simd_ops.max_entries(4, 256) >= 13248
+    big = torch.empty(simd_ops.max_entries(4, 256) + 1, 4, 256, device="meta")
+    with pytest.raises(ValueError, match=f"M <= {simd_ops.max_entries(4, 256)}"):
+        simd_ops._launch(big[:1], big, 1.0)
 
 
 # -- flash attention -----------------------------------------------------------
