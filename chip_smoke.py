@@ -66,7 +66,25 @@ and prints no result line):
    fp32: 27 circ_conv launches per LVRF group and none for PrAE, the same
    answers under the three schedules, GPU within 1e-3 of the CPU, PrAE
    oracle accuracy >= 0.90.
-6. Ops: the kernel-level entry points at full width, one more path.
+6. Deploy: ``serve.deploy.deploy`` of nvsa (d = 256), mimonet, lvrf and
+   prae at ``Budget(max_pes=4096, max_batch=8)`` on the card, the
+   generator -> architecture loop: each pipeline traced on ``meta``
+   (``core.trace``), explored by Algorithm 1 (``core.dse``) and served
+   from the derived plan (buckets, window, schedule, overlap upgraded to
+   fused where exact) behind one ``FrontDoor``.  One ``deploy_plan`` row
+   per model (design summary, buckets, window, schedule, the traced
+   graph and ``predicted_overlap``), whose design must equal the
+   reference's on the CPU (``DEPLOY_TABLE``).  Then ``warmup()`` and two
+   windows of 64 requests per model in one Poisson feed (the streams of
+   ``synthetic_traffic``), each model offered first half, then a
+   sixteenth of its sequential problems/s of phases 3-5, on the real
+   clock: one ``deploy_serve`` row per window and model (problems/s,
+   p50/p95 queue and service latency, bucket use, groups closed full /
+   deadline / flush, launches per group).  Every request answered, nothing shed, circ_conv launched
+   42 / 2 / 27 / 0 times per group (nvsa / mimonet / lvrf / prae), and
+   nvsa's served log-probs within 1e-3 of an offline ``run`` of the same
+   engine.
+7. Ops: the kernel-level entry points at full width, one more path.
    ``vsa.match_prob`` at NVSA's 4 x 256 against 16 entries (f32, bf16),
    at the floor d = 128 (one launch) and below it (d = 64, none): rows sum
    to 1 within 1e-5, the card within 1e-3 of the CPU, the gradient within
@@ -80,7 +98,7 @@ and prints no result line):
    backward) and ``fused_unbind_classify`` at MIMONet's width, within 1e-4
    of the CPU; ``flash_mha`` refusing grad and taking a transposed view
    bit for bit as its contiguous copy.
-7. The ``kernels`` JSON line: every ported kernel with its launches on the
+8. The ``kernels`` JSON line: every ported kernel with its launches on the
    paths (each path's counts set to 0 just before it runs and read just
    after) and its times at its path's shape, its bound and the units the
    bound counts; entries carry other rows (``SUB_ROWS``): ``circ_conv``
@@ -90,7 +108,7 @@ and prints no result line):
    under ``d128`` and (64, 1024, 4, 256) under ``m1024``, ``flash_attn``
    bf16 at the same shape
    (ms, device_ms, library_ms, bound_ms, bound_units, max_abs_err).
-8. The last line: ``{"ok": true, "device": {...}}``.
+9. The last line: ``{"ok": true, "device": {...}}``.
 
 It needs the repository's ``src/`` beside it and a CUDA device; without
 either it exits with code 2.
@@ -118,6 +136,9 @@ TF32_FLOPS = 495e12     # tensor cores
 N_REQUESTS = 34         # groups of 8 at batch_size 8: 8, 8, 8, 8, 2
 BUCKETS = (2, 4, 8)
 SEED = 0
+# measured problems/s of each (workload label, schedule) served in phases
+# 3-5; the deploy phase offers each model half its sequential rate
+RATES: dict[tuple[str, str], float] = {}
 
 
 def emit(obj) -> None:
@@ -1007,6 +1028,7 @@ def phase_serve() -> dict[str, int]:
                 check(bool(np.isfinite(logps[schedule]).all()),
                       f"{variant}/{prec}/{schedule}: non-finite log-probs")
             check(not run["warmup"], f"{variant}/{prec}/{schedule}: no measured run")
+            RATES[(f"nvsa/{variant}/{prec}", schedule)] = run["problems_per_s"]
             acc = entry.score(res, answers)
             emit({"phase": "serve", "variant": variant, "nn_precision": prec,
                   "schedule": schedule, "requests": N_REQUESTS, "groups": groups,
@@ -1079,6 +1101,7 @@ def serve_three(eng, requests, label: str, want) -> dict:
             expect = dict.fromkeys(before, 0) | want(schedule)
             check(got == expect, f"{label}/{schedule}: launches {got}, want {expect}")
         check(not run["warmup"], f"{label}/{schedule}: no measured run")
+        RATES[(label, schedule)] = run["problems_per_s"]
         logp = np.stack([res[u].answer_logprobs for u in sorted(res)])
         check(bool(np.isfinite(logp).all()), f"{label}/{schedule}: non-finite output")
         emit({"phase": "serve", "workload": label, "schedule": schedule,
@@ -1239,6 +1262,163 @@ def phase_reasoners() -> dict[str, dict[str, int]]:
         paths[model] = dict(registry.LAUNCHES)
     check(paths["lvrf"]["circ_conv"] > 0, "circ_conv was not launched on the LVRF path")
     return paths
+
+
+# -- phase 6 ------------------------------------------------------------------
+
+DEPLOY_MODELS = ("nvsa", "mimonet", "lvrf", "prae")
+DEPLOY_REQUESTS = 64    # per model
+# the reference's deploy() of the same call on the CPU: DesignConfig.summary()
+DEPLOY_TABLE = {
+    "nvsa": {"AdArray (H, W, N)": (8, 32, 16), "partition": "13:3",
+             "mode": "parallel", "t_para_cycles": 409616, "t_seq_cycles": 437522,
+             "SIMD": 32, "MemA1": 589824, "MemA2": 589824, "MemB": 262144,
+             "MemC": 1048576, "cache": 4980736},
+    "mimonet": {"AdArray (H, W, N)": (8, 32, 16), "partition": "16:16",
+                "mode": "sequential", "t_para_cycles": 65408,
+                "t_seq_cycles": 65408, "SIMD": 16, "MemA1": 2097152,
+                "MemA2": 196608, "MemB": 65536, "MemC": 131072, "cache": 4980736},
+    "lvrf": {"AdArray (H, W, N)": (8, 32, 16), "partition": "13:3",
+             "mode": "parallel", "t_para_cycles": 405506, "t_seq_cycles": 408260,
+             "SIMD": 32, "MemA1": 589824, "MemA2": 393216, "MemB": 262144,
+             "MemC": 1048576, "cache": 4587520},
+    "prae": {"AdArray (H, W, N)": (8, 32, 16), "partition": "16:16",
+             "mode": "sequential", "t_para_cycles": 373820,
+             "t_seq_cycles": 373820, "SIMD": 32, "MemA1": 589824, "MemA2": 0,
+             "MemB": 262144, "MemC": 1048576, "cache": 3801088},
+}
+# circ_conv launches per served group: NVSA at d = 256, MIMONet's bind and
+# unbind (sequential plan), LVRF at d = 128, PrAE none
+DEPLOY_CIRC_PER_GROUP = {"nvsa": 42, "mimonet": 2, "lvrf": 27, "prae": 0}
+# (name, fraction of each model's sequential rate offered, seed): half, as
+# four engines on one host thread would be offered twice what it serves
+# alone, then a sixteenth, a quarter of it in all, below what it serves
+DEPLOY_WINDOWS = (("half", 0.5, 100), ("sixteenth", 0.0625, 200))
+# the sequential rate each model's offered load is a fraction of (phases 3-5)
+DEPLOY_RATE_FROM = {"nvsa": "nvsa/cnn/fp32", "mimonet": "mimonet/negotiated",
+                    "lvrf": "lvrf/cnn", "prae": "prae/cnn"}
+
+
+def deploy_arrivals(dep, rates: dict[str, float], seed: int):
+    """``DEPLOY_REQUESTS`` requests per model in one merged Poisson feed,
+    each model at its own offered rate: the request streams and arrival
+    seeds of ``Deployment.synthetic_traffic(DEPLOY_REQUESTS, seed)``."""
+    from repro_torch.configs import base as cb
+    from repro_torch.serve.frontdoor import merge_arrivals, poisson_arrivals
+
+    streams = []
+    for i, m in enumerate(dep.engines):
+        factory, _ = cb.REASON_WORKLOADS[m].make_requests(
+            dep.configs[m], DEPLOY_REQUESTS, seed=seed + i)
+        streams.append(poisson_arrivals(m, factory(), rates[m], seed=seed + i))
+    return merge_arrivals(*streams)
+
+
+def phase_deploy() -> dict[str, int]:
+    """The generator -> architecture loop on the card: ``deploy()`` of the
+    four reasoners (nvsa at d = 256) behind one front door, ``warmup()``,
+    then two windows of ``DEPLOY_REQUESTS`` requests per model, each model
+    offered a fraction of its sequential rate of phases 3-5
+    (``DEPLOY_WINDOWS``).  Returns the path's launch counts."""
+    import collections
+
+    import numpy as np
+
+    from repro_torch.backend import registry
+    from repro_torch.configs import base as cb
+    from repro_torch.serve import schedule as sch
+    from repro_torch.serve.deploy import Budget, Traffic, deploy
+
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    dep = deploy(list(DEPLOY_MODELS), Traffic(deadline_s=0.02),
+                 Budget(max_pes=4096, max_batch=8), options={"nvsa": {"d": 256}},
+                 preflight="off")
+    deploy_s = time.perf_counter() - t0
+    for m, eng in dep.engines.items():
+        sched = eng.schedules[dep.variants[m]]
+        design = dep.designs[m].summary()
+        emit({"phase": "deploy_plan", "model": m, "design": design,
+              "buckets": list(eng.cfg.buckets), "max_inflight": eng.cfg.max_inflight,
+              "plan_schedule": dep.plans[m].schedule, "schedule": eng.cfg.schedule,
+              "fused": [sched.fused_equivalence, list(sched.fused_lowering_diff)],
+              "predicted_overlap": sch.predicted_overlap(sched),
+              "graph": sched.describe()})
+        check(design == DEPLOY_TABLE[m], f"deploy {m}: design {design}, "
+              f"want the reference's {DEPLOY_TABLE[m]}")
+    check(registry.LAUNCHES == dict.fromkeys(registry.KERNELS, 0),
+          f"deploy() launched kernels: {registry.LAUNCHES}")
+    t0 = time.perf_counter()
+    dep.warmup()
+    warmup_s = time.perf_counter() - t0
+
+    # launches of each model's served groups (an engine launches in submit)
+    per_model: dict[str, collections.Counter] = {}
+
+    def counted(m, submit):
+        def wrapped(group, *args, **kw):
+            before = dict(registry.LAUNCHES)
+            rec = submit(group, *args, **kw)
+            per_model[m].update({k: registry.LAUNCHES[k] - before[k] for k in before})
+            return rec
+        return wrapped
+
+    for m, eng in dep.engines.items():
+        eng.submit = counted(m, eng.submit)
+    reports = {}
+    for window, fraction, seed in DEPLOY_WINDOWS:
+        rates = {m: RATES[(DEPLOY_RATE_FROM[m], "sequential")] * fraction
+                 for m in DEPLOY_MODELS}
+        per_model.update({m: collections.Counter() for m in DEPLOY_MODELS})
+        report = reports[window] = dep.serve(deploy_arrivals(dep, rates, seed))
+        for m in DEPLOY_MODELS:
+            groups = [g for g in report.groups if g.model == m]
+            q = report.percentiles("queue_s", m, qs=(50, 95))
+            s = report.percentiles("service_s", m, qs=(50, 95))
+            circ = per_model[m]["circ_conv"]
+            lat = [x for x in report.latencies if x.model == m]
+            span = max(x.done_s for x in lat) - min(x.arrival_s for x in lat)
+            emit({"phase": "deploy_serve", "window": window, "model": m,
+                  "offered_fraction_of_sequential": fraction, "offered_rps": rates[m],
+                  "served": len(report.results[m]),
+                  # over the serve's whole wall time (the report's own rate), and
+                  # over this model's first arrival to its last answer
+                  "problems_per_s": report.work_per_s(m),
+                  "problems_per_s_own_span": len(lat) / span,
+                  "queue_ms_p50_p95": [q["p50"] * 1e3, q["p95"] * 1e3],
+                  "service_ms_p50_p95": [s["p50"] * 1e3, s["p95"] * 1e3],
+                  "buckets": {str(b): c for b, c in report.bucket_histogram(m).items()},
+                  "closed": dict(collections.Counter(g.close_reason for g in groups)),
+                  "groups": len(groups), "launches": dict(+per_model[m]),
+                  "circ_conv_per_group": circ / len(groups)})
+            check(sorted(report.results[m]) == list(range(DEPLOY_REQUESTS)),
+                  f"deploy {window} {m}: {len(report.results[m])} of "
+                  f"{DEPLOY_REQUESTS} answered")
+            check(circ == DEPLOY_CIRC_PER_GROUP[m] * len(groups),
+                  f"deploy {window} {m}: {circ} circ_conv launches in {len(groups)} groups")
+            if m != "prae":
+                check(circ > 0, f"deploy {window} {m}: circ_conv was not launched")
+        check(not report.shed, f"deploy {window}: {len(report.shed)} requests shed")
+    counts = dict(registry.LAUNCHES)
+    emit({"phase": "deploy", "deploy_s": deploy_s, "warmup_s": warmup_s,
+          "serve_wall_s": {w: r.wall_time_s for w, r in reports.items()},
+          "closed": {w: dict(collections.Counter(g.close_reason for g in r.groups))
+                     for w, r in reports.items()},
+          "summary": dep.summary()})
+
+    # nvsa's served answers in the first window against an offline run of
+    # the same engine on the same requests
+    window, _, seed = DEPLOY_WINDOWS[0]
+    factory, _ = cb.REASON_WORKLOADS["nvsa"].make_requests(
+        dep.configs["nvsa"], DEPLOY_REQUESTS, seed=seed + DEPLOY_MODELS.index("nvsa"))
+    offline = dep.engines["nvsa"].run(list(factory()))
+    served = reports[window].results["nvsa"]
+    diff = max(float(np.abs(served[u].answer_logprobs - offline[u].answer_logprobs).max())
+               for u in offline)
+    emit({"phase": "deploy_vs_offline", "model": "nvsa", "window": window,
+          "max_abs_logp_diff": diff})
+    check(diff <= 1e-3, f"deploy nvsa: served log-probs {diff} from the offline run")
+    return counts
 
 
 def phase_ops() -> dict[str, int]:
@@ -1455,7 +1635,7 @@ def main() -> int:
     for row in host_breakdown():
         emit(row)
     paths = {"nvsa": phase_serve(), "mimonet": phase_mimonet(), **phase_reasoners(),
-             "ops": phase_ops()}
+             "deploy": phase_deploy(), "ops": phase_ops()}
     emit({"phase": "launches_by_path", **paths})
     kernels = []
     for name, spec in registry.KERNELS.items():

@@ -26,13 +26,23 @@ wrapper (on any device, ``meta`` included) appends ``(kernel, "kernel")``
 and every dispatch that stays on the exact reference below a kernel's
 floor appends ``(kernel, "gather")``.  ``serve.schedule`` diffs the records
 of the staged and the fused stage lists to negotiate the fused schedule.
+
+``TRACE`` is the open ``core.trace.Tracer`` (None outside a trace, which
+runs on ``meta`` tensors only).  Every kernel wrapper is decorated with
+``kernel_call``: its ``note_call`` opens the call in the tracer (also a
+recorder), and its result, reported to ``TRACE`` with the wrapper's
+arguments, closes it, so the call becomes one node of the traced graph,
+as a ``pallas_call`` is one node of the reference's jaxpr.  On the card's
+path that is one check of this module-level name.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Iterator
+import functools
+import inspect
+from typing import Callable, Iterator
 
 import torch
 
@@ -100,7 +110,8 @@ KERNELS: dict[str, KernelSpec] = {
 }
 
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
-_RECORDERS: list[list] = []
+_RECORDERS: list = []   # open ``record_kernels`` lists and the open trace
+TRACE = None            # the open ``core.trace.Tracer``, None outside a trace
 
 
 @contextlib.contextmanager
@@ -121,6 +132,29 @@ def note_call(kernel: str, route: str = "kernel") -> None:
     for the gather route); appends to every open ``record_kernels``."""
     for rec in _RECORDERS:
         rec.append((kernel, route))
+
+
+def kernel_call(kernel: str) -> Callable[[Callable], Callable]:
+    """Decorator of ``kernel``'s wrapper: each call is noted to the open
+    recorders (``note_call``) and, inside a trace, reported to ``TRACE``
+    with the wrapper's arguments by name once it returns."""
+
+    def wrap(fn: Callable) -> Callable:
+        sig = inspect.signature(fn)
+
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            note_call(kernel)
+            out = fn(*args, **kwargs)
+            if TRACE is not None:
+                bound = sig.bind(*args, **kwargs)
+                bound.apply_defaults()
+                TRACE.kernel(kernel, out, bound.arguments)
+            return out
+
+        return call
+
+    return wrap
 
 
 def count_launch(kernel: str) -> None:

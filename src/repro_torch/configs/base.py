@@ -24,6 +24,7 @@ import torch
 
 from repro_torch import interop
 from repro_torch.backend import registry
+from repro_torch.core import workloads
 from repro_torch.data import raven
 from repro_torch.models import lvrf as lv
 from repro_torch.models import mimonet as mm
@@ -52,6 +53,8 @@ class ReasonWorkload:
     - ``collect(cfg)``: ``(host_out, i) -> ReasonResult fields`` adapter.
     - ``make_requests(cfg, n, seed)``: ``(stream_factory, truth)``.
     - ``score(results, truth_values)``: serving accuracy.
+    - ``paper_graph()``: the paper-scale OpGraph of ``core.workloads``
+      (None where the paper publishes none, as for PrAE).
     - ``fused_stage_specs(cfg, variant)``: an alternate stage list for the
       fused schedule (None = the staged list composed), negotiated against
       the staged one by ``compile_schedule``.
@@ -68,6 +71,7 @@ class ReasonWorkload:
     collect: Callable[[Any], Callable]
     make_requests: Callable[[Any, int, int], tuple]
     score: Callable[[dict, Any], float]
+    paper_graph: Callable[[], Any] | None = None
     fused_stage_specs: Callable[[Any, str], tuple] | None = None
 
 
@@ -328,6 +332,13 @@ def _lvrf_stages(cfg, variant: str):
             StageSpec("execute", "vsa", execute))
 
 
+def _paper_graph(name: str):
+    def build():
+        return workloads.WORKLOADS[name]()
+
+    return build
+
+
 REASON_WORKLOADS: dict[str, ReasonWorkload] = {
     "nvsa": ReasonWorkload(
         name="nvsa",
@@ -337,7 +348,8 @@ REASON_WORKLOADS: dict[str, ReasonWorkload] = {
         make_config=_nvsa_config, make_consts=_nvsa_consts,
         stage_specs=_nvsa_stages, input_specs=_raven_input_specs,
         ingest=_raven_ingest, collect=_raven_collect,
-        make_requests=_raven_requests, score=_mean_match_score),
+        make_requests=_raven_requests, score=_mean_match_score,
+        paper_graph=_paper_graph("nvsa")),
     "prae": ReasonWorkload(
         name="prae",
         describe="PrAE: shared CNN perception -> PMF-table abduction/"
@@ -356,6 +368,7 @@ REASON_WORKLOADS: dict[str, ReasonWorkload] = {
         stage_specs=_mimonet_stages, input_specs=_mimonet_input_specs,
         ingest=_mimonet_ingest, collect=_mimonet_collect,
         make_requests=_mimonet_requests, score=_mean_match_score,
+        paper_graph=_paper_graph("mimonet"),
         fused_stage_specs=_mimonet_fused_stages),
     "lvrf": ReasonWorkload(
         name="lvrf",
@@ -365,7 +378,8 @@ REASON_WORKLOADS: dict[str, ReasonWorkload] = {
         make_config=_lvrf_config, make_consts=_lvrf_consts,
         stage_specs=_lvrf_stages, input_specs=_raven_input_specs,
         ingest=_raven_ingest, collect=_raven_collect,
-        make_requests=_raven_requests, score=_mean_match_score),
+        make_requests=_raven_requests, score=_mean_match_score,
+        paper_graph=_paper_graph("lvrf")),
 }
 
 
@@ -388,7 +402,8 @@ def compile_reason_schedule(model: str, cfg, variant: str | None = None,
     describe the largest, and the engine pads a partial group to the
     smallest covering bucket.  Without ``consts`` the entry's
     ``make_consts`` is drawn on the CPU for its shapes only.  The schedule
-    carries the inter-stage buffer specs.
+    carries the inter-stage buffer specs; its DataflowGraph is traced from
+    the composed stages on first use (``serve.schedule.ensure_graph``).
 
     ``fused``: forwarded to ``compile_schedule`` (``"auto"`` negotiates the
     fused schedule, ``True`` forces it); the entry's ``fused_stage_specs``,
@@ -411,7 +426,8 @@ def compile_reason_schedule(model: str, cfg, variant: str | None = None,
         entry.ingest(cfg, variant), entry.collect(cfg), device=dev,
         variant=variant, consts=consts,
         input_specs=entry.input_specs(cfg, max_batch, variant),
-        batch_buckets=buckets, fused=fused, fused_stages=fused_stages)
+        batch_buckets=buckets, fused=fused,
+        fused_stages=fused_stages)
 
 
 def reason_engine(model: str, cfg, reason_cfg: ReasonConfig | None = None,

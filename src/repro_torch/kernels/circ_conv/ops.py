@@ -127,6 +127,7 @@ class _CircElem(torch.autograd.Function):
         return dx.to(x.dtype), dy.to(y.dtype), None
 
 
+@registry.kernel_call("circ_conv")
 def circ_elem(x: torch.Tensor, y: torch.Tensor, mode: str = "conv") -> torch.Tensor:
     """Pairwise binding. x, y: (N, B, d) -> contiguous (N, B, d), output in
     x's dtype.  The operands may be any strided views; only one whose last
@@ -134,7 +135,6 @@ def circ_elem(x: torch.Tensor, y: torch.Tensor, mode: str = "conv") -> torch.Ten
 
     ``mode`` is ``"conv"`` (out[n] = Σ_k x[k]·y[(n−k) mod d]) or ``"corr"``
     (out[n] = Σ_k x[k]·y[(n+k) mod d]).  Differentiable."""
-    registry.note_call("circ_conv")
     if not _dense_last(x):
         x = x.contiguous()
     if not _dense_last(y):
@@ -195,6 +195,7 @@ def circ_dict(x: torch.Tensor, dictionary: torch.Tensor,
     return circ_bind_dict(x, dictionary, mode).transpose(1, 2)
 
 
+@registry.kernel_call("circ_dict")
 def circ_bind_dict(x: torch.Tensor, dictionary: torch.Tensor,
                    mode: str = "conv") -> torch.Tensor:
     """x: (N, blocks, d) vs dictionary: (M, blocks, d) -> (N, M, blocks, d).
@@ -202,7 +203,6 @@ def circ_bind_dict(x: torch.Tensor, dictionary: torch.Tensor,
     A kernel-level entry point, as in the reference: it ignores the
     dispatch floor and goes to the circ_dict kernel at every d.  Forward
     only on the card, as the reference."""
-    registry.note_call("circ_dict")
     x, dictionary = x.contiguous(), dictionary.contiguous()
     if registry.on_card(x):
         registry.refuse_grad("circ_dict", x, dictionary)

@@ -51,12 +51,12 @@ def _launch(q, k, v, scale: float, causal: bool) -> torch.Tensor:
     return out
 
 
+@registry.kernel_call("flash_attn")
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
               causal: bool = True) -> torch.Tensor:
     """q: (B, Sq, H, hd); k, v: (B, Skv, H, hd) (GQA groups pre-repeated)
     -> (B, Sq, H, hd) in q's dtype.  The causal mask is aligned at
     position 0: query i sees keys 0..i, also when Sq != Skv."""
-    registry.note_call("flash_attn")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if registry.on_card(q):
         registry.refuse_grad("flash_attn", q, k, v)

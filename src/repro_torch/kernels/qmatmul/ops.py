@@ -93,11 +93,11 @@ def _launch(x_q, w_q, x_scale, w_scale, int4: bool) -> torch.Tensor:
     return out
 
 
+@registry.kernel_call("qmatmul")
 def qmatmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
             w_scale: torch.Tensor, int4: bool = False) -> torch.Tensor:
     """x_q: (M, K) int8; w_q: (K, N) int8, or (K, N/2) packed when int4.
     x_scale: (M,) f32 per row; w_scale: (N,) f32 per column -> (M, N) f32."""
-    registry.note_call("qmatmul")
     if registry.on_card(x_q):
         return _launch(x_q, w_q, x_scale, w_scale, int4)
     return ref.qmatmul_ref(x_q, w_q, x_scale, w_scale, int4)

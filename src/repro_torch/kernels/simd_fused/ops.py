@@ -129,11 +129,11 @@ class _FusedMatchProb(torch.autograd.Function):
         return gq, gd, None
 
 
+@registry.kernel_call("simd_fused")
 def fused_match_prob(q: torch.Tensor, dictionary: torch.Tensor,
                      temp: float = 1.0) -> torch.Tensor:
     """q: (N, B, d), dictionary: (M, B, d), f32 or bf16 -> probs (N, M)
     f32: softmax over M of the mean blockwise cosine similarity / temp."""
-    registry.note_call("simd_fused")
     if not q.is_contiguous():
         q = q.contiguous()
     if not dictionary.is_contiguous():

@@ -111,11 +111,11 @@ class _FusedUnbindClassify(torch.autograd.Function):
             return torch.autograd.grad(ref.fused_unbind_classify_ref(*args), args, g)
 
 
+@registry.kernel_call("unbind_classify")
 def fused_unbind_classify(keys: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
                           b: torch.Tensor) -> torch.Tensor:
     """keys: (K, B, d), x: (N, B, d), w: (B, d, C), b: (1, C) -> logits
     (N, K, C) f32: ``b + Σ_blk corr(keys[k, blk], x[n, blk]) @ w[blk]``."""
-    registry.note_call("unbind_classify")
     args = (keys.contiguous(), x.contiguous(), w.contiguous(), b.contiguous())
     if registry.on_card(x) and not (torch.is_grad_enabled()
                                     and any(t.requires_grad for t in args)):

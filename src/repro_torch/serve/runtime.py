@@ -1,19 +1,27 @@
 """The serving runtime's engine protocol and its accounting helpers.
 
-The port's own copy of what ``ReasonEngine`` needs from
-``repro.serve.runtime`` (which it may not import): the
-:class:`GroupRecord` envelope, the :class:`EngineProtocol` surface the
-reference's front-door drives, and the warmup/measured stats split.  Any
-engine with this surface can be served by ``repro.serve.frontdoor``.
+The port's own copy of ``repro.serve.runtime`` (which it may not import):
+the :class:`GroupRecord` envelope, the structural :class:`RequestLike` /
+:class:`ResultLike` envelopes, the :class:`EngineProtocol` surface that
+``serve.frontdoor.FrontDoor`` drives, the warmup/measured stats split, the
+helpers the front-door and the overload controller read
+(:func:`request_priority`, :func:`engine_observation`) and the runtime
+registry of traffic classes
+(:data:`TRAFFIC_CLASSES`, :func:`resolve_models`) that ``serve.deploy``
+validates its model list against.
+
+The port serves the four reasoners of ``configs.base.REASON_WORKLOADS``.
+It has no LM engine yet: an LM arch id of the reference, or the ``lm``
+traffic class, raises ``KeyError`` naming ROADMAP Queue 1 #4.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Mapping, Protocol, Sequence
+from typing import Any, Callable, Iterable, Mapping, Protocol, Sequence, \
+    runtime_checkable
 
-# priority class of a request that names none (``repro.serve.slo``)
-DEFAULT_PRIORITY = "standard"
+from repro_torch.serve.slo import DEFAULT_PRIORITY
 
 
 @dataclasses.dataclass
@@ -38,6 +46,20 @@ class GroupRecord:
     replica: int | None = None
 
 
+@runtime_checkable
+class RequestLike(Protocol):
+    """Anything submittable: the envelope only pins the uid."""
+
+    uid: int
+
+
+@runtime_checkable
+class ResultLike(Protocol):
+    """Anything drainable: results are keyed and reported by uid."""
+
+    uid: int
+
+
 class EngineProtocol(Protocol):
     """The serving-runtime API a front-door drives: ``submit`` one group,
     ``drain_ready`` (non-blocking) or ``drain_all`` its results, with
@@ -53,7 +75,7 @@ class EngineProtocol(Protocol):
     @property
     def inflight(self) -> int: ...               # pragma: no cover
 
-    def submit(self, group: Sequence[Any]) -> GroupRecord:
+    def submit(self, group: Sequence[RequestLike]) -> GroupRecord:
         ...                                      # pragma: no cover
 
     def drain_ready(self) -> dict[int, Any]: ...  # pragma: no cover
@@ -88,3 +110,82 @@ def work_units(result: Any) -> int:
     results, 1 problem for reasoning results."""
     tokens = getattr(result, "tokens", None)
     return len(tokens) if tokens is not None else 1
+
+
+def request_priority(request: Any) -> str:
+    """Priority class of a request envelope: its ``priority`` attribute,
+    or ``standard`` when it names none (the front-door validates it)."""
+    return getattr(request, "priority", None) or DEFAULT_PRIORITY
+
+
+def engine_observation(engine: Any) -> dict[str, Any]:
+    """What the overload controller sees of one engine each tick: the
+    engine's own ``observation()`` where it has one, else ``inflight`` and
+    the steady-state ``work_rate`` (see :func:`measured_rate`)."""
+    obs = getattr(engine, "observation", None)
+    if callable(obs):
+        return obs()
+    return {"inflight": engine.inflight,
+            "work_rate": measured_rate(engine.stats)}
+
+
+# ---------------------------------------------------------------------------
+# the runtime registry
+# ---------------------------------------------------------------------------
+
+#: The reference's servable LM arch ids (kinds lm / rwkv / griffin).  The
+#: port has no LM engine for them yet (ROADMAP Queue 1 #4).
+LM_MODELS_NOT_PORTED: tuple[str, ...] = (
+    "deepseek-v3-671b", "gemma3-12b", "granite-moe-1b-a400m", "llama3.2-3b",
+    "recurrentgemma-9b", "rwkv6-7b", "stablelm-3b", "starcoder2-3b")
+
+
+def _lm_not_ported(what: str) -> KeyError:
+    return KeyError(f"{what}: the port has no LM engine yet "
+                    "(ROADMAP Queue 1 #4, the LM substrate)")
+
+
+def _reason_model_ids() -> tuple[str, ...]:
+    from repro_torch.configs.base import REASON_WORKLOADS
+
+    return tuple(REASON_WORKLOADS)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrafficClass:
+    """One entry of the runtime registry: a serving traffic class."""
+
+    name: str
+    describe: str
+    models: Callable[[], tuple[str, ...]]   # servable model ids (lazy)
+
+
+TRAFFIC_CLASSES: dict[str, TrafficClass] = {
+    "reason": TrafficClass(
+        "reason", "batched NSAI reasoning through the staged-pipeline "
+                  "ReasonEngine", _reason_model_ids),
+    "frontdoor": TrafficClass(
+        "frontdoor", "online NSAI traffic: DSE-deployed engines behind one "
+                     "deadline-batched front-door", _reason_model_ids),
+}
+
+
+def resolve_models(workload: str, models: Iterable[str]) -> tuple[str, ...]:
+    """Validate a model list against a traffic class's registry entry.
+    An LM arch id, or the ``lm`` class, raises ``KeyError`` (not ported)."""
+    if workload == "lm":
+        raise _lm_not_ported("traffic class 'lm'")
+    tc = TRAFFIC_CLASSES.get(workload)
+    if tc is None:
+        raise KeyError(f"unknown workload {workload!r}; "
+                       f"available: {tuple(TRAFFIC_CLASSES)}")
+    known = tc.models()
+    out = tuple(models)
+    lm = [m for m in out if m in LM_MODELS_NOT_PORTED]
+    if lm:
+        raise _lm_not_ported(f"LM models {lm}")
+    bad = [m for m in out if m not in known]
+    if bad:
+        raise ValueError(f"{workload}: unknown models {bad}; "
+                         f"servable: {known}")
+    return out

@@ -20,12 +20,19 @@ emits a :class:`StagedSchedule`:
     compute nothing);
   - the compiled batch-size buckets.
 
-There is no jaxpr graph tracing and no lowering plan: the tensor's device
-selects each kernel (``backend.registry``).
+The traced :class:`~repro_torch.core.dataflow.DataflowGraph` of the
+composed pipeline and the per-stage op statistics (``stage_costs``, the
+stream-tag audit) come from one more ``meta`` run under ``core.trace``
+(steps ①–③ of the paper's Sec V-B: critical path, depth assignment,
+inter-loop overlap).  It runs on first use, once per schedule:
+``ensure_graph`` (what ``serve.deploy`` hands to ``core.dse.explore``),
+``predicted_overlap`` and ``describe``.  There is no lowering plan: the tensor's device selects each kernel
+(``backend.registry``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable
 
@@ -33,6 +40,9 @@ import torch
 
 from repro_torch.backend import registry
 from repro_torch.common.tree import tree_leaves, tree_map
+from repro_torch.core import dataflow as dfl
+from repro_torch.core import trace as trace_mod
+from repro_torch.core.opgraph import OpGraph
 
 STREAMS = ("nn", "vsa", "simd")
 
@@ -91,6 +101,11 @@ class StagedSchedule:
     ``i``; empty when the schedule was compiled without input specs or
     constants.  ``device`` is where the engine stages inputs and runs.
 
+    ``stage_costs[i]`` holds stage ``i``'s traced op statistics and
+    ``graph`` the composed pipeline's DataflowGraph, both empty until
+    ``ensure_graph`` traces them (``source`` is then ``trace``);
+    ``input_specs`` / ``consts_spec`` keep the abstract inputs for it.
+
     ``fused_equivalence`` is the negotiated class of the fused stage list
     against the staged one (``exact`` | ``epsilon`` | None when no fused
     callable was compiled), ``fused_epsilon`` the largest registry epsilon
@@ -112,6 +127,13 @@ class StagedSchedule:
     fused_equivalence: str | None = None  # exact | epsilon | None
     fused_epsilon: float = 0.0
     fused_lowering_diff: tuple[str, ...] = ()
+    stage_costs: tuple[dict, ...] = ()    # per-stage traced op statistics
+    graph: dfl.DataflowGraph | None = None
+    source: str = "declared"              # declared | trace
+    # kept for lazy tracing: the input TensorSpec tree and the constants'
+    # TensorSpec tree (abstract: the constants themselves are not kept)
+    input_specs: Any = None
+    consts_spec: Any = None
 
     @property
     def fused_ok(self) -> bool:
@@ -133,15 +155,50 @@ class StagedSchedule:
             f"exceeds the largest compiled bucket {self.batch_buckets[-1]}")
 
     def describe(self) -> str:
-        """One-line pipeline rendering: name[stream] --bytes--> name[stream]."""
+        """One-line pipeline rendering: name[stream] --bytes--> name[stream],
+        followed by the traced graph's summary where the schedule has
+        input specs (traced on first use)."""
         parts = []
         for i, s in enumerate(self.stages):
             buf = ""
             if i < len(self.stages) - 1:
-                buf = f" --{self.buffers[i + 1].nbytes}B--> " \
+                buf = f" --{_fmt_bytes(self.buffers[i + 1].nbytes)}--> " \
                     if self.buffers else " -> "
             parts.append(f"{s.name}[{s.stream}]{buf}")
-        return "".join(parts)
+        line = "".join(parts)
+        if self.input_specs is not None:
+            g = ensure_graph(self).graph
+            kinds = " ".join(f"{k} {sum(1 for n in g if n.kind == k)}"
+                             for k in STREAMS + ("mem",))
+            line += (f" | graph ({self.source}): {len(g)} nodes [{kinds}], "
+                     f"critical path {len(self.graph.critical_path)}")
+        return line
+
+
+def _fmt_bytes(n: int) -> str:
+    # 1023.95 threshold: anything that would render as "1024.0" after the
+    # one-decimal rounding is promoted to the next unit (1048575 bytes is
+    # "1.0MB", not "1024.0KB")
+    x = float(n)
+    for unit in ("B", "KB", "MB"):
+        if x < (1024 if unit == "B" else 1023.95):
+            return f"{x:.0f}B" if unit == "B" else f"{x:.1f}{unit}"
+        x /= 1024
+    return f"{x:.1f}GB"
+
+
+def _graph_stats(g: OpGraph) -> dict:
+    """Summarize a traced stage subgraph for the stream-tag audit."""
+    flops = {k: g.total_flops(k) for k in STREAMS}
+    total = sum(flops.values())
+    dominant = max(flops, key=flops.get) if total else "simd"
+    # kernel / fft vsa nodes prove a symbolic stream even where the gather
+    # route hides the flops inside a matmul
+    has_vsa = any(n.kind == "vsa" for n in g)
+    return {
+        "nodes": len(g), "flops": flops, "bytes": g.total_bytes(),
+        "dominant": dominant, "has_vsa_nodes": has_vsa,
+    }
 
 
 def compose_stages(stages: tuple[StageSpec, ...]) -> Callable:
@@ -159,20 +216,51 @@ def _to_meta(x):
     return x.to("meta") if isinstance(x, torch.Tensor) else x
 
 
-def meta_run(stages: tuple[StageSpec, ...], consts, input_specs
-             ) -> tuple[tuple[BufferSpec, ...], list]:
+@dataclasses.dataclass
+class MetaRun:
+    """What one ``meta`` run of a stage list shows: the buffer specs of the
+    input batch and of every stage output, the ``registry.record_kernels``
+    record, and, when traced, the composed pipeline's OpGraph and each
+    stage's own."""
+
+    buffers: tuple[BufferSpec, ...]
+    kernels: list
+    graph: OpGraph | None = None
+    stage_graphs: tuple[OpGraph, ...] = ()
+
+
+def _empty(spec: TensorSpec) -> torch.Tensor:
+    return torch.empty(spec.shape, dtype=spec.dtype, device="meta")
+
+
+def meta_run(stages: tuple[StageSpec, ...], consts, input_specs,
+             trace: bool = False) -> MetaRun:
     """Run the stages on ``meta`` tensors (no device work, no kernel
-    launch).  Returns the buffer specs of the input batch and of every
-    stage output, and the ``registry.record_kernels`` record of the run."""
-    bufs = tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"),
-                    input_specs)
-    consts = tree_map(_to_meta, consts)
+    launch).  ``consts`` may be tensors or TensorSpecs.  With ``trace``
+    the run goes through ``core.trace``, and the nodes each stage added
+    form its own graph (the same nodes the reference gets by tracing the
+    stage alone)."""
+    bufs = tree_map(_empty, input_specs)
+    consts = tree_map(lambda x: _empty(x) if isinstance(x, TensorSpec)
+                      else _to_meta(x), consts)
     out = [BufferSpec.from_tree(bufs)]
-    with registry.record_kernels() as rec:
+    tracer = trace_mod.Tracer() if trace else None
+    stage_graphs = []
+    with registry.record_kernels() as rec, \
+            (tracer or contextlib.nullcontext()), \
+            (torch.no_grad() if trace else contextlib.nullcontext()):
         for s in stages:
+            start = len(tracer.graph) if trace else 0
             bufs = s.fn(consts, bufs)
             out.append(BufferSpec.from_tree(bufs))
-    return tuple(out), rec
+            if trace:
+                g = OpGraph()
+                for name in tracer.graph.order[start:]:
+                    g.add(tracer.graph.nodes[name])
+                stage_graphs.append(g)
+    if not trace:
+        return MetaRun(tuple(out), rec)
+    return MetaRun(tuple(out), rec, tracer.graph, tuple(stage_graphs))
 
 
 def fused_conformance(staged: list, fused: list
@@ -206,8 +294,9 @@ def compile_schedule(workload: str, stages: tuple[StageSpec, ...] | list,
     """Lower a stage list to a StagedSchedule on ``device``.
 
     ``input_specs``: tree of :class:`TensorSpec` for one staged batch of
-    the largest bucket; with ``consts`` it yields the buffer specs and the
-    fused negotiation.  ``batch_buckets``: ascending compiled batch sizes.
+    the largest bucket; with ``consts`` (tensors or TensorSpecs) it yields
+    the buffer specs and the fused negotiation.  ``batch_buckets``:
+    ascending compiled batch sizes.
 
     ``fused``: ``"auto"`` compiles the fused callable and negotiates its
     class (the executor substitutes it only when exact); ``True`` forces
@@ -236,7 +325,8 @@ def compile_schedule(workload: str, stages: tuple[StageSpec, ...] | list,
             "staged pipeline's")
     buffers, staged_rec = (), []
     if specs_known:
-        buffers, staged_rec = meta_run(stages, consts, input_specs)
+        run = meta_run(stages, consts, input_specs)
+        buffers, staged_rec = run.buffers, run.kernels
 
     fused_fn, fused_specs = None, ()
     equivalence, eps, diff = None, 0.0, ()
@@ -244,12 +334,13 @@ def compile_schedule(workload: str, stages: tuple[StageSpec, ...] | list,
         fused_specs = stages if fused_stages is None else tuple(fused_stages)
         fused_fn = compose_stages(fused_specs)
         if specs_known:
-            fused_bufs, fused_rec = meta_run(fused_specs, consts, input_specs)
-            if fused_bufs[-1].shapes != buffers[-1].shapes:
+            fused_run = meta_run(fused_specs, consts, input_specs)
+            if fused_run.buffers[-1].shapes != buffers[-1].shapes:
                 raise ValueError(
                     f"{workload}/{variant}: fused pipeline output spec does "
                     "not match the staged pipeline's")
-            equivalence, eps, diff = fused_conformance(staged_rec, fused_rec)
+            equivalence, eps, diff = fused_conformance(staged_rec,
+                                                       fused_run.kernels)
         else:
             # the same stage fns composed: trivially exact
             equivalence = "exact"
@@ -259,4 +350,50 @@ def compile_schedule(workload: str, stages: tuple[StageSpec, ...] | list,
         buffers=buffers, batch_buckets=batch_buckets,
         fused_stages=fused_specs, fused_forced=fused is True,
         fused_equivalence=equivalence, fused_epsilon=eps,
-        fused_lowering_diff=diff)
+        fused_lowering_diff=diff,
+        input_specs=input_specs if specs_known else None,
+        consts_spec=_abstract(consts) if specs_known else None)
+
+
+def _abstract(tree):
+    """TensorSpec skeleton of a tree (non-tensor leaves pass through)."""
+    return tree_map(lambda x: TensorSpec(tuple(x.shape), x.dtype)
+                    if isinstance(x, torch.Tensor) else x, tree)
+
+
+def trace_pipeline(stages: tuple[StageSpec, ...], consts, input_specs
+                   ) -> dfl.DataflowGraph:
+    """The composed pipeline traced into a DataflowGraph (steps ①–③): the
+    graph the DSE consumes, from the computation the schedule executes."""
+    return dfl.build(meta_run(stages, consts, input_specs, trace=True).graph)
+
+
+def ensure_graph(schedule: StagedSchedule) -> dfl.DataflowGraph:
+    """The schedule's DataflowGraph, traced with its per-stage costs on
+    first use (memoized on the schedule): what ``serve.deploy`` hands to
+    ``core.dse.explore``."""
+    if schedule.graph is None:
+        if schedule.input_specs is None:
+            raise ValueError(
+                f"{schedule.workload}/{schedule.variant}: schedule was "
+                "compiled without input_specs and consts: no graph to trace")
+        run = meta_run(schedule.stages, schedule.consts_spec,
+                       schedule.input_specs, trace=True)
+        schedule.stage_costs = tuple(_graph_stats(g)
+                                     for g in run.stage_graphs)
+        schedule.graph = dfl.build(run.graph)
+        schedule.source = "trace"
+    return schedule.graph
+
+
+def predicted_overlap(schedule: StagedSchedule, n_batches: int = 2) -> dict:
+    """Analytical overlap prediction for the compiled schedule: the traced
+    per-stage flops split into the nn-stream prefix and the symbolic tail,
+    through ``core.dataflow.interloop_overlap`` (the DSE's step-③ model)."""
+    graph = ensure_graph(schedule)
+    t_nn = sum(sum(c["flops"].values()) for s, c in
+               zip(schedule.stages, schedule.stage_costs) if s.stream == "nn")
+    t_sy = sum(sum(c["flops"].values()) for s, c in
+               zip(schedule.stages, schedule.stage_costs) if s.stream != "nn")
+    return dfl.interloop_overlap(graph, max(1, t_nn), max(1, t_sy),
+                                 n_loops=n_batches)
