@@ -84,7 +84,25 @@ and prints no result line):
    42 / 2 / 27 / 0 times per group (nvsa / mimonet / lvrf / prae), and
    nvsa's served log-probs within 1e-3 of an offline ``run`` of the same
    engine.
-7. Ops: the kernel-level entry points at full width, one more path.
+7. Replica: NVSA (``cnn``, fp32, d = 256) through
+   ``configs.base.reason_engine_pool`` with 1, 2 and 4 replicas on the
+   card, each pool behind one port ``FrontDoor``, the same 64 requests
+   offered at twice phase 3's sequential rate: on the door's virtual clock
+   the groups, answers and log-probs must be bit-identical across the
+   three pools; on the real clock one ``replica`` row per pool
+   (problems/s, service p50/p95, the pool's ``per_replica`` split and the
+   door's ``replica_breakdown``), circ_conv launched 42 times a group.
+8. Trace: 16 requests a model through phase 6's deployment, recorded by
+   ``serve.trace.record`` to a temporary file, then four replays, each a
+   ``trace`` row (tolerance, max_abs_err, n_compared, tags, seconds):
+   through the same deployment and a fresh card deployment rebuilt from
+   the header (tolerance 0.0: bit-exact), through a fresh CPU deployment
+   (the registry's tolerance of the changed kernels the replay called,
+   circ_conv's 1e-3) and, on the card, the trace the JAX package recorded
+   (``tests/golden/nvsa_oracle_d128.jsonl``, nvsa oracle at d = 128)
+   through engines bound to the reference's constants of its ``.npz``
+   (1e-3).  Every leg answers exactly.
+9. Ops: the kernel-level entry points at full width, one more path.
    ``vsa.match_prob`` at NVSA's 4 x 256 against 16 entries (f32, bf16),
    at the floor d = 128 (one launch) and below it (d = 64, none): rows sum
    to 1 within 1e-5, the card within 1e-3 of the CPU, the gradient within
@@ -98,7 +116,7 @@ and prints no result line):
    backward) and ``fused_unbind_classify`` at MIMONet's width, within 1e-4
    of the CPU; ``flash_mha`` refusing grad and taking a transposed view
    bit for bit as its contiguous copy.
-8. The ``kernels`` JSON line: every ported kernel with its launches on the
+10. The ``kernels`` JSON line: every ported kernel with its launches on the
    paths (each path's counts set to 0 just before it runs and read just
    after) and its times at its path's shape, its bound and the units the
    bound counts; entries carry other rows (``SUB_ROWS``): ``circ_conv``
@@ -108,7 +126,7 @@ and prints no result line):
    under ``d128`` and (64, 1024, 4, 256) under ``m1024``, ``flash_attn``
    bf16 at the same shape
    (ms, device_ms, library_ms, bound_ms, bound_units, max_abs_err).
-9. The last line: ``{"ok": true, "device": {...}}``.
+11. The last line: ``{"ok": true, "device": {...}}``.
 
 It needs the repository's ``src/`` beside it and a CUDA device; without
 either it exits with code 2.
@@ -1314,12 +1332,13 @@ def deploy_arrivals(dep, rates: dict[str, float], seed: int):
     return merge_arrivals(*streams)
 
 
-def phase_deploy() -> dict[str, int]:
+def phase_deploy() -> tuple:
     """The generator -> architecture loop on the card: ``deploy()`` of the
     four reasoners (nvsa at d = 256) behind one front door, ``warmup()``,
     then two windows of ``DEPLOY_REQUESTS`` requests per model, each model
     offered a fraction of its sequential rate of phases 3-5
-    (``DEPLOY_WINDOWS``).  Returns the path's launch counts."""
+    (``DEPLOY_WINDOWS``).  Returns the path's launch counts and
+    the deployment, which the trace phase records through."""
     import collections
 
     import numpy as np
@@ -1418,6 +1437,189 @@ def phase_deploy() -> dict[str, int]:
     emit({"phase": "deploy_vs_offline", "model": "nvsa", "window": window,
           "max_abs_logp_diff": diff})
     check(diff <= 1e-3, f"deploy nvsa: served log-probs {diff} from the offline run")
+    return counts, dep
+
+
+# -- phase 7: replica pools ------------------------------------------------------
+
+REPLICA_COUNTS = (1, 2, 4)
+REPLICA_REQUESTS = 64
+# offered twice nvsa cnn fp32's sequential rate of phase 3: above what one
+# host thread serves, so each window reads a pool's capacity
+REPLICA_OFFERED = 2.0
+
+
+class VirtualClock:
+    """A clock and sleep pair that only advance when the door sleeps."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+    def sleep(self, dt: float):
+        self.t += dt
+
+
+def phase_replica() -> dict[str, int]:
+    """NVSA (``cnn``, fp32, d = 256) through ``reason_engine_pool`` with 1, 2
+    and 4 replicas on the card, each pool behind one port ``FrontDoor``
+    with the same ``REPLICA_REQUESTS`` requests: on the door's virtual
+    clock the groups and the answers must be bit-identical across the
+    pools; on the real clock one window per pool gives its problems/s,
+    split and circ_conv launches (42 a group).  Returns the path's launch
+    counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.backend import registry
+    from repro_torch.configs import base as cb
+    from repro_torch.serve.frontdoor import (FrontDoor, FrontDoorConfig,
+                                             poisson_arrivals)
+    from repro_torch.serve.reason import ReasonConfig
+
+    registry.reset_launches()
+    t_phase = time.perf_counter()
+    entry = cb.REASON_WORKLOADS["nvsa"]
+    cfg = entry.make_config(d=256)
+    consts = entry.make_consts(cfg, torch.Generator().manual_seed(SEED))
+    factory, _ = entry.make_requests(cfg, REPLICA_REQUESTS, seed=300)
+    requests = list(factory())
+    rate = RATES[("nvsa/cnn/fp32", "sequential")] * REPLICA_OFFERED
+    rcfg = ReasonConfig(batch_size=8, buckets=BUCKETS, max_inflight=2,
+                        schedule="overlap", variant="cnn")
+    pools, build_s = {}, {}
+    for r in REPLICA_COUNTS:
+        t0 = time.perf_counter()
+        pool = pools[r] = cb.reason_engine_pool(
+            "nvsa", cfg, rcfg, consts=consts, variants=("cnn",), replicas=r)
+        for sub in (pool.replicas if r > 1 else [pool]):
+            for b in BUCKETS:   # every replica's first run of each bucket
+                sub.run(requests[:b])
+        build_s[r] = time.perf_counter() - t0
+
+    def door_serve(pool, seed, clock=None):
+        kw = {} if clock is None else {"clock": clock, "sleep": clock.sleep}
+        door = FrontDoor({"nvsa": pool}, FrontDoorConfig(deadline_s=0.02), **kw)
+        return door.serve(poisson_arrivals("nvsa", requests, rate, seed=seed))
+
+    virtual = {r: door_serve(pool, 301, VirtualClock()) for r, pool in pools.items()}
+    want = virtual[REPLICA_COUNTS[0]]
+    for r, rep in virtual.items():
+        check([g.uids for g in rep.groups] == [g.uids for g in want.groups],
+              f"replica {r}: groups differ from 1 replica on the virtual clock")
+        res, ref = rep.results["nvsa"], want.results["nvsa"]
+        check(sorted(res) == list(range(REPLICA_REQUESTS)),
+              f"replica {r}: {len(res)} of {REPLICA_REQUESTS} answered")
+        same = all(int(res[u].answer) == int(ref[u].answer)
+                   and np.array_equal(res[u].answer_logprobs, ref[u].answer_logprobs)
+                   for u in ref)
+        check(same, f"replica {r}: answers differ from 1 replica on the virtual clock")
+    for r, pool in pools.items():
+        pool.reset_stats()
+        before = registry.LAUNCHES["circ_conv"]
+        rep = door_serve(pool, 302)
+        circ = registry.LAUNCHES["circ_conv"] - before
+        lat = rep.latencies
+        span = max(x.done_s for x in lat) - min(x.arrival_s for x in lat)
+        s = rep.percentiles("service_s", "nvsa", qs=(50, 95))
+        emit({"phase": "replica", "replicas": r, "offered_rps": rate,
+              "served": len(rep.results["nvsa"]),
+              "problems_per_s": rep.work_per_s("nvsa"),
+              "problems_per_s_own_span": len(lat) / span,
+              "service_ms_p50_p95": [s["p50"] * 1e3, s["p95"] * 1e3],
+              "groups": len(rep.groups),
+              "buckets": {str(b): c for b, c in rep.bucket_histogram("nvsa").items()},
+              "per_replica": pool.per_replica() if r > 1 else None,
+              "replica_breakdown": rep.replica_breakdown("nvsa"),
+              "circ_conv_per_group": circ / len(rep.groups),
+              "virtual_clock_bit_identical": True, "build_and_warm_s": build_s[r]})
+        check(sorted(rep.results["nvsa"]) == list(range(REPLICA_REQUESTS)),
+              f"replica {r}: real clock answered {len(rep.results['nvsa'])}")
+        check(circ == 42 * len(rep.groups),
+              f"replica {r}: {circ} circ_conv launches in {len(rep.groups)} groups")
+    counts = dict(registry.LAUNCHES)
+    emit({"phase": "replica_done", "seconds": time.perf_counter() - t_phase})
+    return counts
+
+
+# -- phase 8: golden traces -----------------------------------------------------
+
+TRACE_REQUESTS = 16     # per model
+TRACE_FIXTURE = ROOT / "tests" / "golden" / "nvsa_oracle_d128.jsonl"
+
+
+def phase_trace(dep) -> dict[str, int]:
+    """Record ``TRACE_REQUESTS`` requests a model through phase 6's
+    deployment of the four reasoners on the card (to a file outside the
+    repository), then replay it: (1) through the same deployment and (2)
+    through a fresh card deployment rebuilt from its header, both
+    bit-exact; (3) through a fresh CPU deployment, within the registry's
+    tolerance of the changed kernels (circ_conv's 1e-3), answers exact;
+    and (4) the trace the JAX package recorded (``TRACE_FIXTURE``) through
+    a card deployment bound to its constants, within 1e-3.  Returns the
+    path's launch counts."""
+    import tempfile
+
+    from repro_torch import interop
+    from repro_torch.backend import registry
+    from repro_torch.serve import trace as tr
+
+    registry.reset_launches()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "golden.jsonl")
+        arrivals, _ = dep.synthetic_traffic(TRACE_REQUESTS, seed=400)
+        t0 = time.perf_counter()
+        report, trace = tr.record(dep, arrivals, path)
+        emit({"phase": "trace_record", "seconds": time.perf_counter() - t0,
+              "requests": {m: len(r) for m, r in report.results.items()},
+              "groups": len(trace.groups), "tags": dep.backend.tag()})
+        check(all(len(r) == TRACE_REQUESTS for r in report.results.values()),
+              "trace: not every recorded request was answered")
+        loaded = tr.GoldenTrace.load(path)
+
+        def jax_fixture():
+            """The JAX-recorded trace and a card deployment from its header,
+            bound to the reference's constants of its ``.npz``."""
+            fixture = tr.GoldenTrace.load(str(TRACE_FIXTURE))
+            fdep = fixture.deploy(registry.negotiate("cuda"))
+            consts = interop.from_reference(
+                interop.load_npz(TRACE_FIXTURE.with_suffix(".npz")), "cuda")
+            for eng in fdep.engines.values():
+                eng.consts = {**eng.consts, **consts}
+            return fixture, {"deployment": fdep}
+
+        # (leg, the tolerance the registry must give, (trace, replay kwargs))
+        legs = (
+            ("same_deployment", 0.0, lambda: (trace, {"deployment": dep})),
+            ("fresh_card", 0.0,
+             lambda: (loaded, {"backend": registry.negotiate("cuda")})),
+            ("fresh_cpu", 1e-3,
+             lambda: (loaded, {"backend": registry.negotiate("cpu")})),
+            ("jax_fixture", 1e-3, jax_fixture),
+        )
+        for name, tolerance, setup in legs:
+            t0 = time.perf_counter()
+            golden, kw = setup()
+            replay = golden.replay(**kw)
+            diff = golden.diff(replay)
+            answers = [f for f in diff.failures if f.field == "answer"]
+            emit({"phase": "trace", "leg": name, "tolerance": diff.tolerance,
+                  "max_abs_err": diff.max_abs_err, "n_compared": diff.n_compared,
+                  "ok": diff.ok, "answer_mismatches": len(answers),
+                  "recorded_tags": sorted(set(diff.recorded_tags.values())),
+                  "replayed": replay.plan.tag(), "kernels": sorted(replay.kernels),
+                  "seconds": time.perf_counter() - t0,
+                  "describe": diff.describe()})
+            check(diff.tolerance == tolerance,
+                  f"trace {name}: tolerance {diff.tolerance}, want {tolerance}")
+            check(diff.ok and not answers, f"trace {name}: {diff.describe()}")
+            check(diff.n_compared == len(golden.results) > 0,
+                  f"trace {name}: compared {diff.n_compared}")
+    counts = dict(registry.LAUNCHES)
+    emit({"phase": "trace_done", "seconds": time.perf_counter() - t_phase})
     return counts
 
 
@@ -1634,8 +1836,11 @@ def main() -> int:
     main_rows = phase_kernels()
     for row in host_breakdown():
         emit(row)
-    paths = {"nvsa": phase_serve(), "mimonet": phase_mimonet(), **phase_reasoners(),
-             "deploy": phase_deploy(), "ops": phase_ops()}
+    paths = {"nvsa": phase_serve(), "mimonet": phase_mimonet(), **phase_reasoners()}
+    paths["deploy"], dep = phase_deploy()
+    paths["replica"] = phase_replica()
+    paths["trace"] = phase_trace(dep)
+    paths["ops"] = phase_ops()
     emit({"phase": "launches_by_path", **paths})
     kernels = []
     for name, spec in registry.KERNELS.items():

@@ -27,6 +27,16 @@ and every dispatch that stays on the exact reference below a kernel's
 floor appends ``(kernel, "gather")``.  ``serve.schedule`` diffs the records
 of the staged and the fused stage lists to negotiate the fused schedule.
 
+``LoweringPlan`` / ``negotiate`` / ``replay_tolerance`` are the record of
+that choice, the twin of the reference's plan layer: ``negotiate(device)``
+writes down what the device selects, per kernel (``"cuda"`` on the card,
+``"torch"`` for the plain version, then ``"gather"`` below the floor),
+for ``serve.deploy`` to report and ``serve.trace`` to diff by.  The plan
+chooses nothing.  The reference's ``use_plan`` and ``REPRO_BACKEND``
+overrides have no counterpart: a forced fallback would let a CUDA tensor
+reach a plain version.  What they served, a replay through the exact
+lowerings, is a replay on the CPU of a trace recorded on the card.
+
 ``TRACE`` is the open ``core.trace.Tracer`` (None outside a trace, which
 runs on ``meta`` tensors only).  Every kernel wrapper is decorated with
 ``kernel_call``: its ``note_call`` opens the call in the tracer (also a
@@ -42,7 +52,7 @@ import contextlib
 import dataclasses
 import functools
 import inspect
-from typing import Callable, Iterator
+from typing import Callable, Iterator, Mapping
 
 import torch
 
@@ -214,3 +224,65 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+# ---------------------------------------------------------------------------
+# the lowering record
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LoweringPlan:
+    """What the device selects, per kernel, written down.
+
+    ``platform`` is ``"gpu"`` or ``"cpu"``, as ``jax.default_backend()``
+    names them.  ``chains[kernel]`` lists the routes a call of ``kernel``
+    can take on it, the device's route first: ``"cuda"`` (the hand
+    kernel) or ``"torch"`` (the plain version), then ``"gather"``, the
+    exact reference, for kernels with a ``dispatch_min_size``.  ``tags()``
+    is the per-kernel head: what deployments report and traces diff."""
+
+    platform: str
+    chains: Mapping[str, tuple[str, ...]]
+    source: str = "negotiated"
+
+    def tags(self) -> dict[str, str]:
+        """Per-kernel head route, e.g. ``{"circ_conv": "cuda", ...}``."""
+        return {k: chain[0] for k, chain in self.chains.items()}
+
+    def tag(self) -> str:
+        """One token for summaries: ``gpu/cuda`` when every kernel agrees,
+        else ``gpu/circ_conv:cuda+...``."""
+        tags = self.tags()
+        if len(set(tags.values())) == 1:
+            return f"{self.platform}/{next(iter(tags.values()))}"
+        return self.platform + "/" + "+".join(
+            f"{k}:{v}" for k, v in sorted(tags.items()))
+
+
+def negotiate(device=None) -> LoweringPlan:
+    """The plan of ``device`` (None = ``"cuda"``, which raises without
+    CUDA; ``"cpu"`` for the plain versions).  It takes no override."""
+    dev = resolve_device(device)
+    platform, head = ("gpu", "cuda") if dev.type == "cuda" else ("cpu", "torch")
+    chains = {name: (head,) + (("gather",) if spec.dispatch_min_size else ())
+              for name, spec in KERNELS.items()}
+    return LoweringPlan(platform=platform, chains=chains)
+
+
+def replay_tolerance(recorded: Mapping[str, str], replayed: Mapping[str, str],
+                     served=None) -> float:
+    """Tolerance for diffing traffic served under two plans.
+
+    0.0 when every kernel kept its tag: the replay must be bit-exact.
+    Otherwise the largest ``epsilon`` among the kernels whose tag changed;
+    a tag of the reference (``"interpret"``, ``"pallas"``, ``"xla"``)
+    counts as changed.  Kernels absent from ``recorded`` count as
+    unchanged.  ``served``, the kernels the replay called, narrows that to
+    the changed kernels it called, where it called any: a kernel that
+    served nothing moved no answer (flash_attn's 3e-2 would otherwise
+    hold every NSAI trace across devices)."""
+    changed = [k for k, new in replayed.items() if recorded.get(k, new) != new]
+    if not changed:
+        return 0.0
+    hit = [k for k in changed if served and k in served]
+    return max(KERNELS[k].epsilon for k in (hit or changed))

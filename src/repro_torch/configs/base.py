@@ -451,3 +451,50 @@ def reason_engine(model: str, cfg, reason_cfg: ReasonConfig | None = None,
             device=dev)
         for v in (variants or entry.variants)}
     return ReasonEngine(schedules, reason_cfg, consts=consts)
+
+
+def reason_engine_pool(model: str, cfg, reason_cfg: ReasonConfig | None = None,
+                       consts=None, variants: tuple[str, ...] | None = None,
+                       replicas: int = 1, device=None):
+    """``replicas`` data-parallel :func:`reason_engine` copies behind one
+    :class:`~repro_torch.serve.replica.ReplicaPool`.
+
+    Each replica gets the same constants (bit-identical answers whichever
+    replica serves a request), moved to ``cuda:(i % device_count)``, or
+    kept on the CPU when ``device="cpu"`` (None = ``"cuda"``).  Replicas
+    on one device share one compiled schedule dict; a replica on another
+    device gets the same schedules pointed at its device.  ``replicas=1``
+    returns the bare engine (no pool on the single-replica path)."""
+    import dataclasses as _dc
+
+    from repro_torch.serve.replica import ReplicaPool
+
+    if replicas < 1:
+        raise ValueError(f"replicas must be >= 1, got {replicas}")
+    reason_cfg = reason_cfg or ReasonConfig()
+    if replicas == 1:
+        return reason_engine(model, cfg, reason_cfg, consts=consts,
+                             variants=variants, device=device)
+    if consts is None:
+        raise ValueError("a replica pool needs real consts (answers must "
+                         "be replica-invariant, so every replica binds the "
+                         "same constants)")
+    dev = registry.resolve_device(device)
+    ndev = torch.cuda.device_count() if dev.type == "cuda" else 1
+    engines: list[ReasonEngine] = []
+    schedules: dict[torch.device, dict] = {}
+    for i in range(replicas):
+        d = torch.device("cuda", i % ndev) if dev.type == "cuda" else dev
+        rcfg = _dc.replace(reason_cfg)
+        c = interop.to_device(consts, d)
+        if not engines:
+            eng = reason_engine(model, cfg, rcfg, consts=c,
+                                variants=variants, device=d)
+            schedules[d] = eng.schedules
+        else:
+            if d not in schedules:
+                schedules[d] = {v: _dc.replace(s, device=d)
+                                for v, s in engines[0].schedules.items()}
+            eng = ReasonEngine(schedules[d], rcfg, consts=c)
+        engines.append(eng)
+    return ReplicaPool(engines)

@@ -1,4 +1,6 @@
 """The NSFlow generator core of the port: the operation-graph IR, the
 analytical models, the dataflow graph, the two-phase DSE, the paper-scale
-workload graphs and the torch trace that builds an ``OpGraph`` from a run.
+workload graphs, the torch trace that builds an ``OpGraph`` from a run,
+and the device-level simulator of the paper's evaluation
+(``core.simulator``).
 """

@@ -6,6 +6,11 @@ for NVSA), into the port's tensors on a device.  It is exact: it converts
 dtype and layout only.  The one layout change is the conv weight: a 4-D
 leaf under the key ``"w"`` is an HWIO kernel and becomes OIHW.  Other 4-D
 leaves (LVRF's rule codebook, (A, R, B, d)) keep their layout.
+
+``save_npz`` / ``load_npz`` keep such a tree in one ``.npz`` file, its
+leaves under ``/``-joined keys (``books/books/0``; an all-digit part is a
+list index), so that a script without JAX (``chip_smoke.py``) can read
+constants the reference drew.
 """
 
 from __future__ import annotations
@@ -38,6 +43,50 @@ def from_reference(tree, device=None):
     """Reference constants (numpy leaves, lists and dicts) -> port tensors
     on ``device`` (None = ``"cuda"``)."""
     return _convert(tree, registry.resolve_device(device))
+
+
+def _flatten(tree, prefix: str, out: dict) -> dict:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _flatten(v, f"{prefix}{k}/", out)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            _flatten(v, f"{prefix}{i}/", out)
+    elif tree is not None:
+        out[prefix[:-1]] = np.asarray(tree)
+    return out
+
+
+def _lists(node):
+    if not isinstance(node, dict):
+        return node
+    node = {k: _lists(v) for k, v in node.items()}
+    if node and all(k.isdigit() for k in node):
+        return [node[str(i)] for i in range(len(node))]
+    return node
+
+
+def save_npz(path, tree) -> None:
+    """Write a tree of arrays (dicts, lists, numpy or tensor leaves; None
+    leaves are dropped) to ``path`` under ``/``-joined keys."""
+    flat = _flatten(tree_map(
+        lambda x: x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+        else x, tree), "", {})
+    np.savez(path, **flat)
+
+
+def load_npz(path) -> dict:
+    """The tree ``save_npz`` wrote, with numpy leaves (pass it to
+    ``from_reference`` for tensors on a device)."""
+    root: dict = {}
+    with np.load(path) as data:
+        for key in data.files:
+            *parents, leaf = key.split("/")
+            node = root
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[leaf] = data[key]
+    return _lists(root)
 
 
 def to_device(tree, device=None):

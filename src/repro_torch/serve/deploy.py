@@ -24,17 +24,23 @@ emits the serving architecture.  For each NSAI workload:
 The result is a :class:`Deployment`: one
 :class:`~repro_torch.serve.frontdoor.FrontDoor` over every engine, with an
 :class:`~repro_torch.serve.control.OverloadController` attached when the
-budget sets ``slo_ms`` or ``queue_depth``.  ``Deployment.report()`` keeps
-the reference's keys and records None where the port has no counterpart
-yet (the lowering plan, the mesh point, replica pools, the preflight
-analysis).
+budget sets ``slo_ms`` or ``queue_depth``.  ``Deployment.backend`` is
+``registry.negotiate(device)``, the record of what the device selects per
+kernel; ``Deployment.report()`` keeps the reference's keys and records
+None where the port has no counterpart yet (the mesh point, the preflight
+analysis).  A ``Deployment`` whose engine is a
+:class:`~repro_torch.serve.replica.ReplicaPool` (built by hand with
+``configs.base.reason_engine_pool``) reports and warms it as the
+reference does.
 
 What the port does not have yet raises ``NotImplementedError`` naming its
 ROADMAP item, and is never ignored: a ``Budget`` with ``devices``,
-``replicas`` or ``tp`` above 1 (replicas and the mesh co-search, Queue 1
-#3d and #6), ``backend=`` (the lowering-plan layer, #3e), ``preflight=``
-other than ``"off"`` (the analyzer, #7).  An LM model name raises
-``KeyError`` (the LM substrate, #4).
+``replicas`` or ``tp`` above 1 (deploy's replica count comes from the mesh
+co-search, Queue 1 #3d and #6), ``preflight=`` other than ``"off"`` (the
+analyzer, #7).  ``backend=`` other than None raises too, by design (#3e):
+the device selects each kernel, and no plan may send a CUDA tensor to a
+plain version.  An LM model name raises ``KeyError`` (the LM substrate,
+#4).
 """
 
 from __future__ import annotations
@@ -97,13 +103,15 @@ def _refuse_unported(budget: Budget, backend, preflight: str) -> None:
             for v in (budget.devices, budget.replicas, budget.tp)):
         raise NotImplementedError(
             f"Budget(devices={budget.devices}, replicas={budget.replicas}, "
-            f"tp={budget.tp}): the port serves one engine per model on one "
-            "device; replica pools and the mesh co-search are ROADMAP "
-            "Queue 1 #3d and #6")
+            f"tp={budget.tp}): deploy() serves one engine per model on one "
+            "device; its replica count comes from the mesh co-search "
+            "(ROADMAP Queue 1 #3d and #6). Build a pool by hand with "
+            "configs.base.reason_engine_pool")
     if backend is not None:
         raise NotImplementedError(
-            f"backend={backend!r}: the port has no lowering-plan layer "
-            "(ROADMAP Queue 1 #3e); the tensor's device selects each kernel")
+            f"backend={backend!r}: the port takes no lowering override "
+            "(ROADMAP Queue 1 #3e, by design): the tensor's device selects "
+            "each kernel; pass device='cpu' for the plain versions")
     if preflight != "off":
         raise NotImplementedError(
             f"preflight={preflight!r}: the port has no analyzer yet "
@@ -117,7 +125,10 @@ class Deployment:
     ``classes[model]`` is the runtime traffic class (``"reason"``);
     ``designs`` / ``plans`` carry the DSE point and the derived serving
     plan, ``configs`` the model configs, ``variants`` the served variant,
-    ``seed`` the seed the constants were drawn from."""
+    ``seed`` the seed the constants were drawn from, ``backend`` the
+    device's :class:`~repro_torch.backend.registry.LoweringPlan` and
+    ``options`` the per-model options ``deploy()`` was called with (a
+    golden trace re-deploys from them)."""
 
     engines: dict[str, Any]
     door: FrontDoor
@@ -130,6 +141,30 @@ class Deployment:
     budget: Budget
     seed: int = 0
     controller: OverloadController | None = None
+    backend: registry.LoweringPlan | None = None
+    options: dict = dataclasses.field(default_factory=dict)
+
+    def _pool(self, m: str):
+        """The model's ReplicaPool, or None when served by a bare engine."""
+        from repro_torch.serve.replica import ReplicaPool
+
+        eng = self.engines[m]
+        return eng if isinstance(eng, ReplicaPool) else None
+
+    def _base(self, m: str):
+        """The model's representative engine (replica 0 of a pool), to read
+        compile-time structure from; stats come from the pool (merged)."""
+        pool = self._pool(m)
+        return pool.replicas[0] if pool is not None else self.engines[m]
+
+    def backend_record(self) -> dict | None:
+        """The device's LoweringPlan as a plain record: platform, how it
+        was chosen, and the route per registered kernel."""
+        if self.backend is None:
+            return None
+        return {"platform": self.backend.platform,
+                "source": self.backend.source,
+                "lowerings": self.backend.tags()}
 
     def serve(self, arrivals: Iterable[ArrivalRequest]) -> FrontDoorReport:
         """Serve one merged arrival stream through the front-door."""
@@ -137,15 +172,18 @@ class Deployment:
 
     def report(self) -> dict:
         """Per-model deployment record with the chosen DSE point, under the
-        reference's keys (None where the port has no counterpart)."""
+        reference's keys (None where the port has no counterpart).  Stats
+        come off the engine, for a pool the sum over its replicas."""
         out = {}
+        backend = self.backend_record()
         for m, eng in self.engines.items():
-            design, sched = self.designs[m], eng.schedules[self.variants[m]]
+            pool, base = self._pool(m), self._base(m)
+            design, sched = self.designs[m], base.schedules[self.variants[m]]
             serving = {
-                "batch_size": eng.cfg.batch_size,
-                "buckets": tuple(eng.cfg.buckets or ()),
-                "max_inflight": eng.cfg.max_inflight,
-                "schedule": eng.cfg.schedule,
+                "batch_size": base.cfg.batch_size,
+                "buckets": tuple(base.cfg.buckets or ()),
+                "max_inflight": base.cfg.max_inflight,
+                "schedule": base.cfg.schedule,
                 "variant": self.variants[m],
                 "fused": {
                     "ok": sched.fused_ok,
@@ -164,10 +202,10 @@ class Deployment:
                 "design": design.summary(),
                 "searched_points": design.searched_points,
                 "serving": serving,
-                "backend": None,
+                "backend": backend,
                 "mesh": None,
-                "replicas": 1,
-                "per_replica": None,
+                "replicas": len(pool) if pool is not None else 1,
+                "per_replica": pool.per_replica() if pool is not None else None,
             }
         out["analysis"] = None
         ctl = self.controller
@@ -185,8 +223,11 @@ class Deployment:
         return out
 
     def summary(self) -> str:
-        """One line per model: class, serving knobs, DSE tag."""
+        """One line per model: class, serving knobs, DSE and backend tags,
+        and a pool's per-replica split."""
         lines = []
+        backend = f"backend={self.backend.tag()}" if self.backend else \
+            "backend=n/a"
         for m, rec in self.report().items():
             if m in ("analysis", "control"):
                 continue
@@ -194,7 +235,12 @@ class Deployment:
             knobs = " ".join(f"{k}={v}" for k, v in rec["serving"].items())
             lines.append(f"{m} [{rec['class']}]: {knobs} | dse={design.tag()} "
                          f"({design.searched_points} points) | mesh=n/a "
-                         f"| backend=n/a")
+                         f"| {backend}")
+            if rec["per_replica"]:
+                split = " ".join(
+                    f"r{r['replica']}:{r['groups']}g/{r['requests']}req"
+                    f"/{r['share']:.0%}" for r in rec["per_replica"])
+                lines.append(f"  {m} replicas: {split}")
         if self.controller is not None:
             ctl = self.controller
             slos = " ".join(f"{p}<= {t.total_p99_ms:.0f}ms"
@@ -237,14 +283,18 @@ class Deployment:
     def warmup(self):
         """Serve one group at every compiled bucket of every engine before
         traffic arrives, so online latencies never include a shape's first
-        run (kernel builds, cuDNN and allocator set-up)."""
+        run (kernel builds, cuDNN and allocator set-up).  A pool warms
+        every replica: each keeps its own warmed-shape set and device."""
         from repro_torch.configs import base as cbase
 
-        for m, eng in self.engines.items():
-            for b in eng.cfg.buckets or (eng.cfg.batch_size,):
-                factory, _ = cbase.REASON_WORKLOADS[m].make_requests(
-                    self.configs[m], b, seed=5000 + b)
-                eng.run(factory())
+        for m in self.engines:
+            pool = self._pool(m)
+            subs = pool.replicas if pool is not None else [self.engines[m]]
+            for sub in subs:
+                for b in sub.cfg.buckets or (sub.cfg.batch_size,):
+                    factory, _ = cbase.REASON_WORKLOADS[m].make_requests(
+                        self.configs[m], b, seed=5000 + b)
+                    sub.run(factory())
         return self
 
 
@@ -279,6 +329,7 @@ def deploy(workloads: Iterable[str], traffic: Traffic | None = None,
                          f"got {preflight!r}")
     _refuse_unported(budget, backend, preflight)
     dev = registry.resolve_device(device)
+    lowering_plan = registry.negotiate(dev)
 
     engines: dict[str, Any] = {}
     designs: dict[str, Any] = {}
@@ -333,4 +384,6 @@ def deploy(workloads: Iterable[str], traffic: Traffic | None = None,
                       classes=dict.fromkeys(models, "reason"),
                       designs=designs, plans=plans, configs=configs,
                       variants=variants, traffic=traffic, budget=budget,
-                      seed=seed, controller=controller)
+                      seed=seed, controller=controller, backend=lowering_plan,
+                      options={m: dict(options.get(m, {})) for m in models
+                               if options.get(m)})

@@ -2,9 +2,10 @@
 
 The port's copy of ``repro.serve.frontdoor`` (numpy and plain Python).  It
 drives engines only through the ``EngineProtocol`` surface, so it is the
-reference's policy unchanged.  The port serves the four reasoners: the
-reference's replica-pool breakdown and LM token accounting wait for
-replica pools and the LM substrate (ROADMAP Queue 1 #3d and #4).
+reference's policy unchanged, the per-replica breakdown of a
+``ReplicaPool`` included.  The port serves the four reasoners: the
+reference's LM token accounting waits for the LM substrate (ROADMAP
+Queue 1 #4).
 
 NSFlow's pitch is *real-time* NSAI acceleration, but an engine that only
 accepts pre-collected request lists (``ReasonEngine.run`` / ``Engine.run``)
@@ -245,6 +246,9 @@ class ServedGroup:
     close_s: float                # when the admission policy closed it
     dispatch_s: float
     done_s: float
+    # which replica of a ReplicaPool served the group (None = unpooled
+    # engine); read off the engine's GroupRecord stamp
+    replica: int | None = None
 
 
 @dataclasses.dataclass
@@ -325,6 +329,33 @@ class FrontDoorReport:
                 hist[g.bucket] = hist.get(g.bucket, 0) + 1
         return dict(sorted(hist.items()))
 
+    def replica_breakdown(self, model: str | None = None
+                          ) -> dict[int, dict] | None:
+        """Per-replica utilization out of the merged report.
+
+        ``{replica: {groups, requests, busy_s, share}}`` where ``busy_s``
+        sums the replica's dispatch->done service intervals and ``share``
+        is its fraction of served requests.  ``None`` when no group was
+        served by a :class:`~repro_torch.serve.replica.ReplicaPool`
+        (unpooled engines leave ``ServedGroup.replica`` unset).
+        """
+        groups = [g for g in self.groups
+                  if (model is None or g.model == model)
+                  and g.replica is not None]
+        if not groups:
+            return None
+        total = sum(g.size for g in groups)
+        out: dict[int, dict] = {}
+        for g in groups:
+            row = out.setdefault(g.replica, {"groups": 0, "requests": 0,
+                                             "busy_s": 0.0, "share": 0.0})
+            row["groups"] += 1
+            row["requests"] += g.size
+            row["busy_s"] += g.done_s - g.dispatch_s
+        for row in out.values():
+            row["share"] = row["requests"] / total if total else 0.0
+        return dict(sorted(out.items()))
+
     def summary(self) -> str:
         lines = []
         for model in sorted(self.results):
@@ -360,6 +391,12 @@ class FrontDoorReport:
                     for p, row in att.items() if row["n"])
                 if parts:
                     lines.append(f"{model}: slo attainment {parts}")
+            replicas = self.replica_breakdown(model)
+            if replicas:
+                parts = " ".join(
+                    f"r{i}:{row['groups']}g/{row['requests']}req/"
+                    f"{row['share']:.0%}" for i, row in replicas.items())
+                lines.append(f"{model}: replicas {parts}")
         return "\n".join(lines)
 
 
@@ -617,7 +654,7 @@ class FrontDoor:
             groups.append(ServedGroup(
                 model=model, uids=rec.uids, bucket=rec.bucket, size=rec.size,
                 close_reason=reason, open_s=min(arr_times), close_s=close_s,
-                dispatch_s=dispatch_s, done_s=done_s))
+                dispatch_s=dispatch_s, done_s=done_s, replica=rec.replica))
             for uid, arr, prio in zip(rec.uids, arr_times, prios):
                 latencies.append(RequestLatency(
                     uid=uid, model=model, arrival_s=arr,

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.backend import registry as p_registry
 from repro_torch.configs import base as cb
 
 # the modules (each package's ``serve`` exports the ``deploy`` function
@@ -125,10 +126,15 @@ def test_report_keeps_the_reference_keys(pair):
         assert got[m]["design"] == want[m]["design"]
         assert got[m]["serving"]["fused"]["ok"] == \
             want[m]["serving"]["fused"]["ok"]
-        assert got[m]["backend"] is None and got[m]["mesh"] is None
+        # the device's lowering record, under the reference record's keys
+        assert set(got[m]["backend"]) == set(want[m]["backend"])
+        assert got[m]["backend"]["platform"] == "cpu"
+        assert set(got[m]["backend"]["lowerings"]) == set(p_registry.KERNELS)
+        assert got[m]["mesh"] is None
         assert got[m]["replicas"] == 1 and got[m]["per_replica"] is None
     assert got["analysis"] is None and got["control"] is None
     assert "dse=8x32x" in port.summary()
+    assert "backend=cpu/torch" in port.summary()
 
 
 def test_synthetic_traffic_equals_the_reference(pair):

@@ -226,8 +226,9 @@ def test_port_door_serves_the_reference_doors_groups(traffic, control):
             ctl_mod.ControlConfig(queue_depth=3, tick_s=0.01, min_obs=2))
         reports.append(_serve(fd, _engines(), traffic, ctl))
     want, got = reports
-    # the port's ServedGroup has no replica field (no replica pools yet)
+    # bare engines, no pool: the replica field is None on both sides
     assert all(g.replica is None for g in want.groups)
+    assert all(g.replica is None for g in got.groups)
     fields = [f.name for f in dataclasses.fields(p_fd.ServedGroup)]
     assert _astuples(got.groups) == [tuple(getattr(g, f) for f in fields)
                                      for g in want.groups]
