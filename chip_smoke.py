@@ -116,7 +116,40 @@ and prints no result line):
    backward) and ``fused_unbind_classify`` at MIMONet's width, within 1e-4
    of the CPU; ``flash_mha`` refusing grad and taking a transposed view
    bit for bit as its contiguous copy.
-10. The ``kernels`` JSON line: every ported kernel with its launches on the
+10. LM: the LM substrate at published width.  llama3.2-3b
+   (``make_full()``: 28 layers, d 3072, 24 heads and 8 KV heads of 128,
+   d_ff 8192, vocab 128256; f32 parameters drawn on the card from a seeded
+   ``torch.Generator``, bf16 compute): ``configs.base.prefill_fn`` at
+   (B, S) = (1, 2048) and (4, 512), 28 flash_attn launches per forward, ms
+   per forward and tokens/s; its last-token logits at two layers' depth and
+   (1, 512) within 3e-2 of the logits' scale of the same function on the
+   CPU with the same parameters.  The first ``flash_mha`` call of the path
+   at each shape (the forwards', (4, 512, 24, 128) among them, and
+   gemma3's global layer at head dim 256 below) is held against
+   ``flash_attention_ref`` on its own inputs and output, and the same
+   shapes on random inputs with k / v drawn as 8 heads and repeated, both
+   within 1e-3 + one bf16 step.  Its slot-pool ``Engine``
+   (``serve_fns``, ``ServeConfig(max_slots=8, max_len=512,
+   max_new_tokens=32, decode_block=8, prefill_bucket=16)``) serving 16
+   ``SyntheticTokens`` prompts of 16-256 tokens: greedy twice (the second
+   run measured), online ``submit`` / ``drain_ready`` equal to ``run()``,
+   the same streams at ``max_slots=3`` but where they leave at a near tie,
+   sampled (temperature 0.8, top-k 50) offline equal to online, every
+   request answered with its budget.  Decode against the full-context
+   forward over prompt + generated tokens: at every generated position of
+   every stream, the logits of ``decode_step`` scanned over the same
+   tokens within 3e-2 of the forward's logits' scale there, and each
+   greedy token the forward's argmax wherever the forward's top-2 margin
+   exceeds twice that (near ties counted); the decode read one position
+   late must lie beyond the tolerance somewhere.  Rows: tokens/s, ms per
+   decode step and per admission, parameter and KV-cache bytes,
+   ``max_memory_allocated``.  Then gemma3-12b at its width and one pattern
+   unit of depth (a reduced depth: 6 of its 48 layers, 5 local with window
+   1024 and 1 global, 2.35B parameters) serving 4 greedy prompts of
+   1100-1300 tokens, so the local layers' ring caches wrap, with the same
+   checks against its forward (plain windowed attention on the local
+   layers, flash_attn on the global one).
+11. The ``kernels`` JSON line: every ported kernel with its launches on the
    paths (each path's counts set to 0 just before it runs and read just
    after) and its times at its path's shape, its bound and the units the
    bound counts; entries carry other rows (``SUB_ROWS``): ``circ_conv``
@@ -126,7 +159,7 @@ and prints no result line):
    under ``d128`` and (64, 1024, 4, 256) under ``m1024``, ``flash_attn``
    bf16 at the same shape
    (ms, device_ms, library_ms, bound_ms, bound_units, max_abs_err).
-11. The last line: ``{"ok": true, "device": {...}}``.
+12. The last line: ``{"ok": true, "device": {...}}``.
 
 It needs the repository's ``src/`` beside it and a CUDA device; without
 either it exits with code 2.
@@ -1806,6 +1839,428 @@ def ops_gradients(gen, launched) -> None:
           "bit_identical_to_contiguous": True})
 
 
+# -- phase 10: the LM substrate --------------------------------------------------
+
+LM_ARCH = "llama3.2-3b"
+LM_FORWARD_SHAPES = ((1, 2048), (4, 512))   # (B, S) of the timed forwards
+LM_CPU_LAYERS, LM_CPU_SHAPE = 2, (1, 512)    # the forward held against the CPU
+LM_LOGIT_TOL = 3e-2     # of the logits' scale: 3e-2 x max(1, max |logit|)
+# decode and the full-context forward are two bf16 computations of the same
+# logits: at every generated position of every stream, the decode's logits
+# lie within LM_LOGIT_TOL of the forward's scale there.  A greedy token may
+# so leave the forward's argmax only where the forward's top-2 margin is
+# at most twice that (a near tie, counted)
+LM_SERVE = dict(max_slots=8, max_len=512, max_new_tokens=32, decode_block=8,
+                prefill_bucket=16)
+LM_REQUESTS, LM_PROMPTS = 16, (16, 256)
+LM_SAMPLED = dict(temperature=0.8, top_k=50)
+LM_RING_ARCH, LM_RING_LAYERS = "gemma3-12b", 6   # one 5:1 local:global unit
+LM_RING_REQUESTS, LM_RING_PROMPTS = 4, (1100, 1300)
+
+
+def lm_config(arch_id: str):
+    """The published width of ``arch_id``; gemma3-12b cut to one pattern unit
+    of depth (6 of its 48 layers: 5 local with window 1024, 1 global)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(arch_id).make_full()
+    if arch_id == LM_RING_ARCH:
+        cfg = dataclasses.replace(cfg, n_layers=LM_RING_LAYERS)
+    return cfg
+
+
+def lm_prompts(vocab: int, n: int, lens: tuple[int, int], seed: int):
+    """``n`` prompts of ``SyntheticTokens`` streams, lengths drawn in
+    ``lens`` (inclusive) from ``seed``."""
+    import numpy as np
+
+    from repro_torch.data.tokens import SyntheticTokens, TokenPipelineConfig
+
+    toks, _ = SyntheticTokens(TokenPipelineConfig(
+        vocab_size=vocab, seq_len=lens[1], global_batch=n, seed=seed)).batch(0)
+    sizes = np.random.default_rng(seed).integers(lens[0], lens[1] + 1, n)
+    return [toks[i, :sizes[i]].astype(np.int32) for i in range(n)]
+
+
+class FlashHeld:
+    """While open, the first ``flash_mha`` call at each shape is held against
+    ``flash_attention_ref`` on its own inputs and output, within 1e-3 + one
+    bf16 step (the path computes in bf16), as ``flash_kernel_rows`` holds
+    the kernel; the check itself launches nothing.  ``rows`` keeps one row
+    per shape held."""
+
+    def __init__(self):
+        self.rows: list[dict] = []
+        self._seen: set = set()
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attn import ops as flash_ops
+
+        self._ops, self._launch = flash_ops, flash_ops.flash_mha
+        flash_ops.flash_mha = self._held
+        return self
+
+    def __exit__(self, *exc):
+        self._ops.flash_mha = self._launch
+
+    def _held(self, q, k, v, scale, causal=True):
+        from repro_torch.kernels.flash_attn import ref as flash_ref
+
+        out = self._launch(q, k, v, scale, causal)
+        if tuple(q.shape) not in self._seen:
+            self._seen.add(tuple(q.shape))
+            b, s, h, hd = q.shape
+            flat = lambda t: t.transpose(1, 2).reshape(b * h, t.shape[1], hd)  # noqa: E731
+            want = flash_ref.flash_attention_ref(flat(q), flat(k), flat(v), scale=scale,
+                                                 causal=causal)
+            err = close(out, want.reshape(b, h, s, hd).transpose(1, 2), 1e-3, BF16_STEP)
+            self.rows.append({"shape": [b, s, h, hd], "max_abs_err": err})
+        return out
+
+    def shapes(self) -> set:
+        return {tuple(r["shape"]) for r in self.rows}
+
+
+def flash_random_rows(shapes, gen, dev) -> list[dict]:
+    """``flash_mha`` on random bf16 q and on k / v drawn as KVH heads and
+    repeated, at each (B, S, H, hd, KVH) of ``shapes``, against
+    ``flash_attention_ref`` within 1e-3 + one bf16 step.  Comparison
+    launches: the caller reads the path's counts before."""
+    import torch
+
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.kernels.flash_attn import ref as flash_ref
+
+    rows = []
+    for b, s, h, hd, kvh in shapes:
+        q = torch.randn(b, s, h, hd, device=dev, generator=gen).bfloat16()
+        k, v = (torch.randn(b, s, kvh, hd, device=dev, generator=gen)
+                .bfloat16().repeat_interleave(h // kvh, dim=2) for _ in "kv")
+        out = flash_ops.flash_mha(q, k, v, hd ** -0.5, True)
+        flat = lambda t: t.transpose(1, 2).reshape(b * h, s, hd)  # noqa: E731
+        want = flash_ref.flash_attention_ref(flat(q), flat(k), flat(v), scale=hd ** -0.5,
+                                             causal=True)
+        err = close(out, want.reshape(b, h, s, hd).transpose(1, 2), 1e-3, BF16_STEP)
+        rows.append({"shape": [b, s, h, hd], "kv_heads": kvh, "max_abs_err": err})
+    return rows
+
+
+def lm_forward_logits(params, cfg, prompt, tokens, dev):
+    """The full-context forward over the prompt and the tokens before the
+    last: its f32 logits at each generated position (row j predicts
+    ``tokens[j]``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import lm
+
+    ctx = torch.as_tensor(np.concatenate([prompt, tokens[:-1]]), device=dev)[None].long()
+    hidden, _ = lm.forward(params, cfg, ctx)
+    return lm.lm_logits(params, cfg, hidden[0, len(prompt) - 1:]).float()
+
+
+def lm_decode_logits(params, cfg, seqs, starts, dev):
+    """``decode_step`` scanned over ``seqs``, one slot each, with per-slot
+    positions (a slot past its end repeats its last token at its last
+    position, as the engine's prefill clamps); returns each slot's f32
+    logits at positions ``starts[i]`` and after."""
+    import torch
+
+    from repro_torch.models import lm
+
+    top = max(map(len, seqs))
+    caches = lm.init_caches(cfg, len(seqs), top, device=dev)
+    out = [[] for _ in seqs]
+    for t in range(top):
+        pos = [min(t, len(s) - 1) for s in seqs]
+        tok = torch.tensor([int(s[p]) for s, p in zip(seqs, pos)], device=dev)
+        caches, logits = lm.decode_step(params, cfg, caches, tok,
+                                        torch.tensor(pos, device=dev))
+        for i, s in enumerate(seqs):
+            if starts[i] <= t < len(s):
+                out[i].append(logits[i].float())
+    return [torch.stack(o) for o in out]
+
+
+def lm_check_decode(params, cfg, prompts, results, dev, label) -> dict:
+    """The greedy streams against the full-context forward (flash_attn on the
+    unwindowed layers) over prompt + generated tokens.  At every generated
+    position of every stream, the logits of ``decode_step`` scanned over
+    the same tokens lie within ``LM_LOGIT_TOL`` of the forward's scale
+    there, and the stream's token is the forward's argmax wherever its
+    top-2 margin exceeds twice that.  A control reads the decode one
+    position late against the forward, which the tolerance must not
+    admit everywhere.  Returns the counts and each stream's margins, in
+    units of the tie margin."""
+    import numpy as np
+
+    uids = sorted(results)
+    seqs = [np.concatenate([prompts[u], results[u].tokens[:-1]]) for u in uids]
+    decoded = lm_decode_logits(params, cfg, seqs, [len(prompts[u]) - 1 for u in uids], dev)
+    positions = near = flips = 0
+    worst = worst_share = 0.0
+    late_beyond = late_n = 0
+    margins = {}
+    for u, dec in zip(uids, decoded):
+        fwd = lm_forward_logits(params, cfg, prompts[u], results[u].tokens, dev)
+        tol = LM_LOGIT_TOL * fwd.abs().amax(-1).clamp(min=1.0)
+        gap = (dec - fwd).abs().amax(-1)
+        j = int((gap / tol).argmax())
+        check(bool((gap <= tol).all()),
+              f"{label}: request {u} position {j}: decode logits {float(gap[j])} "
+              f"from the forward's, beyond {float(tol[j])}")
+        worst, worst_share = max(worst, float(gap.max())), max(worst_share,
+                                                                float((gap / tol).max()))
+        late = (dec[:-1] - fwd[1:]).abs().amax(-1) > tol[1:]
+        late_beyond, late_n = late_beyond + int(late.sum()), late_n + late.numel()
+        top = fwd.topk(2, dim=-1).values
+        margin = ((top[:, 0] - top[:, 1]) / (2 * tol)).cpu().numpy()
+        pred = fwd.argmax(-1).cpu().numpy()
+        margins[u] = margin
+        for j, tok in enumerate(results[u].tokens):
+            positions += 1
+            near += int(margin[j] <= 1)
+            if tok != pred[j]:
+                check(margin[j] <= 1,
+                      f"{label}: request {u} token {j} is {tok}, the forward's "
+                      f"argmax {pred[j]} by {margin[j]} tie margins")
+                flips += 1
+    check(late_beyond > 0, f"{label}: the decode one position late lies within the "
+                           "tolerance everywhere, which so would not show it")
+    return {"positions": positions, "near_ties": near, "tie_flips": flips,
+            "max_logit_gap": worst, "max_gap_of_tolerance": worst_share,
+            "late_by_one_beyond_tolerance": [late_beyond, late_n], "margins": margins}
+
+
+def lm_step_profile(step, params, caches, slots: int, at: int, dev) -> dict:
+    """Host and device time of one decode step over ``slots`` slots (at
+    position ``at`` of ``caches``): the host clock around 5 synchronised
+    steps, and the CUDA kernels' time in a ``torch.profiler`` trace of 5
+    more (0.0 where the trace holds no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    tok = torch.zeros(slots, dtype=torch.long, device=dev)
+    pos = torch.full((slots,), at, dtype=torch.long, device=dev)
+    step(params, caches, tok, pos)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step(params, caches, tok, pos)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / 5
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            step(params, caches, tok, pos)
+        torch.cuda.synchronize()
+    device_us = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    return {"step_wall_ms": wall_ms, "step_device_ms": device_us / 5e3,
+            "device_busy_share": device_us / 5e3 / wall_ms}
+
+
+def lm_same_streams(a: dict, b: dict, margins: dict, label: str) -> int:
+    """Streams ``b`` equal ``a`` (whose forward margins, in tie margins, are
+    ``margins``), except that one may leave ``a`` at a near tie of the
+    forward; returns how many did."""
+    left = 0
+    for uid, res in a.items():
+        x, y = list(res.tokens), list(b[uid].tokens)
+        if x == y:
+            continue
+        j = next(i for i, (p, q) in enumerate(zip(x, y)) if p != q)
+        check(margins[uid][j] <= 1,
+              f"{label}: request {uid} leaves the stream at token {j}, where the "
+              f"forward's margin is {margins[uid][j]} tie margins")
+        left += 1
+    return left
+
+
+def lm_engine_row(step, init, params, cfg, serve: dict, prompts, label, dev,
+                  full: bool, held: FlashHeld) -> dict:
+    """Serve ``prompts`` through ``Engine``: greedy twice (the second run
+    measured) and online (``submit`` / ``drain_ready``), every request
+    answered with its budget, the greedy streams against the forward
+    (``lm_check_decode``, its ``flash_mha`` calls held by ``held``); with
+    ``full`` also at ``max_slots=3`` and sampled, offline and online.
+    Returns the row."""
+    import torch
+
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.serve.engine import Engine, Request, ServeConfig
+
+    reqs = [Request(uid=i, prompt=p) for i, p in enumerate(prompts)]
+
+    def engine(**kw):
+        return Engine(step, init, ServeConfig(**{**serve, **kw}), params=params)
+
+    def answered(results, what):
+        check(sorted(results) == list(range(len(prompts))),
+              f"{label} {what}: {len(results)} of {len(prompts)} answered")
+        for uid, r in results.items():
+            check(len(r.tokens) == serve["max_new_tokens"] or r.finished_by_eos,
+                  f"{label} {what}: request {uid} got {len(r.tokens)} tokens")
+
+    def online(eng):
+        out = {}
+        for i in range(0, len(reqs), eng.admission_cap):
+            eng.submit(reqs[i:i + eng.admission_cap])
+            out.update(eng.drain_ready())
+        out.update(eng.drain_all())
+        return out
+
+    def same(a, b):
+        return all(list(a[u].tokens) == list(b[u].tokens) for u in a)
+
+    torch.cuda.reset_peak_memory_stats()
+    eng = engine()
+    greedy = eng.run(reqs)
+    again = eng.run(reqs)
+    answered(greedy, "greedy")
+    check(same(greedy, again), f"{label}: a second greedy run differs")
+    stats = dict(eng.stats)
+    kv_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(eng._caches))
+    with held:
+        decode = lm_check_decode(params, cfg, prompts, greedy, dev, label)
+    check(same(greedy, online(engine())), f"{label}: online greedy streams differ "
+                                          "from run()")
+    row = {"phase": "lm", "engine": label, "requests": len(prompts),
+           "serve": serve, "tokens_per_s": eng.tokens_per_s(),
+           "warmup_run_tokens_per_s": eng.runs[0]["tokens_per_s"],
+           "ms_per_decode_step": stats["decode_time_s"] * 1e3
+           / (stats["decode_blocks"] * serve["decode_block"]),
+           "ms_per_admission": (stats["wall_time_s"] - stats["decode_time_s"]) * 1e3
+           / stats["prefills"],
+           "utilization": eng.utilization(), "prefills": stats["prefills"],
+           "kv_cache_bytes": kv_bytes,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "decode_vs_forward": {k: v for k, v in decode.items() if k != "margins"}}
+    if full:
+        row["max_slots_3_left_at_near_ties"] = lm_same_streams(
+            greedy, engine(max_slots=3).run(reqs), decode["margins"], label)
+        sampled = engine(**LM_SAMPLED).run(reqs)
+        answered(sampled, "sampled")
+        check(same(sampled, online(engine(**LM_SAMPLED))),
+              f"{label}: online sampled streams differ from run()")
+        check(not same(sampled, greedy), f"{label}: sampled streams equal greedy ones")
+        row["sampled"] = dict(LM_SAMPLED, online_equals_offline=True)
+        row["decode_step_profile"] = lm_step_profile(
+            step, params, eng._caches, serve["max_slots"], serve["max_len"] // 2, dev)
+    return row
+
+
+def phase_lm(dev: str = "cuda") -> dict[str, int]:
+    """The LM substrate on the card at published width: llama3.2-3b's
+    full-context forward (``configs.base.prefill_fn``, flash_attn on all 28
+    layers) at (B, S) = (1, 2048) and (4, 512), held at two layers' depth
+    against the CPU; its slot-pool ``Engine`` serving ``LM_REQUESTS``
+    requests (``lm_engine_row``); then gemma3-12b at one pattern unit of
+    depth (a reduced depth: 6 of 48 layers) serving prompts longer than its
+    1024-token window, so the local layers' ring caches wrap.  Returns the
+    path's launch counts."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.backend import registry
+    from repro_torch.common.tree import tree_map
+    from repro_torch.configs import base as cb
+    from repro_torch.configs import get_arch
+    from repro_torch.nn import init as nninit
+
+    registry.reset_launches()
+    t_phase = time.perf_counter()
+    held = FlashHeld()
+    arch, cfg = get_arch(LM_ARCH), lm_config(LM_ARCH)
+    spec = cb.model_spec(arch, cfg)
+    t0 = time.perf_counter()
+    params = nninit.materialize(spec, torch.Generator(dev).manual_seed(SEED))
+    emit({"phase": "lm", "arch": LM_ARCH, "params": nninit.param_count(spec),
+          "param_bytes": nninit.param_bytes(spec), "param_dtype": "float32",
+          "compute_dtype": "bfloat16", "draw_s": time.perf_counter() - t0})
+    forward = cb.prefill_fn(arch, cfg)
+    gen = torch.Generator("cpu").manual_seed(SEED)
+    for b, s in LM_FORWARD_SHAPES:
+        toks = torch.randint(0, cfg.vocab, (b, s), generator=gen).to(dev)
+        before = registry.LAUNCHES["flash_attn"]
+        with held:
+            logits = forward(params, toks)
+        torch.cuda.synchronize()
+        launches = registry.LAUNCHES["flash_attn"] - before
+        check(launches == cfg.n_layers, f"lm forward {(b, s)}: {launches} flash_attn "
+                                        f"launches, want {cfg.n_layers}")
+        check(tuple(logits.shape) == (b, cfg.vocab) and bool(logits.isfinite().all()),
+              f"lm forward {(b, s)}: logits")
+        ms = cuda_ms(lambda: forward(params, toks), reps=1, samples=5)
+        emit({"phase": "lm", "forward": [b, s], "flash_attn_launches": launches,
+              "ms_per_forward": ms, "tokens_per_s": b * s / ms * 1e3})
+    forward_heads = [(b, s, cfg.n_heads, cfg.hd, cfg.n_kv_heads)
+                     for b, s in LM_FORWARD_SHAPES]
+    # two layers' depth against the CPU on the same parameters
+    cfg2 = dataclasses.replace(cfg, n_layers=LM_CPU_LAYERS)
+    params2 = {**params, "body": tree_map(lambda t: t[:LM_CPU_LAYERS], params["body"])}
+    toks = torch.randint(0, cfg.vocab, LM_CPU_SHAPE, generator=gen)
+    card = cb.prefill_fn(arch, cfg2)(params2, toks.to(dev)).float().cpu()
+    cpu = cb.prefill_fn(arch, cfg2)(interop.to_device(params2, "cpu"), toks).float()
+    err = float((card - cpu).abs().max())
+    tol = LM_LOGIT_TOL * max(1.0, float(cpu.abs().max()))
+    emit({"phase": "lm", "forward_vs_cpu": [LM_CPU_LAYERS, *LM_CPU_SHAPE],
+          "max_abs_err": err, "tolerance": tol, "max_abs_logit": float(cpu.abs().max()),
+          "argmax_equal": bool(torch.equal(card.argmax(-1), cpu.argmax(-1)))})
+    check(err <= tol, f"lm forward at {LM_CPU_LAYERS} layers: card {err} from the "
+                      f"CPU, beyond {tol}")
+    del params2, card, cpu
+
+    step, init = cb.serve_fns(arch, cfg, LM_SERVE["max_len"])
+    prompts = lm_prompts(cfg.vocab, LM_REQUESTS, LM_PROMPTS, SEED)
+    emit(lm_engine_row(step, init, params, cfg, LM_SERVE, prompts, LM_ARCH, dev,
+                       full=True, held=held))
+    del params
+    torch.cuda.empty_cache()
+
+    # the ring-buffer path: gemma3-12b's width, one pattern unit of depth
+    arch, cfg = get_arch(LM_RING_ARCH), lm_config(LM_RING_ARCH)
+    spec = cb.model_spec(arch, cfg)
+    params = nninit.materialize(spec, torch.Generator(dev).manual_seed(SEED))
+    prompts = lm_prompts(cfg.vocab, LM_RING_REQUESTS, LM_RING_PROMPTS, SEED + 1)
+    check(min(map(len, prompts)) > cfg.window, "ring prompts must pass the window")
+    serve = dict(LM_SERVE, max_slots=LM_RING_REQUESTS,
+                 max_len=-(-(LM_RING_PROMPTS[1] + LM_SERVE["max_new_tokens"]) // 64) * 64)
+    step, init = cb.serve_fns(arch, cfg, serve["max_len"])
+    before = registry.LAUNCHES["flash_attn"]
+    row = lm_engine_row(step, init, params, cfg, serve, prompts,
+                        f"{LM_RING_ARCH}[{LM_RING_LAYERS} layers]", dev, full=False,
+                        held=held)
+    row.update(params=nninit.param_count(spec), param_bytes=nninit.param_bytes(spec),
+               window=cfg.window, prompt_lens=[len(p) for p in prompts],
+               flash_attn_launches=registry.LAUNCHES["flash_attn"] - before)
+    emit(row)
+    del params
+    torch.cuda.empty_cache()
+    counts = dict(registry.LAUNCHES)
+    check(counts["flash_attn"] > 0, "flash_attn was not launched on the lm path")
+    # the kernel at the shapes this path gave it: every forward shape and
+    # the global layer's (head dim 256) were held above; the same shapes
+    # again on random inputs (comparison launches, after the counts)
+    global_heads = sorted((*x, cfg.n_kv_heads) for x in held.shapes()
+                          if x[2:] == (cfg.n_heads, cfg.hd))
+    for shape in forward_heads:
+        check(shape[:4] in held.shapes(), f"lm: no flash_attn call at {shape[:4]} "
+                                          "was held")
+    check(len(global_heads) > 0, "lm: no flash_attn call of the global layer was held")
+    gen = torch.Generator(dev).manual_seed(SEED + 2)
+    emit({"phase": "lm", "flash_attn_held": [[*r["shape"], r["max_abs_err"]]
+                                             for r in held.rows],
+          "flash_attn_random": flash_random_rows(forward_heads + global_heads[-1:],
+                                                 gen, dev)})
+    emit({"phase": "lm_done", "seconds": time.perf_counter() - t_phase,
+          "launches": counts})
+    return counts
+
+
 # the other rows a kernel's entry of the ``kernels`` line carries, under
 # these keys: circ_conv at NVSA's served bucket, circ_dict corr and bf16,
 # unbind_classify at d = 256, simd_fused bf16, at d = 128 and at M = 1024,
@@ -1841,6 +2296,7 @@ def main() -> int:
     paths["replica"] = phase_replica()
     paths["trace"] = phase_trace(dep)
     paths["ops"] = phase_ops()
+    paths["lm"] = phase_lm()
     emit({"phase": "launches_by_path", **paths})
     kernels = []
     for name, spec in registry.KERNELS.items():

@@ -1,6 +1,14 @@
-"""The reasoning-workload registry and the engine constructors.
+"""The arch adapter, the reasoning-workload registry and the engine
+constructors.
 
-The port of the NSAI part of ``repro.configs.base``.  Each
+The port of ``repro.configs.base``.  ``ArchSpec`` is the uniform adapter of
+the LM architectures (``configs/registry.py:ARCHS``): ``model_spec``,
+``prefill_fn`` (the full-context forward, last-token logits),
+``decode_fn``, ``serve_fns`` (the ``Engine``'s decode step and cache
+allocator) and ``lm_engine``.  The port has the ``lm`` kind only (the dense
+GQA decoders); the other kinds raise, naming ROADMAP Queue 1 #4.
+
+For NSAI reasoning, each
 :class:`ReasonWorkload` entry declares how a workload serves: its stage
 functions (with nn / vsa / simd stream tags), the staged-batch input specs,
 its constants, and request ingest / collect adapters.
@@ -26,6 +34,7 @@ from repro_torch import interop
 from repro_torch.backend import registry
 from repro_torch.core import workloads
 from repro_torch.data import raven
+from repro_torch.models import lm as lm_mod
 from repro_torch.models import lvrf as lv
 from repro_torch.models import mimonet as mm
 from repro_torch.models import nvsa as nv
@@ -34,6 +43,113 @@ from repro_torch.nn import init as nninit
 from repro_torch.serve import schedule as sch
 from repro_torch.serve.reason import ReasonConfig, ReasonEngine, ReasonRequest
 from repro_torch.serve.schedule import StageSpec, TensorSpec
+
+
+# ---------------------------------------------------------------------------
+# LM architectures: the ArchSpec adapter
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchSpec:
+    """The reference's ``ArchSpec`` without ``fsdp`` and ``opt_8bit``, the
+    sharding and optimizer switches that wait for Queue 1 #5 and #6."""
+
+    id: str
+    family: str                   # moe | dense | ssm | hybrid | vlm | audio
+    kind: str                     # lm | rwkv | griffin | vlm | encdec
+    make_full: Callable[[], Any]
+    make_smoke: Callable[[], Any]
+    supports_long: bool = False
+    note: str = ""
+    source: str = ""
+
+
+def _mod(kind: str):
+    if kind == "lm":
+        return lm_mod
+    if kind in ("rwkv", "griffin", "vlm", "encdec"):
+        raise NotImplementedError(
+            f"arch kind {kind!r} is not ported yet (ROADMAP Queue 1 #4: "
+            "nn/ssm.py, rwkv6, griffin, encdec and vlm)")
+    raise ValueError(kind)
+
+
+def model_spec(arch: ArchSpec, cfg):
+    return _mod(arch.kind).lm_spec(cfg)
+
+
+def prefill_fn(arch: ArchSpec, cfg):
+    """Full-context forward returning last-token logits (inference
+    prefill); every unwindowed layer runs the ``flash_attn`` kernel."""
+    m = _mod(arch.kind)
+
+    def f(params, tokens):
+        hidden, _ = m.forward(params, cfg, tokens)
+        return m.lm_logits(params, cfg, hidden[:, -1:])[:, 0]
+
+    return f
+
+
+def decode_fn(arch: ArchSpec, cfg):
+    m = _mod(arch.kind)
+
+    def f(params, caches, token, pos):
+        return m.decode_step(params, cfg, caches, token, pos)
+
+    return f
+
+
+def serve_fns(arch: ArchSpec, cfg, max_len: int):
+    """(decode_step, init_caches) pair for the continuous-batching
+    ``Engine``: ``decode_step`` takes a per-slot (B,) position vector (or
+    an int); ``init_caches(batch, device)`` allocates zeroed KV caches of
+    ``max_len`` per slot on ``device``."""
+    m = _mod(arch.kind)
+    step = decode_fn(arch, cfg)
+
+    def init(batch: int, device=None):
+        return m.init_caches(cfg, batch, max_len, device=device)
+
+    return step, init
+
+
+def lm_engine(arch_id: str, serve_cfg=None, key=None, device=None):
+    """Draw a smoke-scale arch and wrap it in the slot-pool LM ``Engine``
+    with params bound, the LM counterpart of ``reason_engine``.  Returns
+    ``(engine, model_cfg)`` (callers need ``model_cfg.vocab`` for token
+    traffic).
+
+    ``key`` is a ``torch.Generator`` (None = seed 0 on ``device``); the
+    parameters are drawn on its device and moved to ``device`` (None =
+    ``"cuda"``; raises without CUDA unless ``"cpu"``).  The reference's
+    ``tp`` (tensor-parallel decode) waits for ROADMAP Queue 1 #6."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    dev = registry.resolve_device(device)
+    arch = get_arch(arch_id)
+    cfg = arch.make_smoke()
+    serve_cfg = serve_cfg or ServeConfig()
+    gen = key if key is not None else torch.Generator(dev).manual_seed(0)
+    params = interop.to_device(nninit.materialize(model_spec(arch, cfg), gen), dev)
+    step, init_caches = serve_fns(arch, cfg, max_len=serve_cfg.max_len)
+    return Engine(step, init_caches, serve_cfg, params=params), cfg
+
+
+def param_count(arch: ArchSpec, cfg) -> int:
+    return nninit.param_count(model_spec(arch, cfg))
+
+
+def active_param_count(arch: ArchSpec, cfg) -> int:
+    """Parameters active per token (for MODEL_FLOPS = 6·N_active·D).  The
+    port has no MoE (Queue 1 #4), so every parameter is active."""
+    return param_count(arch, cfg)
+
+
+# ---------------------------------------------------------------------------
+# NSAI reasoning traffic: the workload registry
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)

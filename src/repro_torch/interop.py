@@ -5,7 +5,9 @@ numpy arrays (``{"params": ..., "books": {"books", "shifts", "roles"}}``
 for NVSA), into the port's tensors on a device.  It is exact: it converts
 dtype and layout only.  The one layout change is the conv weight: a 4-D
 leaf under the key ``"w"`` is an HWIO kernel and becomes OIHW.  Other 4-D
-leaves (LVRF's rule codebook, (A, R, B, d)) keep their layout.
+leaves (LVRF's rule codebook, (A, R, B, d); an LM's stacked ``wq`` / ``wk``
+/ ``wv`` / ``wo``) keep their layout, and an LM's stacked dense ``w`` leaves
+are 3-D, so LM trees carry over with their dtype the only change.
 
 ``save_npz`` / ``load_npz`` keep such a tree in one ``.npz`` file, its
 leaves under ``/``-joined keys (``books/books/0``; an all-digit part is a

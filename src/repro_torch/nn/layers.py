@@ -1,7 +1,10 @@
-"""Layers of the NVSA frontend: dense, conv, eval-mode batchnorm, pooling.
+"""Layers: dense, embedding, norms, RoPE, activations, MLP blocks (the LM
+substrate) and conv, eval-mode batchnorm, pooling (the NVSA frontend).
 
 Each layer is a pair (``<name>_spec`` -> P tree, ``<name>`` apply fn) like
-``repro.nn.layers``.  Activations keep the reference's NHWC layout at every
+``repro.nn.layers``.  The LM layers keep the reference's arithmetic: norms
+in f32, RoPE angles in f32 with the rotate-half layout (not interleaved
+pairs), and GELU in its tanh form, which ``jax.nn.gelu`` takes by default.  Activations keep the reference's NHWC layout at every
 public function.  Conv weights are OIHW (``repro_torch.interop`` converts
 the reference's HWIO once); inside, an NHWC tensor is handed to
 ``F.conv2d`` as a channels-last NCHW view, so no copy is made.
@@ -35,6 +38,117 @@ def dense(params, x: torch.Tensor, compute_dtype=torch.float32) -> torch.Tensor:
     if "b" in params:
         y = y + params["b"].to(compute_dtype)
     return y
+
+
+def embedding_spec(vocab: int, d: int, dtype=torch.float32):
+    return {"table": P((vocab, d), ("vocab", "embed"), init="normal", scale=0.02,
+                       dtype=dtype)}
+
+
+def embedding(params, ids: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Rows of the table, cast after the gather (the same values as the
+    reference's cast-then-gather, without casting the whole table)."""
+    return params["table"][ids].to(compute_dtype)
+
+
+def logits(params, x: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Tied-embedding readout: x @ table.T"""
+    return x.to(compute_dtype) @ params["table"].to(compute_dtype).T
+
+
+def rmsnorm_spec(d: int, dtype=torch.float32):
+    return {"scale": P((d,), ("embed",), init="ones", dtype=dtype)}
+
+
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6, offset: float = 0.0) -> torch.Tensor:
+    """``offset=1`` is gemma's (1 + w) scale."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps) * (offset + params["scale"].float())
+    return y.to(x.dtype)
+
+
+def layernorm_spec(d: int, dtype=torch.float32):
+    return {
+        "scale": P((d,), ("embed",), init="ones", dtype=dtype),
+        "bias": P((d,), ("embed",), init="zeros", dtype=dtype),
+    }
+
+
+def layernorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * params["scale"].float() + params["bias"].float()
+    return y.to(x.dtype)
+
+
+def rope_freqs(head_dim: int, base: float = 10000.0, device=None) -> torch.Tensor:
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (base ** exponent)  # (head_dim//2,)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, base: float = 10000.0,
+               rotary_dim: int | None = None) -> torch.Tensor:
+    """Rotary embedding, rotate-half layout.
+
+    x: (..., seq, heads, head_dim); positions: broadcastable to (..., seq).
+    ``rotary_dim`` < head_dim rotates the first ``rotary_dim`` features only
+    (StableLM's partial rotary).
+    """
+    head_dim = x.shape[-1]
+    rd = rotary_dim if rotary_dim is not None else head_dim
+    xr, xp = x[..., :rd], x[..., rd:]
+    freqs = rope_freqs(rd, base, device=x.device)
+    angles = positions[..., None].float() * freqs  # (..., seq, rd//2)
+    angles = angles[..., None, :]                  # broadcast over heads
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = xr[..., : rd // 2], xr[..., rd // 2:]
+    rotated = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+    return torch.cat([rotated, xp], dim=-1) if rd < head_dim else rotated
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    return F.silu(gate) * up
+
+
+def geglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    return gelu(gate) * up
+
+
+def relu_sq(x: torch.Tensor) -> torch.Tensor:
+    return torch.square(F.relu(x))
+
+
+def glu_mlp_spec(d_model: int, d_ff: int, dtype=torch.float32):
+    return {
+        "gate": dense_spec(d_model, d_ff, ("embed", "mlp"), dtype=dtype),
+        "up": dense_spec(d_model, d_ff, ("embed", "mlp"), dtype=dtype),
+        "down": dense_spec(d_ff, d_model, ("mlp", "embed"), dtype=dtype),
+    }
+
+
+def glu_mlp(params, x: torch.Tensor, act=swiglu, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    g = dense(params["gate"], x, compute_dtype)
+    u = dense(params["up"], x, compute_dtype)
+    return dense(params["down"], act(g, u), compute_dtype)
+
+
+def mlp_spec(d_model: int, d_ff: int, dtype=torch.float32, bias: bool = False):
+    return {
+        "up": dense_spec(d_model, d_ff, ("embed", "mlp"), bias=bias, dtype=dtype),
+        "down": dense_spec(d_ff, d_model, ("mlp", "embed"), bias=bias, dtype=dtype),
+    }
+
+
+def mlp(params, x: torch.Tensor, act=gelu, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    return dense(params["down"], act(dense(params["up"], x, compute_dtype)), compute_dtype)
 
 
 def conv2d_spec(c_in: int, c_out: int, k: int, dtype=torch.float32,

@@ -8,8 +8,9 @@ reasoners: the staged NSAI ``ReasonEngine`` (``serve.reason``), data-parallel
 records the device's kernel ``LoweringPlan`` (``serve.deploy``),
 golden-trace record/replay (``serve.trace``), the overload control plane
 (``serve.control`` / ``serve.slo``) and the simulated engine of the
-control-plane soak (``serve.sim``).  Exported under the reference's names;
-the LM ``Engine`` is not ported yet (ROADMAP Queue 1 #4).
+control-plane soak (``serve.sim``).  Exported under the reference's names.
+The slot-pool LM ``Engine`` (``serve.engine``) serves on its own; the front
+door's LM traffic class waits for ROADMAP Queue 1 #4.
 """
 
 from repro_torch.serve.control import (ClassQueues, ControlConfig,

@@ -39,8 +39,8 @@ ROADMAP item, and is never ignored: a ``Budget`` with ``devices``,
 co-search, Queue 1 #3d and #6), ``preflight=`` other than ``"off"`` (the
 analyzer, #7).  ``backend=`` other than None raises too, by design (#3e):
 the device selects each kernel, and no plan may send a CUDA tensor to a
-plain version.  An LM model name raises ``KeyError`` (the LM substrate,
-#4).
+plain version.  An LM model name raises ``KeyError`` (LM models in
+``deploy``, #4).
 """
 
 from __future__ import annotations
@@ -83,7 +83,7 @@ class Budget:
     which the port does not have yet: a value above 1 (or
     ``replicas="auto"``) raises ``NotImplementedError``.  The reference's
     LM fields (slot pool, KV length, decode block, generation budget) wait
-    for the LM substrate (ROADMAP Queue 1 #4)."""
+    for LM models in ``deploy`` (ROADMAP Queue 1 #4)."""
 
     max_pes: int = 4096           # AdArray PE budget handed to the DSE
     max_batch: int = 8            # admission-group ceiling (NSAI buckets)

@@ -3,9 +3,9 @@
 The port's copy of ``repro.serve.frontdoor`` (numpy and plain Python).  It
 drives engines only through the ``EngineProtocol`` surface, so it is the
 reference's policy unchanged, the per-replica breakdown of a
-``ReplicaPool`` included.  The port serves the four reasoners: the
-reference's LM token accounting waits for the LM substrate (ROADMAP
-Queue 1 #4).
+``ReplicaPool`` included.  It serves the four reasoners: the front door's
+LM traffic class, with the reference's LM token accounting, waits for
+ROADMAP Queue 1 #4.
 
 NSFlow's pitch is *real-time* NSAI acceleration, but an engine that only
 accepts pre-collected request lists (``ReasonEngine.run`` / ``Engine.run``)

@@ -10,9 +10,11 @@ registry of traffic classes
 (:data:`TRAFFIC_CLASSES`, :func:`resolve_models`) that ``serve.deploy``
 validates its model list against.
 
-The port serves the four reasoners of ``configs.base.REASON_WORKLOADS``.
-It has no LM engine yet: an LM arch id of the reference, or the ``lm``
-traffic class, raises ``KeyError`` naming ROADMAP Queue 1 #4.
+The registry serves the four reasoners of ``configs.base.REASON_WORKLOADS``.
+The port's LM ``Engine`` (``serve.engine``, built by
+``configs.base.lm_engine``) runs on its own; it is not a traffic class of
+the registry yet, so an LM arch id of the reference, or the ``lm`` class,
+raises ``KeyError`` naming ROADMAP Queue 1 #4.
 """
 
 from __future__ import annotations
@@ -134,15 +136,15 @@ def engine_observation(engine: Any) -> dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 #: The reference's servable LM arch ids (kinds lm / rwkv / griffin).  The
-#: port has no LM engine for them yet (ROADMAP Queue 1 #4).
+#: registry takes no LM traffic yet (ROADMAP Queue 1 #4).
 LM_MODELS_NOT_PORTED: tuple[str, ...] = (
     "deepseek-v3-671b", "gemma3-12b", "granite-moe-1b-a400m", "llama3.2-3b",
     "recurrentgemma-9b", "rwkv6-7b", "stablelm-3b", "starcoder2-3b")
 
 
 def _lm_not_ported(what: str) -> KeyError:
-    return KeyError(f"{what}: the port has no LM engine yet "
-                    "(ROADMAP Queue 1 #4, the LM substrate)")
+    return KeyError(f"{what}: the port's runtime registry has no LM traffic "
+                    "class yet (ROADMAP Queue 1 #4, the LM substrate)")
 
 
 def _reason_model_ids() -> tuple[str, ...]:

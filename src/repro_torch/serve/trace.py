@@ -34,7 +34,7 @@ digests.  Each package loads the other's files.
 The port takes no lowering override (ROADMAP Queue 1 #3e): ``backend`` is
 None or a :class:`~repro_torch.backend.registry.LoweringPlan`, whose
 platform says where a fresh deployment runs; a string raises.  Traces of
-the ``lm`` class wait for the LM substrate (#4).
+the ``lm`` class wait for LM models in ``deploy`` (#4).
 """
 
 from __future__ import annotations
@@ -71,8 +71,8 @@ _LM_BUDGET = {"max_slots": 4, "max_len": 128, "decode_block": 8,
 
 
 def _lm_not_ported(what: str) -> KeyError:
-    return KeyError(f"{what}: the port has no LM engine yet "
-                    "(ROADMAP Queue 1 #4, the LM substrate)")
+    return KeyError(f"{what}: the port records and replays no lm-class "
+                    "traces yet (ROADMAP Queue 1 #4, the LM substrate)")
 
 
 # ---------------------------------------------------------------------------
@@ -151,8 +151,8 @@ def _port_budget(fields: dict):
         value = fields.pop(name, default)
         if value != default:
             raise NotImplementedError(
-                f"Budget({name}={value!r}): an LM budget field; the port has "
-                "no LM engine yet (ROADMAP Queue 1 #4)")
+                f"Budget({name}={value!r}): an LM budget field; the port's "
+                "deploy() takes no LM models yet (ROADMAP Queue 1 #4)")
     return Budget(**fields)
 
 
