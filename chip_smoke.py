@@ -30,8 +30,9 @@ and prints no result line):
    row with its cluster size S and, where S > 1, the device time of the
    same launch at S = 1) and ``flash_attn`` (``flash_mha`` at
    llama3.2-3b's (1, 2048, 24, 128), causal, within 2e-5 at f32 and 1e-3 +
-   one bf16 step at bf16, both on the tensor cores; also Sq = 100 against
-   Skv = 300 and S = 1000 at both dtypes; at S = 2048 f32 also the error
+   one bf16 step at bf16, both on the tensor cores, and at granite-moe's
+   (1, 2048, 16, 64) at bf16; also Sq = 100 against Skv = 300 and S = 1000
+   at both dtypes; at S = 2048 f32 also the error
    of one tf32 product per f32 product, the split dropped, which must
    exceed the 2e-5), each beside its library call (FFT chain;
    normalize, matmul, softmax; PyTorch's scaled_dot_product_attention,
@@ -131,7 +132,7 @@ and prints no result line):
    within 1e-3 + one bf16 step.  Its slot-pool ``Engine``
    (``serve_fns``, ``ServeConfig(max_slots=8, max_len=512,
    max_new_tokens=32, decode_block=8, prefill_bucket=16)``) serving 16
-   ``SyntheticTokens`` prompts of 16-256 tokens: greedy twice (the second
+   ``SyntheticTokens`` prompts of 16-128 tokens: greedy twice (the second
    run measured), online ``submit`` / ``drain_ready`` equal to ``run()``,
    the same streams at ``max_slots=3`` but where they leave at a near tie,
    sampled (temperature 0.8, top-k 50) offline equal to online, every
@@ -146,10 +147,43 @@ and prints no result line):
    ``max_memory_allocated``.  Then gemma3-12b at its width and one pattern
    unit of depth (a reduced depth: 6 of its 48 layers, 5 local with window
    1024 and 1 global, 2.35B parameters) serving 4 greedy prompts of
-   1100-1300 tokens, so the local layers' ring caches wrap, with the same
+   1040-1120 tokens, so the local layers' ring caches wrap, with the same
    checks against its forward (plain windowed attention on the local
-   layers, flash_attn on the global one).
-11. The ``kernels`` JSON line: every ported kernel with its launches on the
+   layers, flash_attn on the global one).  Then the MoE / MLA archs:
+   granite-moe-1b-a400m at its published width (24 layers, d 1024, 32
+   experts top-8, GQA 16 / 8 heads of 64, 1.33B f32 parameters) and
+   deepseek-v3-671b at its width cut to 4 layers (its 3 dense layers and
+   its first MoE layer: 256 experts top-8 and a shared one, MLA, bf16
+   parameters, the MTP head drawn): the forward at (1, 2048) (granite also
+   (4, 512)) at the published capacity factor, flash_attn once per GQA
+   layer (head dim 64, each shape held against its plain version) and
+   none on MLA; the first MoE layer's routing of 2048 tokens on the card
+   against the CPU (experts outside router near ties, queue positions and
+   kept pairs exact) and its gather path against the one-hot oracle; then
+   the slot-pool engine (granite 8 slots of 512, greedy and sampled;
+   deepseek 4 of 256) on a dropless capacity (``dropless``), its greedy
+   tokens the argmax of ``decode_step`` scanned as the engine runs it
+   outside near ties, and that scan, each MoE layer's experts forced to
+   those the forward chose (``RoutesHeld``), within 3e-2 of the forward's
+   scale at every generated position (``lm_check_decode`` given the
+   engine's ``serve``).  Parameter, KV and peak bytes.
+11. Door LM: LM traffic behind the front door.  A door built by hand over
+   llama3.2-3b at its published width and an nvsa cnn fp32 engine at
+   d = 256, 16 LM requests (16-64-token prompts, 16 new tokens, greedy)
+   and 64 nvsa requests in one Poisson feed, each model at half its
+   sequential rate measured just before: every stream equal to the same
+   engine's offline run, held against the forward as in phase 10, every
+   nvsa answer equal to its group's replay at the same bucket; rows of
+   tokens/s and problems/s, p50 / p95 queue and service ms, close
+   reasons.  Then ``deploy(["nvsa", "llama3.2-3b"])`` at
+   the reference's smoke scale, warmed up, 8 requests a model recorded as
+   a golden trace and replayed through the same and a fresh card
+   deployment, tokens and answers exact.  The path's launches are those
+   of the door's serve, the recorded serve and the replays: circ_conv
+   only, since the LM engine admits prompts through ``decode_step`` token
+   by token, as the reference's does (the decode check's forwards launch
+   flash_attn, uncounted).
+12. The ``kernels`` JSON line: every ported kernel with its launches on the
    paths (each path's counts set to 0 just before it runs and read just
    after) and its times at its path's shape, its bound and the units the
    bound counts; entries carry other rows (``SUB_ROWS``): ``circ_conv``
@@ -157,9 +191,9 @@ and prints no result line):
    ``circ_dict`` corr and bf16 at (256, 16, 4, 256), ``unbind_classify``
    (8, 2, 4, 256, 5) under ``d256``, ``simd_fused`` bf16, (67, 5, 4, 128)
    under ``d128`` and (64, 1024, 4, 256) under ``m1024``, ``flash_attn``
-   bf16 at the same shape
+   bf16 at the same shape and bf16 at (1, 2048, 16, 64) under ``hd64``
    (ms, device_ms, library_ms, bound_ms, bound_units, max_abs_err).
-12. The last line: ``{"ok": true, "device": {...}}``.
+13. The last line: ``{"ok": true, "device": {...}}``.
 
 It needs the repository's ``src/`` beside it and a CUDA device; without
 either it exits with code 2.
@@ -727,14 +761,16 @@ def flash_kernel_rows(gen) -> dict:
     from repro_torch.kernels.flash_attn import ref as flash_ref
 
     main = {}
-    b, h, hd = 1, 24, 128
-    scale = hd ** -0.5
-    for sq, skv, causal, dtype in ((2048, 2048, True, torch.float32),
-                                   (2048, 2048, True, torch.bfloat16),
-                                   (100, 300, True, torch.float32),
-                                   (100, 300, True, torch.bfloat16),
-                                   (1000, 1000, True, torch.float32),
-                                   (1000, 1000, True, torch.bfloat16)):
+    b = 1
+    # llama3.2-3b's 24 heads of 128, and granite-moe's 16 heads of 64
+    for sq, skv, causal, dtype, h, hd in ((2048, 2048, True, torch.float32, 24, 128),
+                                          (2048, 2048, True, torch.bfloat16, 24, 128),
+                                          (100, 300, True, torch.float32, 24, 128),
+                                          (100, 300, True, torch.bfloat16, 24, 128),
+                                          (1000, 1000, True, torch.float32, 24, 128),
+                                          (1000, 1000, True, torch.bfloat16, 24, 128),
+                                          (2048, 2048, True, torch.bfloat16, 16, 64)):
+        scale = hd ** -0.5
         q = torch.randn(b, sq, h, hd, device="cuda", generator=gen).to(dtype)
         k = torch.randn(b, skv, h, hd, device="cuda", generator=gen).to(dtype)
         v = torch.randn(b, skv, h, hd, device="cuda", generator=gen).to(dtype)
@@ -749,7 +785,7 @@ def flash_kernel_rows(gen) -> dict:
         # SDPA's is_causal is aligned at position 0 too (tril of ones(Sq, Skv))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
-        def sdpa(qt=qt, kt=kt, vt=vt, causal=causal):
+        def sdpa(qt=qt, kt=kt, vt=vt, causal=causal, scale=scale):
             return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                   scale=scale)
 
@@ -780,7 +816,9 @@ def flash_kernel_rows(gen) -> dict:
                   f"{row['single_tf32_max_abs_err']} is within the f32 limit "
                   f"{FLASH_F32_ATOL}, which so would not show a lost split")
         emit(row)
-        if sq == 2048:
+        if sq == 2048 and hd == 64:
+            main["flash_attn_hd64"] = row
+        elif sq == 2048:
             main["flash_attn" if dtype == torch.float32 else "flash_attn_bf16"] = row
     return main
 
@@ -1852,15 +1890,35 @@ LM_LOGIT_TOL = 3e-2     # of the logits' scale: 3e-2 x max(1, max |logit|)
 # at most twice that (a near tie, counted)
 LM_SERVE = dict(max_slots=8, max_len=512, max_new_tokens=32, decode_block=8,
                 prefill_bucket=16)
-LM_REQUESTS, LM_PROMPTS = 16, (16, 256)
+LM_REQUESTS, LM_PROMPTS = 16, (16, 128)
 LM_SAMPLED = dict(temperature=0.8, top_k=50)
 LM_RING_ARCH, LM_RING_LAYERS = "gemma3-12b", 6   # one 5:1 local:global unit
-LM_RING_REQUESTS, LM_RING_PROMPTS = 4, (1100, 1300)
+LM_RING_REQUESTS, LM_RING_PROMPTS = 4, (1040, 1120)
+# the MoE / MLA archs: granite-moe at its published width (GQA at head dim
+# 64 on flash_attn), deepseek-v3 at its width cut to its 3 dense layers and
+# its first MoE layer (MLA on the plain attention, bf16 parameters, the MTP
+# head drawn)
+LM_MOE_ARCHS = ("granite-moe-1b-a400m", "deepseek-v3-671b")
+LM_MLA_LAYERS = 4
+LM_MOE_FORWARDS = {"granite-moe-1b-a400m": ((1, 2048), (4, 512)),
+                   "deepseek-v3-671b": ((1, 2048),)}
+LM_MOE_SERVE = {"granite-moe-1b-a400m": dict(LM_SERVE, max_new_tokens=16),
+                "deepseek-v3-671b": dict(LM_SERVE, max_slots=4, max_len=256,
+                                         max_new_tokens=24)}
+LM_MOE_REQUESTS = {"granite-moe-1b-a400m": (8, (16, 64)),
+                   "deepseek-v3-671b": (8, (16, 32))}
+# the routing check at the published capacity: 2048 tokens, 32 distinct
+# ones repeated, so that experts overflow (random distinct tokens spread
+# evenly over the experts and drop nothing at a capacity factor of 1.25)
+LM_MOE_TOKENS, LM_MOE_DISTINCT = 2048, 32
+LM_PEAK_LIMIT = 70e9    # max_memory_allocated of deepseek-v3's run
 
 
 def lm_config(arch_id: str):
     """The published width of ``arch_id``; gemma3-12b cut to one pattern unit
-    of depth (6 of its 48 layers: 5 local with window 1024, 1 global)."""
+    of depth (6 of its 48 layers: 5 local with window 1024, 1 global),
+    deepseek-v3-671b to ``LM_MLA_LAYERS`` (its 3 dense layers and 1 MoE
+    layer of 61)."""
     import dataclasses
 
     from repro_torch.configs import get_arch
@@ -1868,7 +1926,23 @@ def lm_config(arch_id: str):
     cfg = get_arch(arch_id).make_full()
     if arch_id == LM_RING_ARCH:
         cfg = dataclasses.replace(cfg, n_layers=LM_RING_LAYERS)
+    if arch_id == "deepseek-v3-671b":
+        cfg = dataclasses.replace(cfg, n_layers=LM_MLA_LAYERS)
     return cfg
+
+
+def dropless(cfg):
+    """``cfg`` with a capacity factor of n_experts / top_k, where every expert
+    takes every token routed to it (capacity >= the tokens of the call), as
+    both MoE archs serve upstream.  The engine and the decode check run
+    there: at the published 1.25 a token's output depends on the other
+    tokens of its call (who fills an expert first), so neither a slot pool
+    nor a forward against a decode would compute the same function."""
+    import dataclasses
+
+    moe = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        moe, capacity_factor=moe.n_experts / moe.top_k))
 
 
 def lm_prompts(vocab: int, n: int, lens: tuple[int, int], seed: int):
@@ -1961,77 +2035,170 @@ def lm_forward_logits(params, cfg, prompt, tokens, dev):
     return lm.lm_logits(params, cfg, hidden[0, len(prompt) - 1:]).float()
 
 
-def lm_decode_logits(params, cfg, seqs, starts, dev):
+def lm_decode_logits(params, cfg, seqs, starts, dev, batch=None, cache_len=None):
     """``decode_step`` scanned over ``seqs``, one slot each, with per-slot
     positions (a slot past its end repeats its last token at its last
     position, as the engine's prefill clamps); returns each slot's f32
-    logits at positions ``starts[i]`` and after."""
+    logits at positions ``starts[i]`` and after.  ``batch`` / ``cache_len``
+    (default: one slot per sequence, the longest sequence) give the scan an
+    engine's slot count and KV length, so that it computes what that engine
+    computes; sequences then go ``batch`` at a time."""
     import torch
 
     from repro_torch.models import lm
 
+    if batch is not None and len(seqs) > batch:
+        return [x for i in range(0, len(seqs), batch)
+                for x in lm_decode_logits(params, cfg, seqs[i:i + batch],
+                                          starts[i:i + batch], dev, batch, cache_len)]
     top = max(map(len, seqs))
-    caches = lm.init_caches(cfg, len(seqs), top, device=dev)
+    seqs = list(seqs) + [seqs[0]] * ((batch or len(seqs)) - len(seqs))
+    caches = lm.init_caches(cfg, len(seqs), cache_len or top, device=dev)
     out = [[] for _ in seqs]
     for t in range(top):
         pos = [min(t, len(s) - 1) for s in seqs]
         tok = torch.tensor([int(s[p]) for s, p in zip(seqs, pos)], device=dev)
         caches, logits = lm.decode_step(params, cfg, caches, tok,
                                         torch.tensor(pos, device=dev))
-        for i, s in enumerate(seqs):
+        for i, s in enumerate(seqs[:len(starts)]):
             if starts[i] <= t < len(s):
                 out[i].append(logits[i].float())
-    return [torch.stack(o) for o in out]
+    return [torch.stack(o) for o in out[:len(starts)]]
 
 
-def lm_check_decode(params, cfg, prompts, results, dev, label) -> dict:
+class RoutesHeld:
+    """While open, wraps ``moe.route``: each call's experts (T, k), as
+    chosen, are recorded on the host in call order; and where ``forced``
+    gives a call's experts (a (T, k) tensor, rows of -1 left alone), those
+    replace the call's own choice, their weights taken from the call's own
+    router probabilities as ``route`` takes them.  ``changed`` counts the
+    (token, layer) choices so replaced by other experts."""
+
+    def __init__(self, forced: list | None = None):
+        self.calls: list = []
+        self.forced = forced
+        self.changed = 0
+
+    def __enter__(self):
+        from repro_torch.nn import moe
+
+        self._moe, self._route = moe, moe.route
+        moe.route = self._held
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._route
+
+    def _held(self, params, cfg, x):
+        import torch
+
+        w, idx, probs = self._route(params, cfg, x)
+        if self.forced is not None:
+            want = self.forced[len(self.calls)].to(idx.device)
+            keep = (want < 0).all(-1, keepdim=True)
+            new = torch.where(keep, idx, want)
+            self.changed += int((new.sort(-1).values != idx.sort(-1).values)
+                                .any(-1).sum())
+            idx = new
+            w = probs.gather(-1, idx)
+            if cfg.router_norm_topk:
+                w = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9)
+        self.calls.append(idx.cpu())
+        return w, idx, probs
+
+
+def lm_check_decode(params, cfg, prompts, results, dev, label,
+                    serve: dict | None = None) -> dict:
     """The greedy streams against the full-context forward (flash_attn on the
     unwindowed layers) over prompt + generated tokens.  At every generated
     position of every stream, the logits of ``decode_step`` scanned over
     the same tokens lie within ``LM_LOGIT_TOL`` of the forward's scale
-    there, and the stream's token is the forward's argmax wherever its
-    top-2 margin exceeds twice that.  A control reads the decode one
-    position late against the forward, which the tolerance must not
-    admit everywhere.  Returns the counts and each stream's margins, in
-    units of the tie margin."""
+    there, and the stream's token is the argmax wherever its top-2 margin
+    exceeds twice that (near ties counted).  A control reads the decode one
+    position late against the forward, which the tolerance must not admit
+    everywhere.
+
+    A MoE arch passes its engine's ``serve``.  Routing is discrete: a
+    last-bit difference between two bf16 computations of a token's hidden
+    state can send it to another expert, and then the two part by far more
+    than a bf16 step, for that token and every later one.  So the scan runs
+    at the engine's slot count and KV length, computing what the engine
+    computes, and the tokens are held to that scan's argmax; the scan is
+    then run again with each MoE layer's experts for each token forced to
+    those the forward chose (``RoutesHeld``; the weights stay the scan's
+    own), and that forced scan is what is held against the forward.  The
+    (token, layer) choices the forcing changed are counted.  Returns the
+    counts and each stream's margins, in units of the tie margin."""
     import numpy as np
+    import torch
 
     uids = sorted(results)
     seqs = [np.concatenate([prompts[u], results[u].tokens[:-1]]) for u in uids]
-    decoded = lm_decode_logits(params, cfg, seqs, [len(prompts[u]) - 1 for u in uids], dev)
+    starts = [len(prompts[u]) - 1 for u in uids]
+    scan = {} if serve is None else dict(batch=serve["max_slots"],
+                                         cache_len=serve["max_len"])
+    fwd, routes = [], []
+    for u in uids:
+        with RoutesHeld() as held:
+            fwd.append(lm_forward_logits(params, cfg, prompts[u], results[u].tokens, dev))
+        routes.append(held.calls)
+    decoded = lm_decode_logits(params, cfg, seqs, starts, dev, **scan)
+    # the greedy tokens' reference: the forward, or for a MoE arch the scan
+    argref = fwd if serve is None else decoded
+    forcing = None
+    if serve is not None:
+        # the scan runs chunks of ``batch`` streams, each for its longest
+        # stream's steps, one route call per MoE layer and step
+        batch, n_moe, k = serve["max_slots"], len(routes[0]), cfg.moe.top_k
+        forced = []
+        for c in range(0, len(seqs), batch):
+            rows = range(c, min(c + batch, len(seqs)))
+            for t in range(max(len(seqs[n]) for n in rows)):
+                for layer in range(n_moe):
+                    want = torch.full((batch, k), -1, dtype=torch.long)
+                    for r, n in enumerate(rows):
+                        if t < len(seqs[n]):
+                            want[r] = routes[n][layer][t]
+                    forced.append(want)
+        with RoutesHeld(forced) as forcing:
+            decoded = lm_decode_logits(params, cfg, seqs, starts, dev, **scan)
     positions = near = flips = 0
     worst = worst_share = 0.0
     late_beyond = late_n = 0
     margins = {}
-    for u, dec in zip(uids, decoded):
-        fwd = lm_forward_logits(params, cfg, prompts[u], results[u].tokens, dev)
-        tol = LM_LOGIT_TOL * fwd.abs().amax(-1).clamp(min=1.0)
-        gap = (dec - fwd).abs().amax(-1)
+    for u, dec, f, a in zip(uids, decoded, fwd, argref):
+        tol = LM_LOGIT_TOL * f.abs().amax(-1).clamp(min=1.0)
+        gap = (dec - f).abs().amax(-1)
         j = int((gap / tol).argmax())
         check(bool((gap <= tol).all()),
               f"{label}: request {u} position {j}: decode logits {float(gap[j])} "
               f"from the forward's, beyond {float(tol[j])}")
         worst, worst_share = max(worst, float(gap.max())), max(worst_share,
                                                                 float((gap / tol).max()))
-        late = (dec[:-1] - fwd[1:]).abs().amax(-1) > tol[1:]
+        late = (dec[:-1] - f[1:]).abs().amax(-1) > tol[1:]
         late_beyond, late_n = late_beyond + int(late.sum()), late_n + late.numel()
-        top = fwd.topk(2, dim=-1).values
-        margin = ((top[:, 0] - top[:, 1]) / (2 * tol)).cpu().numpy()
-        pred = fwd.argmax(-1).cpu().numpy()
+        top = a.topk(2, dim=-1).values
+        margin = ((top[:, 0] - top[:, 1])
+                  / (2 * LM_LOGIT_TOL * a.abs().amax(-1).clamp(min=1.0))).cpu().numpy()
+        pred = a.argmax(-1).cpu().numpy()
         margins[u] = margin
         for j, tok in enumerate(results[u].tokens):
             positions += 1
             near += int(margin[j] <= 1)
             if tok != pred[j]:
                 check(margin[j] <= 1,
-                      f"{label}: request {u} token {j} is {tok}, the forward's "
-                      f"argmax {pred[j]} by {margin[j]} tie margins")
+                      f"{label}: request {u} token {j} is {tok}, the "
+                      f"{'forward' if serve is None else 'decode scan'}'s argmax "
+                      f"{pred[j]} by {margin[j]} tie margins")
                 flips += 1
     check(late_beyond > 0, f"{label}: the decode one position late lies within the "
                            "tolerance everywhere, which so would not show it")
-    return {"positions": positions, "near_ties": near, "tie_flips": flips,
-            "max_logit_gap": worst, "max_gap_of_tolerance": worst_share,
-            "late_by_one_beyond_tolerance": [late_beyond, late_n], "margins": margins}
+    row = {"positions": positions, "near_ties": near, "tie_flips": flips,
+           "max_logit_gap": worst, "max_gap_of_tolerance": worst_share,
+           "late_by_one_beyond_tolerance": [late_beyond, late_n], "margins": margins}
+    if forcing is not None:
+        row["routing_choices_forced"] = [forcing.changed, sum(map(len, seqs)) * n_moe]
+    return row
 
 
 def lm_step_profile(step, params, caches, slots: int, at: int, dev) -> dict:
@@ -2083,14 +2250,16 @@ def lm_engine_row(step, init, params, cfg, serve: dict, prompts, label, dev,
     """Serve ``prompts`` through ``Engine``: greedy twice (the second run
     measured) and online (``submit`` / ``drain_ready``), every request
     answered with its budget, the greedy streams against the forward
-    (``lm_check_decode``, its ``flash_mha`` calls held by ``held``); with
-    ``full`` also at ``max_slots=3`` and sampled, offline and online.
-    Returns the row."""
+    (``lm_check_decode``, given ``serve`` for a MoE arch; its
+    ``flash_mha`` calls held by ``held``); with ``full`` also
+    sampled, offline and online, and, for a dense arch, at
+    ``max_slots=3``.  Returns the row, with its seconds."""
     import torch
 
     from repro_torch.common.tree import tree_leaves
     from repro_torch.serve.engine import Engine, Request, ServeConfig
 
+    t0 = time.perf_counter()
     reqs = [Request(uid=i, prompt=p) for i, p in enumerate(prompts)]
 
     def engine(**kw):
@@ -2123,7 +2292,8 @@ def lm_engine_row(step, init, params, cfg, serve: dict, prompts, label, dev,
     stats = dict(eng.stats)
     kv_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(eng._caches))
     with held:
-        decode = lm_check_decode(params, cfg, prompts, greedy, dev, label)
+        decode = lm_check_decode(params, cfg, prompts, greedy, dev, label,
+                                 None if cfg.moe is None else serve)
     check(same(greedy, online(engine())), f"{label}: online greedy streams differ "
                                           "from run()")
     row = {"phase": "lm", "engine": label, "requests": len(prompts),
@@ -2137,9 +2307,10 @@ def lm_engine_row(step, init, params, cfg, serve: dict, prompts, label, dev,
            "kv_cache_bytes": kv_bytes,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "decode_vs_forward": {k: v for k, v in decode.items() if k != "margins"}}
-    if full:
+    if full and cfg.moe is None:
         row["max_slots_3_left_at_near_ties"] = lm_same_streams(
             greedy, engine(max_slots=3).run(reqs), decode["margins"], label)
+    if full:
         sampled = engine(**LM_SAMPLED).run(reqs)
         answered(sampled, "sampled")
         check(same(sampled, online(engine(**LM_SAMPLED))),
@@ -2148,7 +2319,119 @@ def lm_engine_row(step, init, params, cfg, serve: dict, prompts, label, dev,
         row["sampled"] = dict(LM_SAMPLED, online_equals_offline=True)
         row["decode_step_profile"] = lm_step_profile(
             step, params, eng._caches, serve["max_slots"], serve["max_len"] // 2, dev)
+    row["seconds"] = time.perf_counter() - t0
     return row
+
+
+def lm_moe_routing(params, cfg, dev) -> dict:
+    """The first MoE layer's routing at the published capacity, on
+    ``LM_MOE_TOKENS`` random tokens (``LM_MOE_DISTINCT`` distinct ones,
+    repeated, so that pairs overflow and drop): the experts the card
+    chooses are the
+    CPU's for every token whose k-th and (k+1)-th router probabilities lie
+    more than 1e-6 apart (the router is f32 on both; closer pairs are
+    counted), the queue positions and kept pairs the card computes for its
+    choice equal the CPU's for the same choice, and the gather path's output
+    (capacity drops, overflow slot) lies within 3e-2 of the scale of the
+    reference's one-hot oracle ``moe_dense`` on the card."""
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.nn import moe
+
+    layer = lm._layer(params["body"], 0)["u0"]["ffn"]
+    k = cfg.moe.top_k
+    gen = torch.Generator(dev).manual_seed(SEED + 4)
+    x = torch.randn(LM_MOE_DISTINCT, cfg.d_model, device=dev, generator=gen).bfloat16()
+    x = x.repeat(LM_MOE_TOKENS // LM_MOE_DISTINCT, 1)
+    _, idx, _ = moe.route(layer, cfg.moe, x)
+    _, idx_cpu, probs_cpu = moe.route({"router": layer["router"].cpu()}, cfg.moe, x.cpu())
+    top = probs_cpu.topk(k + 1, dim=-1).values
+    clear = (top[:, k - 1] - top[:, k]) > 1e-6
+    same = (idx.cpu().sort(-1).values == idx_cpu.sort(-1).values).all(-1)
+    check(bool(same[clear].all()), f"{cfg.name}: the card chose other experts than the "
+                                   f"CPU for {int((~same & clear).sum())} tokens")
+    cap = moe._capacity(cfg.moe, LM_MOE_TOKENS)
+    pos, keep = moe.dispatch(idx, cfg.moe.n_experts, cap)
+    pos_cpu, keep_cpu = moe.dispatch(idx.cpu(), cfg.moe.n_experts, cap)
+    check(torch.equal(pos.cpu(), pos_cpu) and torch.equal(keep.cpu(), keep_cpu),
+          f"{cfg.name}: queue positions on the card differ from the CPU's")
+    check(not bool(keep.all()), f"{cfg.name}: no pair dropped at capacity {cap}")
+    got, _ = moe.moe_gather(layer, cfg.moe, x, cfg.compute_dtype)
+    want, _ = moe.moe_dense(layer, cfg.moe, x, cfg.compute_dtype)
+    tol = LM_LOGIT_TOL * max(1.0, float(want.float().abs().max()))
+    err = float((got.float() - want.float()).abs().max())
+    check(err <= tol, f"{cfg.name}: moe_gather {err} from moe_dense, beyond {tol}")
+    return {"tokens": LM_MOE_TOKENS, "capacity": cap,
+            "pairs_dropped": int((~keep).sum()), "pairs": keep.numel(),
+            "router_near_ties": int((~clear).sum()),
+            "gather_vs_dense_max_abs_err": err, "tolerance": tol}
+
+
+def lm_moe_arch(arch_id: str, dev: str, held: "FlashHeld") -> list[tuple]:
+    """One MoE / MLA arch at published width (deepseek-v3 cut in depth):
+    parameters drawn on the card, the full-context forward at
+    ``LM_MOE_FORWARDS`` at the published capacity (flash_attn once per GQA
+    layer, none for MLA), the routing check (``lm_moe_routing``), then the
+    slot-pool engine and the decode check on the dropless config
+    (``dropless``).  Returns the forwards' flash_attn shapes with KV heads."""
+    import torch
+
+    from repro_torch.backend import registry
+    from repro_torch.configs import base as cb
+    from repro_torch.configs import get_arch
+    from repro_torch.nn import init as nninit
+
+    arch, cfg = get_arch(arch_id), lm_config(arch_id)
+    spec = cb.model_spec(arch, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = nninit.materialize(spec, torch.Generator(dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    gqa_layers = 0 if cfg.attn_kind == "mla" else cfg.n_layers
+    emit({"phase": "lm", "arch": arch_id, "n_layers": cfg.n_layers,
+          "params": nninit.param_count(spec), "param_bytes": nninit.param_bytes(spec),
+          "active_params": cb.active_param_count(arch, cfg),
+          "mtp_params": nninit.param_count(spec["mtp"]) if cfg.mtp else 0,
+          "param_dtype": str(cfg.param_dtype), "compute_dtype": str(cfg.compute_dtype),
+          "draw_s": time.perf_counter() - t0})
+    forward = cb.prefill_fn(arch, cfg)
+    gen = torch.Generator("cpu").manual_seed(SEED)
+    for b, s in LM_MOE_FORWARDS[arch_id]:
+        toks = torch.randint(0, cfg.vocab, (b, s), generator=gen).to(dev)
+        before = registry.LAUNCHES["flash_attn"]
+        with held:
+            logits = forward(params, toks)
+        torch.cuda.synchronize()
+        launches = registry.LAUNCHES["flash_attn"] - before
+        check(launches == gqa_layers, f"{arch_id} forward {(b, s)}: {launches} "
+                                      f"flash_attn launches, want {gqa_layers}")
+        check(tuple(logits.shape) == (b, cfg.vocab) and bool(logits.isfinite().all()),
+              f"{arch_id} forward {(b, s)}: logits")
+        ms = cuda_ms(lambda: forward(params, toks), reps=1, samples=3)
+        emit({"phase": "lm", "arch": arch_id, "forward": [b, s],
+              "flash_attn_launches": launches, "ms_per_forward": ms,
+              "tokens_per_s": b * s / ms * 1e3,
+              "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    emit({"phase": "lm", "arch": arch_id, "moe_routing": lm_moe_routing(params, cfg, dev)})
+    serve_cfg = dropless(cfg)
+    serve = LM_MOE_SERVE[arch_id]
+    n, lens = LM_MOE_REQUESTS[arch_id]
+    step, init = cb.serve_fns(arch, serve_cfg, serve["max_len"])
+    prompts = lm_prompts(cfg.vocab, n, lens, SEED + 5)
+    peak = torch.cuda.max_memory_allocated()
+    row = lm_engine_row(step, init, params, serve_cfg, serve, prompts, arch_id, dev,
+                        full=arch_id == LM_MOE_ARCHS[0], held=held)
+    row.update(params=nninit.param_count(spec), param_bytes=nninit.param_bytes(spec),
+               capacity_factor=serve_cfg.moe.capacity_factor,
+               max_memory_allocated=max(peak, row["max_memory_allocated"]))
+    emit(row)
+    check(row["max_memory_allocated"] <= LM_PEAK_LIMIT,
+          f"{arch_id}: {row['max_memory_allocated']} bytes at the peak")
+    del params
+    torch.cuda.empty_cache()
+    return [(b, s, cfg.n_heads, cfg.hd, cfg.n_kv_heads)
+            for b, s in LM_MOE_FORWARDS[arch_id]] if gqa_layers else []
 
 
 def phase_lm(dev: str = "cuda") -> dict[str, int]:
@@ -2158,8 +2441,10 @@ def phase_lm(dev: str = "cuda") -> dict[str, int]:
     against the CPU; its slot-pool ``Engine`` serving ``LM_REQUESTS``
     requests (``lm_engine_row``); then gemma3-12b at one pattern unit of
     depth (a reduced depth: 6 of 48 layers) serving prompts longer than its
-    1024-token window, so the local layers' ring caches wrap.  Returns the
-    path's launch counts."""
+    1024-token window, so the local layers' ring caches wrap; then the MoE /
+    MLA archs (``lm_moe_arch``): granite-moe-1b-a400m at its width and
+    deepseek-v3-671b at its width cut to 4 layers.  Returns the path's
+    launch counts."""
     import dataclasses
 
     import torch
@@ -2240,13 +2525,17 @@ def phase_lm(dev: str = "cuda") -> dict[str, int]:
     emit(row)
     del params
     torch.cuda.empty_cache()
+    global_heads = sorted((*x, cfg.n_kv_heads) for x in held.shapes()
+                          if x[2:] == (cfg.n_heads, cfg.hd))
+    # the MoE / MLA archs; granite-moe's GQA layers run flash_attn at head
+    # dim 64, deepseek-v3's MLA layers the plain attention
+    for arch_id in LM_MOE_ARCHS:
+        forward_heads += lm_moe_arch(arch_id, dev, held)
     counts = dict(registry.LAUNCHES)
     check(counts["flash_attn"] > 0, "flash_attn was not launched on the lm path")
     # the kernel at the shapes this path gave it: every forward shape and
     # the global layer's (head dim 256) were held above; the same shapes
     # again on random inputs (comparison launches, after the counts)
-    global_heads = sorted((*x, cfg.n_kv_heads) for x in held.shapes()
-                          if x[2:] == (cfg.n_heads, cfg.hd))
     for shape in forward_heads:
         check(shape[:4] in held.shapes(), f"lm: no flash_attn call at {shape[:4]} "
                                           "was held")
@@ -2261,16 +2550,206 @@ def phase_lm(dev: str = "cuda") -> dict[str, int]:
     return counts
 
 
+# -- phase 11: LM traffic behind the front door -----------------------------------
+
+DOOR_LM_REQUESTS, DOOR_LM_PROMPTS = 16, (16, 64)
+DOOR_LM_SERVE = dict(LM_SERVE, max_new_tokens=16)   # 8 slots of 512 tokens
+DOOR_NVSA_REQUESTS = 64
+DOOR_OFFERED = 0.5      # of each model's sequential rate, measured here
+DOOR_DEADLINE_S = 0.02
+DOOR_DEPLOY_MODELS = ("nvsa", LM_ARCH)
+DOOR_DEPLOY_REQUESTS = 8   # per model, deploy() at the reference's smoke scale
+
+
+def door_rows(report, label: str, offered: dict) -> None:
+    """One ``door_lm`` row per model of a front door's report: its rate in
+    its own unit, p50 / p95 queue and service ms, groups, buckets and close
+    reasons."""
+    import collections
+
+    for m in report.results:
+        groups = [g for g in report.groups if g.model == m]
+        q = report.percentiles("queue_s", m, qs=(50, 95))
+        sv = report.percentiles("service_s", m, qs=(50, 95))
+        lat = [x for x in report.latencies if x.model == m]
+        span = max(x.done_s for x in lat) - min(x.arrival_s for x in lat)
+        unit = report.work_unit(m)
+        emit({"phase": "door_lm", "door": label, "model": m,
+              "offered_rps": offered.get(m), "served": len(report.results[m]),
+              # over the serve's whole wall time (the report's own rate), and
+              # over this model's first arrival to its last answer
+              f"{unit}_per_s": report.work_per_s(m),
+              f"{unit}_per_s_own_span": report.work_per_s(m) * report.wall_time_s / span,
+              "queue_ms_p50_p95": [q["p50"] * 1e3, q["p95"] * 1e3],
+              "service_ms_p50_p95": [sv["p50"] * 1e3, sv["p95"] * 1e3],
+              "groups": len(groups),
+              "buckets": {str(b): c for b, c in report.bucket_histogram(m).items()},
+              "closed": dict(collections.Counter(g.close_reason for g in groups))})
+
+
+def phase_door_lm(dev: str = "cuda") -> dict[str, int]:
+    """LM traffic behind the port's front door on the card.  (1) A door
+    built by hand over llama3.2-3b at its published width (the ``lm``
+    phase's engine, ``DOOR_LM_SERVE``) and an nvsa cnn fp32 engine at
+    d = 256: ``DOOR_LM_REQUESTS`` greedy ``SyntheticTokens`` prompts of
+    16-64 tokens and ``DOOR_NVSA_REQUESTS`` nvsa requests in one Poisson
+    feed from seed 0, each model offered ``DOOR_OFFERED`` of its
+    sequential rate measured just before, on the real clock.  Every LM
+    stream equals the same engine's offline run of its request, token for
+    token (the engine is slot-invariant), and the decode check of the
+    ``lm`` phase holds the streams against the full-context forward; every
+    nvsa answer equals the same engine's replay of its door group, at the
+    same bucket, bit for bit.  (2) ``deploy()`` of nvsa
+    and llama3.2-3b at the reference's smoke scale on the card: warmed up,
+    ``DOOR_DEPLOY_REQUESTS`` a model of its synthetic traffic recorded as a
+    golden trace (lm and reason classes), replayed through the same and a
+    fresh card deployment, tokens and answers exact.  Returns the launch
+    counts of the served windows: the door's serve, the recorded serve and
+    the replays, not the checks."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.backend import registry
+    from repro_torch.configs import base as cb
+    from repro_torch.configs import get_arch
+    from repro_torch.nn import init as nninit
+    from repro_torch.serve import trace as tr
+    from repro_torch.serve.deploy import deploy
+    from repro_torch.serve.engine import Engine, Request, ServeConfig
+    from repro_torch.serve.frontdoor import (FrontDoor, FrontDoorConfig, merge_arrivals,
+                                             poisson_arrivals)
+    from repro_torch.serve.reason import ReasonConfig
+
+    t_phase = time.perf_counter()
+    held = FlashHeld()
+    arch, cfg = get_arch(LM_ARCH), lm_config(LM_ARCH)
+    params = nninit.materialize(cb.model_spec(arch, cfg),
+                                torch.Generator(dev).manual_seed(SEED))
+    step, init = cb.serve_fns(arch, cfg, DOOR_LM_SERVE["max_len"])
+    lm_eng = Engine(step, init, ServeConfig(**DOOR_LM_SERVE), params=params)
+    prompts = lm_prompts(cfg.vocab, DOOR_LM_REQUESTS, DOOR_LM_PROMPTS, SEED + 3)
+    lm_reqs = [Request(uid=i, prompt=p) for i, p in enumerate(prompts)]
+    lm_eng.run(lm_reqs)                       # the shapes' first runs
+    offline = lm_eng.run(lm_reqs)
+    lm_seq = len(lm_reqs) / lm_eng.last_run["wall_time_s"]
+
+    entry = cb.REASON_WORKLOADS["nvsa"]
+    ncfg = entry.make_config(d=256)
+    nv_eng = cb.reason_engine(
+        "nvsa", ncfg, ReasonConfig(batch_size=8, buckets=BUCKETS, max_inflight=2),
+        consts=entry.make_consts(ncfg, torch.Generator().manual_seed(SEED)),
+        variants=("cnn",))
+    factory, _ = entry.make_requests(ncfg, DOOR_NVSA_REQUESTS, SEED)
+    nv_reqs = list(factory())
+    for b in BUCKETS:                         # every bucket's first run
+        nv_eng.run(nv_reqs[:b])
+    nv_eng.run(nv_reqs, schedule="sequential")
+    nv_seq = nv_eng.last_run["problems_per_s"]
+    offered = {"nvsa": DOOR_OFFERED * nv_seq, LM_ARCH: DOOR_OFFERED * lm_seq}
+    emit({"phase": "door_lm", "sequential_rps": {"nvsa": nv_seq, LM_ARCH: lm_seq},
+          "lm_offline_tokens_per_s": lm_eng.tokens_per_s()})
+
+    door = FrontDoor({"nvsa": nv_eng, LM_ARCH: lm_eng},
+                     FrontDoorConfig(deadline_s=DOOR_DEADLINE_S))
+    # the path's launches: the door's serve here, deploy()'s recorded serve
+    # and its replays below; the checks between them are not counted
+    registry.reset_launches()
+    report = door.serve(merge_arrivals(
+        poisson_arrivals("nvsa", nv_reqs, offered["nvsa"], seed=SEED),
+        poisson_arrivals(LM_ARCH, lm_reqs, offered[LM_ARCH], seed=SEED + 1)))
+    counts = dict(registry.LAUNCHES)
+    door_rows(report, "hand-built", offered)
+    check(not report.shed, f"door_lm: {len(report.shed)} requests shed")
+    check({g.model for g in report.groups} == {"nvsa", LM_ARCH},
+          "door_lm: one model had no group")
+    for m, n in (("nvsa", DOOR_NVSA_REQUESTS), (LM_ARCH, DOOR_LM_REQUESTS)):
+        check(sorted(report.results[m]) == list(range(n)),
+              f"door_lm {m}: {len(report.results[m])} of {n} answered")
+    streams = report.results[LM_ARCH]
+    for uid, res in offline.items():
+        check(list(streams[uid].tokens) == list(res.tokens),
+              f"door_lm: request {uid}'s stream differs from the offline run")
+    with held:
+        decode = lm_check_decode(params, cfg, prompts, streams, dev, "door_lm")
+    replayed = 0
+    for g in report.groups:
+        if g.model != "nvsa":
+            continue
+        rec = nv_eng.submit([nv_reqs[u] for u in g.uids])
+        again = nv_eng.drain_all()
+        check(rec.bucket == g.bucket, f"door_lm nvsa group {g.uids}: bucket "
+                                      f"{rec.bucket}, served at {g.bucket}")
+        for u in g.uids:
+            got, want = report.results["nvsa"][u], again[u]
+            check(got.answer == want.answer and np.array_equal(
+                got.answer_logprobs, want.answer_logprobs),
+                f"door_lm nvsa request {u}: served answer differs from its group's "
+                "replay at the same bucket")
+            replayed += 1
+    emit({"phase": "door_lm", "door": "hand-built", "lm_streams_equal_offline":
+          len(offline), "nvsa_equal_group_replay": replayed,
+          "decode_vs_forward": {k: v for k, v in decode.items() if k != "margins"},
+          "flash_attn_held": [[*r["shape"], r["max_abs_err"]] for r in held.rows],
+          "serve_wall_s": report.wall_time_s})
+    del params, lm_eng, door
+    torch.cuda.empty_cache()
+
+    # deploy() of nvsa and the LM's smoke arch, recorded and replayed
+    t0 = time.perf_counter()
+    dep = deploy(list(DOOR_DEPLOY_MODELS), preflight="off")
+    deploy_s = time.perf_counter() - t0
+    dep.warmup()
+    check(dep.classes == {"nvsa": "reason", LM_ARCH: "lm"}, f"deploy: {dep.classes}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "door_lm.jsonl")
+        arrivals, _ = dep.synthetic_traffic(DOOR_DEPLOY_REQUESTS, seed=500)
+        registry.reset_launches()
+        report, trace = tr.record(dep, arrivals, path)
+        door_rows(report, "deploy", {m: dep.traffic.rate_rps for m in dep.engines})
+        check(all(len(r) == DOOR_DEPLOY_REQUESTS for r in report.results.values()),
+              "door_lm deploy: not every recorded request was answered")
+        check(trace.header["models"][LM_ARCH]["class"] == "lm", "door_lm: no lm class")
+        legs = (("same_deployment", lambda: (trace, {"deployment": dep})),
+                ("fresh_card", lambda: (tr.GoldenTrace.load(path),
+                                        {"backend": registry.negotiate("cuda")})))
+        for name, setup in legs:
+            t0 = time.perf_counter()
+            golden, kw = setup()
+            replay = golden.replay(**kw)
+            diff = golden.diff(replay)
+            emit({"phase": "door_lm_trace", "leg": name, "tolerance": diff.tolerance,
+                  "max_abs_err": diff.max_abs_err, "n_compared": diff.n_compared,
+                  "lm_results": sum(m == LM_ARCH for m, _ in golden.results),
+                  "kernels": sorted(replay.kernels), "seconds": time.perf_counter() - t0,
+                  "describe": diff.describe()})
+            check(diff.tolerance == 0.0 and diff.ok,
+                  f"door_lm trace {name}: {diff.describe()}")
+            check(diff.n_compared == 2 * DOOR_DEPLOY_REQUESTS,
+                  f"door_lm trace {name}: compared {diff.n_compared}")
+        counts = {k: n + registry.LAUNCHES[k] for k, n in counts.items()}
+    emit({"phase": "door_lm", "door": "deploy", "deploy_s": deploy_s,
+          "summary": dep.summary()})
+    # the LM engine admits prompts through ``decode_step`` token by token, as
+    # the reference's does, so LM traffic launches no flash_attn
+    check(counts["circ_conv"] > 0, "kernel circ_conv was not launched on the "
+                                   "door_lm path")
+    emit({"phase": "door_lm_done", "seconds": time.perf_counter() - t_phase,
+          "launches": counts})
+    return counts
+
+
 # the other rows a kernel's entry of the ``kernels`` line carries, under
 # these keys: circ_conv at NVSA's served bucket, circ_dict corr and bf16,
 # unbind_classify at d = 256, simd_fused bf16, at d = 128 and at M = 1024,
-# flash_attn bf16
+# flash_attn bf16 and bf16 at head dim 64
 SUB_ROWS = {"circ_conv": (("served", "circ_conv_served"),),
             "circ_dict": (("corr", "circ_dict_corr"), ("bf16", "circ_dict_bf16")),
             "unbind_classify": (("d256", "unbind_classify_d256"),),
             "simd_fused": (("bf16", "simd_fused_bf16"), ("d128", "simd_fused_d128"),
                            ("m1024", "simd_fused_m1024")),
-            "flash_attn": (("bf16", "flash_attn_bf16"),)}
+            "flash_attn": (("bf16", "flash_attn_bf16"), ("hd64", "flash_attn_hd64"))}
 
 
 def main() -> int:
@@ -2297,6 +2776,7 @@ def main() -> int:
     paths["trace"] = phase_trace(dep)
     paths["ops"] = phase_ops()
     paths["lm"] = phase_lm()
+    paths["door_lm"] = phase_door_lm()
     emit({"phase": "launches_by_path", **paths})
     kernels = []
     for name, spec in registry.KERNELS.items():

@@ -6,7 +6,8 @@ the LM architectures (``configs/registry.py:ARCHS``): ``model_spec``,
 ``prefill_fn`` (the full-context forward, last-token logits),
 ``decode_fn``, ``serve_fns`` (the ``Engine``'s decode step and cache
 allocator) and ``lm_engine``.  The port has the ``lm`` kind only (the dense
-GQA decoders); the other kinds raise, naming ROADMAP Queue 1 #4.
+GQA decoders and the MoE / MLA ones); the other kinds raise, naming
+ROADMAP Queue 1 #4 item 3.
 
 For NSAI reasoning, each
 :class:`ReasonWorkload` entry declares how a workload serves: its stage
@@ -25,6 +26,7 @@ its constants, and request ingest / collect adapters.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
 
 import numpy as np
@@ -70,7 +72,7 @@ def _mod(kind: str):
         return lm_mod
     if kind in ("rwkv", "griffin", "vlm", "encdec"):
         raise NotImplementedError(
-            f"arch kind {kind!r} is not ported yet (ROADMAP Queue 1 #4: "
+            f"arch kind {kind!r} is not ported yet (ROADMAP Queue 1 #4 item 3: "
             "nn/ssm.py, rwkv6, griffin, encdec and vlm)")
     raise ValueError(kind)
 
@@ -142,9 +144,17 @@ def param_count(arch: ArchSpec, cfg) -> int:
 
 
 def active_param_count(arch: ArchSpec, cfg) -> int:
-    """Parameters active per token (for MODEL_FLOPS = 6·N_active·D).  The
-    port has no MoE (Queue 1 #4), so every parameter is active."""
-    return param_count(arch, cfg)
+    """MoE-aware active parameters per token (for MODEL_FLOPS =
+    6·N_active·D): a routed-expert weight counts ``top_k`` of its
+    ``n_experts`` experts."""
+    moe_cfg = getattr(cfg, "moe", None)
+    total = 0
+    for p in nninit._specs(model_spec(arch, cfg)):
+        n = math.prod(p.shape)
+        if moe_cfg is not None and "experts" in p.axes:
+            n = n * moe_cfg.top_k // moe_cfg.n_experts
+        total += n
+    return total
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
-"""Attention: GQA / MQA, full and sliding-window, prefill and decode.
+"""Attention: GQA / MQA, full and sliding-window, and MLA, prefill and
+decode.
 
-The port of the GQA half of ``repro.nn.attention``.  Layouts are the
+The port of ``repro.nn.attention`` without cross-attention.  Layouts are the
 reference's: q (B, S, H, hd), k / v (B, S, KV, hd), ``wq`` (D, H, hd),
 ``wo`` (H, hd, D), and the finite ``NEG_INF`` mask value.
 
@@ -21,7 +22,16 @@ the new K/V into the cache in place (the reference returns a new cache),
 which spares a copy of every layer's cache per token; ``decode_step``
 returns the same dict.
 
-MLA and cross-attention are not ported (ROADMAP Queue 1 #4).
+MLA (DeepSeek-V3's multi-head latent attention) is the reference's: the
+prefill decompresses K and V per head and runs ``attend_full`` /
+``attend_chunked`` (its q·k head dim, nope + rope = 192, differs from its
+v head dim, 128, and ``flash_attention`` takes one head dim for q, k and
+v, so MLA keeps the plain twins, as windowed layers do); decode keeps the
+compressed ``ckv`` ‖ ``kpe`` cache and attends in the rank-``kv_lora_rank``
+space with ``W_kb`` absorbed into the query.
+
+Cross-attention (``cross_attention``, ``encode_kv``) waits for the
+enc-dec kind (ROADMAP Queue 1 #4 item 3).
 """
 
 from __future__ import annotations
@@ -260,4 +270,132 @@ def decode_step(params, cfg: AttnConfig, cache, x_t: torch.Tensor, pos,
     scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(compute_dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v)[:, 0]
+    return cache, out_project(out, params["wo"].to(compute_dtype))
+
+
+# ---------------------------------------------------------------------------
+# MLA: multi-head latent attention (DeepSeek-V3), with the absorbed decode
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    d_model: int
+    n_heads: int
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    rope_base: float = 10000.0
+
+    @property
+    def scale(self) -> float:
+        return 1.0 / math.sqrt(self.qk_nope_dim + self.qk_rope_dim)
+
+
+def mla_spec(cfg: MLAConfig, dtype=torch.float32):
+    d, h = cfg.d_model, cfg.n_heads
+    r_q, r_kv = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    s = lambda fan: 1.0 / math.sqrt(fan)  # noqa: E731
+    return {
+        "wq_a": P((d, r_q), ("embed", "qlora"), dtype=dtype, scale=s(d)),
+        "q_a_norm": P((r_q,), ("qlora",), init="ones", dtype=dtype),
+        "wq_b": P((r_q, h, dn + dr), ("qlora", "heads", "hd"), dtype=dtype,
+                  scale=s(r_q)),
+        "wkv_a": P((d, r_kv + dr), ("embed", "kvlora"), dtype=dtype, scale=s(d)),
+        "kv_a_norm": P((r_kv,), ("kvlora",), init="ones", dtype=dtype),
+        "wk_b": P((r_kv, h, dn), ("kvlora", "heads", "hd"), dtype=dtype, scale=s(r_kv)),
+        "wv_b": P((r_kv, h, dv), ("kvlora", "heads", "hd"), dtype=dtype, scale=s(r_kv)),
+        "wo": P((h, dv, d), ("heads", "hd", "embed"), dtype=dtype, scale=s(h * dv)),
+    }
+
+
+def _rms(x, scale, eps=1e-6):
+    xf = x.float()
+    v = torch.square(xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(v + eps) * scale.float()).to(x.dtype)
+
+
+def _mla_latents(params, cfg: MLAConfig, x: torch.Tensor, compute_dtype):
+    """x (..., D) in the compute dtype -> (q (..., H, nope + rope) before
+    RoPE, the normed latent c_kv (..., r_kv), the shared k_pe (..., rope)
+    before RoPE)."""
+    cq = _rms(x @ params["wq_a"].to(compute_dtype), params["q_a_norm"])
+    q = _heads(cq, params["wq_b"].to(compute_dtype))
+    kv_a = x @ params["wkv_a"].to(compute_dtype)
+    c_kv = _rms(kv_a[..., :cfg.kv_lora_rank], params["kv_a_norm"])
+    return q, c_kv, kv_a[..., cfg.kv_lora_rank:]
+
+
+def mla_attention(params, cfg: MLAConfig, x: torch.Tensor, positions: torch.Tensor,
+                  compute_dtype=torch.bfloat16, kv_chunk: int = 1024) -> torch.Tensor:
+    """Prefill MLA: decompress K and V per head, causal attention
+    (``attend_full``, or ``attend_chunked`` past ``CHUNKED_THRESHOLD``)."""
+    x = x.to(compute_dtype)
+    b, s, _ = x.shape
+    h, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    q, c_kv, k_pe = _mla_latents(params, cfg, x, compute_dtype)
+    q_pe = layers.apply_rope(q[..., dn:], positions, cfg.rope_base)
+    k_pe = layers.apply_rope(k_pe[:, :, None, :], positions, cfg.rope_base)
+    k_nope = _heads(c_kv, params["wk_b"].to(compute_dtype))
+    v = _heads(c_kv, params["wv_b"].to(compute_dtype))
+    q_full = torch.cat([q[..., :dn], q_pe], dim=-1)
+    k_full = torch.cat([k_nope, k_pe.expand(b, s, h, dr)], dim=-1)
+    if s > CHUNKED_THRESHOLD:
+        out = attend_chunked(q_full, k_full, v, cfg.scale, kv_chunk=kv_chunk)
+    else:
+        out = attend_full(q_full, k_full, v, causal_mask(s, s, device=x.device),
+                          cfg.scale)
+    return out_project(out, params["wo"].to(compute_dtype))
+
+
+def mla_cache_shape(cfg: MLAConfig, batch: int, max_len: int, dtype=torch.bfloat16):
+    """The compressed cache, (c_kv ‖ k_pe) per token, as ``meta`` tensors."""
+    return {name: torch.empty((batch, max_len, width), dtype=dtype, device="meta")
+            for name, width in (("ckv", cfg.kv_lora_rank), ("kpe", cfg.qk_rope_dim))}
+
+
+def mla_init_cache(cfg: MLAConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+                   device=None):
+    """Zeroed {ckv, kpe} on ``device`` (None = ``"cuda"``)."""
+    dev = registry.resolve_device(device)
+    return {name: torch.zeros(t.shape, dtype=t.dtype, device=dev)
+            for name, t in mla_cache_shape(cfg, batch, max_len, dtype).items()}
+
+
+def mla_decode_step(params, cfg: MLAConfig, cache, x_t: torch.Tensor, pos,
+                    compute_dtype=torch.bfloat16):
+    """Absorbed decode: attention runs in the compressed (rank
+    ``kv_lora_rank``) space,
+
+        score = (q_nope @ W_kb)ᵀ c + q_peᵀ k_pe ;  out = (attn @ c) @ W_vb.
+
+    ``pos`` is an int or (B,) per-slot positions.  Writes the token's c_kv
+    and k_pe into ``cache`` in place; returns (cache, out (B, D))."""
+    x_t = x_t.to(compute_dtype)
+    b, _ = x_t.shape
+    dn = cfg.qk_nope_dim
+    pos_b = torch.as_tensor(pos, dtype=torch.long, device=x_t.device).expand(b)
+    q, c_t, kpe_t = _mla_latents(params, cfg, x_t, compute_dtype)
+    q_pe = layers.apply_rope(q[:, None, :, dn:], pos_b[:, None], cfg.rope_base)[:, 0]
+    kpe_t = layers.apply_rope(kpe_t[:, None, None, :], pos_b[:, None],
+                              cfg.rope_base)[:, 0, 0]
+    ckv, kpe = cache["ckv"], cache["kpe"]
+    rows = torch.arange(b, device=x_t.device)
+    ckv[rows, pos_b] = c_t.to(ckv.dtype)
+    kpe[rows, pos_b] = kpe_t.to(kpe.dtype)
+
+    # absorb W_kb into the query: q_eff (B, H, r_kv)
+    q_eff = torch.einsum("bhe,rhe->bhr", q[..., :dn], params["wk_b"].to(compute_dtype))
+    c = ckv.to(compute_dtype)
+    s_c = torch.einsum("bhr,bsr->bhs", q_eff, c)
+    s_pe = torch.einsum("bhe,bse->bhs", q_pe, kpe.to(compute_dtype))
+    scores = (s_c + s_pe).float() * cfg.scale
+    valid = torch.arange(ckv.shape[1], device=x_t.device)[None, :] <= pos_b[:, None]
+    scores = torch.where(valid[:, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(compute_dtype)
+    out_c = torch.einsum("bhs,bsr->bhr", probs, c)
+    out = torch.einsum("bhr,rhe->bhe", out_c, params["wv_b"].to(compute_dtype))
     return cache, out_project(out, params["wo"].to(compute_dtype))

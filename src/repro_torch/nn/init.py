@@ -65,8 +65,10 @@ def _materialize_one(spec: P, gen: torch.Generator) -> torch.Tensor:
     if spec.init == "normal":
         std = spec.scale if spec.scale is not None \
             else 1.0 / math.sqrt(max(1, _fan_in(spec.shape)))
-        z = torch.randn(spec.shape, generator=gen, dtype=torch.float32, device=dev)
-        return z.mul_(std).to(spec.dtype)
+        # drawn in the leaf's own dtype: a bf16 leaf never has an f32 copy
+        # (that would be 15 GB for one of deepseek-v3's expert stacks)
+        z = torch.randn(spec.shape, generator=gen, dtype=spec.dtype, device=dev)
+        return z.mul_(std)
     raise ValueError(f"unknown init {spec.init}")
 
 

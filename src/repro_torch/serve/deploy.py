@@ -1,9 +1,10 @@
 """``deploy()``: the paper's generator -> serving-architecture loop.
 
-The port of ``repro.serve.deploy`` for the four reasoners on one device.
-NSFlow's headline claim (paper Sec III, V) is end to end: a design
-architecture generator reads the workload's dataflow dependencies and
-emits the serving architecture.  For each NSAI workload:
+The port of ``repro.serve.deploy`` on one device: the four reasoners and
+the LM archs the port builds, freely mixed.  NSFlow's headline claim
+(paper Sec III, V) is end to end: a design architecture generator reads
+the workload's dataflow dependencies and emits the serving architecture.
+For each NSAI workload:
 
 1. **trace**: the staged pipeline is compiled
    (``compile_reason_schedule``) and its
@@ -21,6 +22,13 @@ emits the serving architecture.  For each NSAI workload:
    constants drawn from a ``torch.Generator`` seeded with ``(seed, model
    index)``.
 
+An LM model has no DSE step, as in the reference: its ``ServeConfig``
+comes from the budget's LM fields (``max_slots``, ``max_len``,
+``decode_block``, ``max_new_tokens``) overridden by its options, and
+``configs.base.lm_engine`` builds the slot-pool ``Engine`` over the arch's
+smoke config, its parameters drawn from the same ``(seed, model index)``
+seed.
+
 The result is a :class:`Deployment`: one
 :class:`~repro_torch.serve.frontdoor.FrontDoor` over every engine, with an
 :class:`~repro_torch.serve.control.OverloadController` attached when the
@@ -36,11 +44,12 @@ reference does.
 What the port does not have yet raises ``NotImplementedError`` naming its
 ROADMAP item, and is never ignored: a ``Budget`` with ``devices``,
 ``replicas`` or ``tp`` above 1 (deploy's replica count comes from the mesh
-co-search, Queue 1 #3d and #6), ``preflight=`` other than ``"off"`` (the
-analyzer, #7).  ``backend=`` other than None raises too, by design (#3e):
-the device selects each kernel, and no plan may send a CUDA tensor to a
-plain version.  An LM model name raises ``KeyError`` (LM models in
-``deploy``, #4).
+co-search, Queue 1 #3d and #6; LM replica pools and tensor-parallel
+decode, #4 item 4), ``preflight=`` other than ``"off"`` (the analyzer,
+#7).  ``backend=`` other than None raises too, by design (#3e): the
+device selects each kernel, and no plan may send a CUDA tensor to a plain
+version.  A recurrent arch (rwkv6-7b, recurrentgemma-9b) raises
+``KeyError`` (#4 item 3).
 """
 
 from __future__ import annotations
@@ -81,13 +90,17 @@ class Budget:
     (setting either of the first two attaches an ``OverloadController``).
     ``devices``, ``replicas`` and ``tp`` size the mesh side of the search,
     which the port does not have yet: a value above 1 (or
-    ``replicas="auto"``) raises ``NotImplementedError``.  The reference's
-    LM fields (slot pool, KV length, decode block, generation budget) wait
-    for LM models in ``deploy`` (ROADMAP Queue 1 #4)."""
+    ``replicas="auto"``) raises ``NotImplementedError``.  ``max_slots``,
+    ``max_len``, ``decode_block`` and ``max_new_tokens`` size every LM
+    model's slot-pool engine."""
 
     max_pes: int = 4096           # AdArray PE budget handed to the DSE
     max_batch: int = 8            # admission-group ceiling (NSAI buckets)
     inflight_cap: int = 4         # ceiling on the DSE-derived window depth
+    max_slots: int = 4            # LM slot-pool size
+    max_len: int = 128            # LM per-slot KV capacity
+    decode_block: int = 8         # LM tokens per decode block
+    max_new_tokens: int = 24      # LM default generation budget
     devices: int | None = None    # device pool (None = 1 here)
     replicas: int | str | None = None  # DP engine replicas (None = 1)
     tp: int | None = None         # LM tensor-parallel degree (None = 1)
@@ -105,7 +118,8 @@ def _refuse_unported(budget: Budget, backend, preflight: str) -> None:
             f"Budget(devices={budget.devices}, replicas={budget.replicas}, "
             f"tp={budget.tp}): deploy() serves one engine per model on one "
             "device; its replica count comes from the mesh co-search "
-            "(ROADMAP Queue 1 #3d and #6). Build a pool by hand with "
+            "(ROADMAP Queue 1 #3d and #6; LM pools and tensor-parallel "
+            "decode, #4 item 4). Build an NSAI pool by hand with "
             "configs.base.reason_engine_pool")
     if backend is not None:
         raise NotImplementedError(
@@ -122,10 +136,11 @@ def _refuse_unported(budget: Budget, backend, preflight: str) -> None:
 class Deployment:
     """One deployed serving runtime: engines + one front-door.
 
-    ``classes[model]`` is the runtime traffic class (``"reason"``);
-    ``designs`` / ``plans`` carry the DSE point and the derived serving
-    plan, ``configs`` the model configs, ``variants`` the served variant,
-    ``seed`` the seed the constants were drawn from, ``backend`` the
+    ``classes[model]`` is the runtime traffic class (``"reason"`` or
+    ``"lm"``); ``designs`` / ``plans`` carry the DSE point and the derived
+    serving plan of NSAI models (None for LM models), ``configs`` the
+    model configs (an arch's smoke config for LM models), ``variants``
+    the served variant, ``seed`` the seed the constants were drawn from, ``backend`` the
     device's :class:`~repro_torch.backend.registry.LoweringPlan` and
     ``options`` the per-model options ``deploy()`` was called with (a
     golden trace re-deploys from them)."""
@@ -178,7 +193,18 @@ class Deployment:
         backend = self.backend_record()
         for m, eng in self.engines.items():
             pool, base = self._pool(m), self._base(m)
-            design, sched = self.designs[m], base.schedules[self.variants[m]]
+            design = self.designs[m]
+            if self.classes[m] != "reason":
+                out[m] = {
+                    "class": self.classes[m], "design": None,
+                    "searched_points": None,
+                    "serving": {"max_slots": base.cfg.max_slots,
+                                "max_len": base.cfg.max_len,
+                                "decode_block": base.cfg.decode_block},
+                    "backend": backend, "mesh": None, "replicas": 1,
+                    "per_replica": None}
+                continue
+            sched = base.schedules[self.variants[m]]
             serving = {
                 "batch_size": base.cfg.batch_size,
                 "buckets": tuple(base.cfg.buckets or ()),
@@ -232,9 +258,10 @@ class Deployment:
             if m in ("analysis", "control"):
                 continue
             design = self.designs[m]
+            dse = (f"dse={design.tag()} ({design.searched_points} points)"
+                   if design is not None else "dse=n/a (single nn stream)")
             knobs = " ".join(f"{k}={v}" for k, v in rec["serving"].items())
-            lines.append(f"{m} [{rec['class']}]: {knobs} | dse={design.tag()} "
-                         f"({design.searched_points} points) | mesh=n/a "
+            lines.append(f"{m} [{rec['class']}]: {knobs} | {dse} | mesh=n/a "
                          f"| {backend}")
             if rec["per_replica"]:
                 split = " ".join(
@@ -254,14 +281,30 @@ class Deployment:
     # -- synthetic traffic + warmup -----------------------------------------
 
     def _streams(self, n: int, seed: int):
-        """Per-model lazy request streams + ground-truth thunks."""
+        """Per-model lazy request streams + NSAI ground-truth thunks.  An LM
+        model's stream holds ``n`` prompts of ``min(16, max_len -
+        max_new_tokens)`` tokens drawn uniformly from its vocabulary, the
+        reference's."""
         from repro_torch.configs import base as cbase
+        from repro_torch.serve.engine import Request
 
         streams, truths = {}, {}
         for i, m in enumerate(self.engines):
-            factory, truth = cbase.REASON_WORKLOADS[m].make_requests(
-                self.configs[m], n, seed=seed + i)
-            streams[m], truths[m] = factory(), truth
+            if self.classes[m] == "reason":
+                factory, truth = cbase.REASON_WORKLOADS[m].make_requests(
+                    self.configs[m], n, seed=seed + i)
+                streams[m], truths[m] = factory(), truth
+            else:
+                cfg, scfg = self.configs[m], self._base(m).cfg
+                plen = max(1, min(16, scfg.max_len - scfg.max_new_tokens))
+                rng = np.random.default_rng(seed + i)
+
+                def lm_stream(rng=rng, vocab=cfg.vocab, plen=plen):
+                    for uid in range(n):
+                        yield Request(uid=uid, prompt=rng.integers(
+                            0, vocab, (plen,)).astype(np.int32))
+
+                streams[m] = lm_stream()
         return streams, truths
 
     def synthetic_traffic(self, n: int, seed: int = 100,
@@ -282,7 +325,8 @@ class Deployment:
 
     def warmup(self):
         """Serve one group at every compiled bucket of every engine before
-        traffic arrives, so online latencies never include a shape's first
+        traffic arrives, and run one slot pool's worth of requests through
+        every LM engine, so online latencies never include a shape's first
         run (kernel builds, cuDNN and allocator set-up).  A pool warms
         every replica: each keeps its own warmed-shape set and device."""
         from repro_torch.configs import base as cbase
@@ -290,6 +334,11 @@ class Deployment:
         for m in self.engines:
             pool = self._pool(m)
             subs = pool.replicas if pool is not None else [self.engines[m]]
+            if self.classes[m] != "reason":
+                for sub in subs:
+                    streams, _ = self._streams(sub.cfg.max_slots, seed=5000)
+                    sub.run(list(streams[m]))
+                continue
             for sub in subs:
                 for b in sub.cfg.buckets or (sub.cfg.batch_size,):
                     factory, _ = cbase.REASON_WORKLOADS[m].make_requests(
@@ -304,18 +353,22 @@ def deploy(workloads: Iterable[str], traffic: Traffic | None = None,
            backend=None, preflight: str = "off", device=None,
            clock: Callable[[], float] = time.perf_counter,
            sleep: Callable[[float], None] = time.sleep) -> Deployment:
-    """Deploy NSAI workloads behind one front-door on one device.
+    """Deploy a mixed set of workloads behind one front-door on one device.
 
-    ``workloads``: model names of the runtime registry (``nvsa``, ``prae``,
-    ``mimonet``, ``lvrf``).  ``options[model]`` passes ``make_config``
-    knobs (``d``, ``nn_precision``) and an optional ``variant``.  The
-    serving configuration is derived, not hand-set (see the module
-    docstring).  ``device``: None means ``"cuda"`` (raises without CUDA);
-    ``"cpu"`` serves on the plain versions."""
+    ``workloads``: model names of the runtime registry: NSAI workload ids
+    (``nvsa``, ``prae``, ``mimonet``, ``lvrf``) and the port's LM arch ids
+    (``llama3.2-3b``, ``granite-moe-1b-a400m``, ...), freely mixed.
+    ``options[model]`` passes ``make_config`` knobs (``d``,
+    ``nn_precision``) and an optional ``variant`` to an NSAI model, and
+    ``ServeConfig`` field overrides to an LM model.  The NSAI serving
+    configuration is derived, not hand-set (see the module docstring).
+    ``device``: None means ``"cuda"`` (raises without CUDA); ``"cpu"``
+    serves on the plain versions."""
     from repro_torch.configs import base as cbase
     from repro_torch.core import dse
     from repro_torch.serve import runtime as rt
     from repro_torch.serve import schedule as sch
+    from repro_torch.serve.engine import ServeConfig
     from repro_torch.serve.reason import ReasonConfig
 
     traffic = traffic or Traffic()
@@ -332,17 +385,32 @@ def deploy(workloads: Iterable[str], traffic: Traffic | None = None,
     lowering_plan = registry.negotiate(dev)
 
     engines: dict[str, Any] = {}
+    classes: dict[str, str] = {}
     designs: dict[str, Any] = {}
     plans: dict[str, Any] = {}
     configs: dict[str, Any] = {}
     variants: dict[str, str | None] = {}
     for i, m in enumerate(models):
-        entry = cbase.REASON_WORKLOADS[m]
         opts = dict(options.get(m, {}))
+        gen = torch.Generator().manual_seed(
+            int(np.random.SeedSequence([seed, i]).generate_state(1)[0]))
+        if m not in cbase.REASON_WORKLOADS:
+            # resolve_models validated every name, so this is an LM arch:
+            # no design point, the budget's slot pool and the options
+            scfg = dataclasses.replace(
+                ServeConfig(max_slots=budget.max_slots,
+                            max_len=budget.max_len,
+                            decode_block=budget.decode_block,
+                            max_new_tokens=budget.max_new_tokens), **opts)
+            engines[m], configs[m] = cbase.lm_engine(m, scfg, key=gen,
+                                                     device=dev)
+            classes[m], designs[m], plans[m], variants[m] = \
+                "lm", None, None, None
+            continue
+        entry = cbase.REASON_WORKLOADS[m]
         variant = opts.pop("variant", None) or entry.variants[0]
         cfg = entry.make_config(**opts)
-        consts = entry.make_consts(cfg, torch.Generator().manual_seed(
-            int(np.random.SeedSequence([seed, i]).generate_state(1)[0])))
+        consts = entry.make_consts(cfg, gen)
         # generator step: trace the pipeline the schedule will execute and
         # explore the design space over its dataflow graph
         probe = cbase.compile_reason_schedule(
@@ -361,7 +429,7 @@ def deploy(workloads: Iterable[str], traffic: Traffic | None = None,
         if plan.schedule == "overlap" and eng.schedules[variant].fused_ok:
             eng.cfg.schedule = "fused"
         engines[m], designs[m], plans[m] = eng, design, plan
-        configs[m], variants[m] = cfg, variant
+        configs[m], variants[m], classes[m] = cfg, variant, "reason"
 
     controller = None
     if budget.slo_ms is not None or budget.queue_depth is not None:
@@ -371,17 +439,20 @@ def deploy(workloads: Iterable[str], traffic: Traffic | None = None,
             cfg=ControlConfig(queue_depth=budget.queue_depth,
                               shed_policy=budget.shed_policy))
         for m in models:
-            controller.bind(m, deadline_s=traffic.deadline_s,
-                            cap=plans[m].batch_size,
-                            buckets=tuple(plans[m].buckets
-                                          or (plans[m].batch_size,)))
+            if classes[m] == "reason":
+                cap = plans[m].batch_size
+                buckets = tuple(plans[m].buckets or (cap,))
+            else:
+                cap, buckets = budget.max_slots, None
+            controller.bind(m, deadline_s=traffic.deadline_s, cap=cap,
+                            buckets=buckets)
 
     door = FrontDoor(engines,
                      FrontDoorConfig(deadline_s=traffic.deadline_s,
                                      poll_s=traffic.poll_s),
                      clock=clock, sleep=sleep, controller=controller)
     return Deployment(engines=engines, door=door,
-                      classes=dict.fromkeys(models, "reason"),
+                      classes=classes,
                       designs=designs, plans=plans, configs=configs,
                       variants=variants, traffic=traffic, budget=budget,
                       seed=seed, controller=controller, backend=lowering_plan,

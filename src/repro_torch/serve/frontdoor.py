@@ -3,9 +3,9 @@
 The port's copy of ``repro.serve.frontdoor`` (numpy and plain Python).  It
 drives engines only through the ``EngineProtocol`` surface, so it is the
 reference's policy unchanged, the per-replica breakdown of a
-``ReplicaPool`` included.  It serves the four reasoners: the front door's
-LM traffic class, with the reference's LM token accounting, waits for
-ROADMAP Queue 1 #4.
+``ReplicaPool`` included.  It serves the four reasoners and the LM
+slot-pool ``Engine`` side by side, with the reference's accounting:
+tokens/s for LM models, problems/s for NSAI models.
 
 NSFlow's pitch is *real-time* NSAI acceleration, but an engine that only
 accepts pre-collected request lists (``ReasonEngine.run`` / ``Engine.run``)
@@ -22,23 +22,28 @@ EngineProtocol` engine can serve well:
 - **shape bucketing**: a closed partial group is padded by the NSAI
   engine to the smallest *covering bucket* of the schedule's compiled
   batch sizes (``StagedSchedule.batch_buckets``, e.g. 2/4/8) instead of
-  the max — see ``pow2_buckets``.
+  the max — see ``pow2_buckets``.  The LM engine's bucket is its slot
+  pool.
 - **multiplexing over the protocol**: one front-door serves any mix of
-  engines (nvsa, mimonet, lvrf, prae) because it only drives the
-  unified ``submit`` / ``drain_ready`` / ``drain_all`` surface.  Each
-  arrival names its model, groups are formed per model, and every engine
-  keeps its own in-flight window on the shared host.
+  engines — NSAI staged pipelines (nvsa, mimonet, ...) *and* slot-pool LM
+  engines (llama3.2-3b, granite-moe-1b-a400m, ...) — because it only
+  drives the unified ``submit`` / ``drain_ready`` / ``drain_all``
+  surface.  Each arrival names its model, groups are formed per model,
+  and every engine keeps its own in-flight window on the shared host.
 - **per-request latency accounting**: arrival -> dispatch (queueing) and
   dispatch -> answers-on-host (service) per request, with p50/p95/p99
-  summaries (:meth:`FrontDoorReport.percentiles`) and problems/s per
-  model (:meth:`FrontDoorReport.work_per_s`).
+  summaries (:meth:`FrontDoorReport.percentiles`) and per-class
+  throughput in each class's own unit (tokens/s for LM rows, problems/s
+  for NSAI rows — see :meth:`FrontDoorReport.work_per_s`).
 
 The serve loop is single-threaded and event-driven: it admits due
 arrivals, closes groups by the policy, dispatches them asynchronously
 through ``submit`` (host staging overlaps device compute), and while
-waiting for traffic calls ``drain_ready`` on every engine, which
+waiting for traffic calls ``drain_ready`` on every engine — which both
 collects groups whose device buffers have already materialized (so
-``done`` timestamps are not deferred to the next dispatch).  ``clock``/``sleep`` are injectable — tests drive the
+``done`` timestamps are not deferred to the next dispatch) *and* lets
+engines that need host pumping (the LM slot pool) advance one decode
+block per call.  ``clock``/``sleep`` are injectable — tests drive the
 policy deterministically on a virtual clock; benchmarks use real time.
 
 Traffic models: :func:`poisson_arrivals` (open-loop Poisson at a given
@@ -255,8 +260,10 @@ class ServedGroup:
 class FrontDoorReport:
     """Results + latency accounting of one ``FrontDoor.serve`` call.
 
-    ``results`` maps model -> uid -> the engine's result
-    (``ReasonResult``).
+    ``results`` maps model -> uid -> the engine's own result type
+    (``Result`` with generated ``tokens`` for LM engines, ``ReasonResult``
+    with an ``answer`` for NSAI engines) — one report covers both request
+    classes.
 
     Overload-control outcomes are first class: ``shed`` lists every
     rejected request (:class:`~repro_torch.serve.control.ShedRecord` — never a
@@ -317,9 +324,14 @@ class FrontDoorReport:
         return n / self.wall_time_s if self.wall_time_s else 0.0
 
     def work_per_s(self, model: str | None = None) -> float:
-        """Served problems/s over the serve's wall time."""
-        total = sum(len(res) for m, res in self.results.items()
-                    if model is None or m == model)
+        """Served throughput in the class's own work unit: generated
+        tokens/s for LM models, problems/s for NSAI models (mixing models
+        of different classes sums their units — pass ``model`` for a
+        meaningful number)."""
+        total = sum(rt.work_units(r)
+                    for m, res in self.results.items()
+                    if model is None or m == model
+                    for r in res.values())
         return total / self.wall_time_s if self.wall_time_s else 0.0
 
     def bucket_histogram(self, model: str | None = None) -> dict[int, int]:
@@ -328,6 +340,10 @@ class FrontDoorReport:
             if model is None or g.model == model:
                 hist[g.bucket] = hist.get(g.bucket, 0) + 1
         return dict(sorted(hist.items()))
+
+    def work_unit(self, model: str) -> str:
+        """'tok' (LM) or 'prob' (NSAI) for one model's served results."""
+        return rt.work_unit_name(self.results.get(model, {}).values())
 
     def replica_breakdown(self, model: str | None = None
                           ) -> dict[int, dict] | None:
@@ -369,7 +385,7 @@ class FrontDoorReport:
                             self.bucket_histogram(model).items())
             lines.append(
                 f"{model}: {n} served @ {self.throughput_rps(model):.1f}/s"
-                f" ({self.work_per_s(model):.1f} prob/s)"
+                f" ({self.work_per_s(model):.1f} {self.work_unit(model)}/s)"
                 f" | queue p50/p95/p99 {q['p50'] * 1e3:.1f}/"
                 f"{q['p95'] * 1e3:.1f}/{q['p99'] * 1e3:.1f}ms"
                 f" | service p50/p95/p99 {s['p50'] * 1e3:.1f}/"
@@ -412,7 +428,9 @@ class FrontDoorConfig:
     # admission cap per group (None = each engine's ``admission_cap``)
     max_batch: int | None = None
     # while groups are in flight, sleeps are capped at this poll interval
-    # so ready groups get drained (and done-stamped) promptly
+    # so ready groups get drained (and done-stamped) promptly — and so
+    # LM engines, which decode one block per drain_ready call, make
+    # progress between arrivals
     poll_s: float = 0.002
 
 
@@ -420,7 +438,8 @@ class FrontDoor:
     """Deadline-batched, shape-bucketed admission over protocol engines.
 
     ``engines`` maps model name -> any :class:`~repro_torch.serve.runtime.
-    EngineProtocol` implementation (``ReasonEngine``) — model constants are bound inside each engine, so the
+    EngineProtocol` implementation (``ReasonEngine``, the LM ``Engine``,
+    or a mix) — model constants are bound inside each engine, so the
     front-door schedules traffic only.  ``serve`` consumes a time-ordered
     :class:`ArrivalRequest` stream (use :func:`merge_arrivals` for
     several models) and returns a :class:`FrontDoorReport`.
@@ -621,7 +640,8 @@ class FrontDoor:
             dt = min(events) - now()
             if dt > 0:
                 # the device keeps working while the host waits; collect
-                # whatever finished so done-stamps aren't deferred
+                # whatever finished so done-stamps aren't deferred, and
+                # let host-pumped engines (LM decode) advance a block
                 inflight = 0
                 for model, eng in self.engines.items():
                     results[model].update(eng.drain_ready())

@@ -10,11 +10,12 @@ registry of traffic classes
 (:data:`TRAFFIC_CLASSES`, :func:`resolve_models`) that ``serve.deploy``
 validates its model list against.
 
-The registry serves the four reasoners of ``configs.base.REASON_WORKLOADS``.
-The port's LM ``Engine`` (``serve.engine``, built by
-``configs.base.lm_engine``) runs on its own; it is not a traffic class of
-the registry yet, so an LM arch id of the reference, or the ``lm`` class,
-raises ``KeyError`` naming ROADMAP Queue 1 #4.
+The registry serves the four reasoners of ``configs.base.REASON_WORKLOADS``
+(class ``reason``) and the LM archs the port builds (class ``lm``, the
+slot-pool ``serve.engine.Engine`` of ``configs.base.lm_engine``); the
+``frontdoor`` class mixes both.  The reference's recurrent archs
+(rwkv6-7b, recurrentgemma-9b) raise ``KeyError`` naming ROADMAP Queue 1 #4
+item 3, which ports their kinds.
 """
 
 from __future__ import annotations
@@ -114,6 +115,12 @@ def work_units(result: Any) -> int:
     return len(tokens) if tokens is not None else 1
 
 
+def work_unit_name(results: Iterable[Any]) -> str:
+    """'tok' when any result carries generated tokens, else 'prob'."""
+    return "tok" if any(getattr(r, "tokens", None) is not None
+                        for r in results) else "prob"
+
+
 def request_priority(request: Any) -> str:
     """Priority class of a request envelope: its ``priority`` attribute,
     or ``standard`` when it names none (the front-door validates it)."""
@@ -135,22 +142,32 @@ def engine_observation(engine: Any) -> dict[str, Any]:
 # the runtime registry
 # ---------------------------------------------------------------------------
 
-#: The reference's servable LM arch ids (kinds lm / rwkv / griffin).  The
-#: registry takes no LM traffic yet (ROADMAP Queue 1 #4).
-LM_MODELS_NOT_PORTED: tuple[str, ...] = (
-    "deepseek-v3-671b", "gemma3-12b", "granite-moe-1b-a400m", "llama3.2-3b",
-    "recurrentgemma-9b", "rwkv6-7b", "stablelm-3b", "starcoder2-3b")
+#: The reference's servable recurrent arch ids (kinds rwkv / griffin),
+#: whose kinds the port does not build yet.
+LM_MODELS_NOT_PORTED: tuple[str, ...] = ("recurrentgemma-9b", "rwkv6-7b")
 
 
-def _lm_not_ported(what: str) -> KeyError:
-    return KeyError(f"{what}: the port's runtime registry has no LM traffic "
-                    "class yet (ROADMAP Queue 1 #4, the LM substrate)")
+def recurrent_not_ported(what: str) -> KeyError:
+    return KeyError(f"{what}: the rwkv and griffin kinds are not ported yet "
+                    "(ROADMAP Queue 1 #4 item 3, nn/ssm.py)")
+
+
+def _lm_model_ids() -> tuple[str, ...]:
+    """Arch ids the slot-pool Engine can serve: every arch the port builds
+    (all of kind ``lm``)."""
+    from repro_torch.configs import ARCHS
+
+    return tuple(sorted(ARCHS))
 
 
 def _reason_model_ids() -> tuple[str, ...]:
     from repro_torch.configs.base import REASON_WORKLOADS
 
     return tuple(REASON_WORKLOADS)
+
+
+def _all_model_ids() -> tuple[str, ...]:
+    return _reason_model_ids() + _lm_model_ids()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,20 +180,22 @@ class TrafficClass:
 
 
 TRAFFIC_CLASSES: dict[str, TrafficClass] = {
+    "lm": TrafficClass(
+        "lm", "continuous-batching generation through the slot-pool Engine",
+        _lm_model_ids),
     "reason": TrafficClass(
         "reason", "batched NSAI reasoning through the staged-pipeline "
                   "ReasonEngine", _reason_model_ids),
     "frontdoor": TrafficClass(
-        "frontdoor", "online NSAI traffic: DSE-deployed engines behind one "
-                     "deadline-batched front-door", _reason_model_ids),
+        "frontdoor", "online mixed LM+NSAI traffic: DSE-deployed engines "
+                     "behind one deadline-batched front-door",
+        _all_model_ids),
 }
 
 
 def resolve_models(workload: str, models: Iterable[str]) -> tuple[str, ...]:
-    """Validate a model list against a traffic class's registry entry.
-    An LM arch id, or the ``lm`` class, raises ``KeyError`` (not ported)."""
-    if workload == "lm":
-        raise _lm_not_ported("traffic class 'lm'")
+    """Validate a model list against a traffic class's registry entry.  A
+    recurrent arch id of the reference raises ``KeyError`` (not ported)."""
     tc = TRAFFIC_CLASSES.get(workload)
     if tc is None:
         raise KeyError(f"unknown workload {workload!r}; "
@@ -184,8 +203,8 @@ def resolve_models(workload: str, models: Iterable[str]) -> tuple[str, ...]:
     known = tc.models()
     out = tuple(models)
     lm = [m for m in out if m in LM_MODELS_NOT_PORTED]
-    if lm:
-        raise _lm_not_ported(f"LM models {lm}")
+    if lm and workload != "reason":
+        raise recurrent_not_ported(f"LM models {lm}")
     bad = [m for m in out if m not in known]
     if bad:
         raise ValueError(f"{workload}: unknown models {bad}; "

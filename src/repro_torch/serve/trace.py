@@ -34,7 +34,9 @@ digests.  Each package loads the other's files.
 The port takes no lowering override (ROADMAP Queue 1 #3e): ``backend`` is
 None or a :class:`~repro_torch.backend.registry.LoweringPlan`, whose
 platform says where a fresh deployment runs; a string raises.  Traces of
-the ``lm`` class wait for LM models in ``deploy`` (#4).
+the ``lm`` class record and replay like NSAI ones, with token ids compared
+exactly; a header naming a recurrent arch (rwkv6-7b, recurrentgemma-9b)
+raises ``KeyError`` (#4 item 3).
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch.backend import registry
+from repro_torch.serve import runtime as rt
 from repro_torch.serve.frontdoor import ArrivalRequest, FrontDoorReport
 
 TRACE_VERSION = 1
@@ -63,17 +66,6 @@ _DIFF_FIELDS = {
 # of those, the float-valued ones (epsilon applies); the rest are exact
 # regardless of plan (argmax answers, token ids)
 _FLOAT_FIELDS = ("answer_logprobs", "rule_posteriors")
-
-# the reference's LM fields of ``Budget`` and their defaults: a header the
-# JAX package wrote carries them; the port rebuilds only at these values
-_LM_BUDGET = {"max_slots": 4, "max_len": 128, "decode_block": 8,
-              "max_new_tokens": 24}
-
-
-def _lm_not_ported(what: str) -> KeyError:
-    return KeyError(f"{what}: the port records and replays no lm-class "
-                    "traces yet (ROADMAP Queue 1 #4, the LM substrate)")
-
 
 # ---------------------------------------------------------------------------
 # array / payload (de)serialization
@@ -134,25 +126,20 @@ def _decode_payload(line: dict) -> dict:
 
 
 def _build_request(cls_name: str, uid: int, fields: dict):
-    if cls_name != "reason":
-        raise _lm_not_ported(f"a {cls_name!r}-class request")
-    from repro_torch.serve.reason import ReasonRequest
+    if cls_name == "reason":
+        from repro_torch.serve.reason import ReasonRequest
 
-    return ReasonRequest(uid=uid, **fields)
+        return ReasonRequest(uid=uid, **fields)
+    from repro_torch.serve.engine import Request
+
+    return Request(uid=uid, **fields)
 
 
 def _port_budget(fields: dict):
-    """The port's ``Budget`` from a header's budget record.  The
-    reference's LM fields are accepted at their defaults only."""
+    """The port's ``Budget`` from a header's budget record (the two
+    packages' ``Budget`` have the same fields)."""
     from repro_torch.serve.deploy import Budget
 
-    fields = dict(fields)
-    for name, default in _LM_BUDGET.items():
-        value = fields.pop(name, default)
-        if value != default:
-            raise NotImplementedError(
-                f"Budget({name}={value!r}): an LM budget field; the port's "
-                "deploy() takes no LM models yet (ROADMAP Queue 1 #4)")
     return Budget(**fields)
 
 
@@ -361,9 +348,10 @@ class GoldenTrace:
                 not isinstance(backend, registry.LoweringPlan):
             raise TypeError(f"backend must be None or a LoweringPlan, got "
                             f"{type(backend).__name__}")
-        for m, rec in self.header["models"].items():
-            if rec["class"] != "reason":
-                raise _lm_not_ported(f"model {m!r} of class {rec['class']!r}")
+        unported = [m for m in self.header["models"]
+                    if m in rt.LM_MODELS_NOT_PORTED]
+        if unported:
+            raise rt.recurrent_not_ported(f"models {unported} of the trace")
         if deployment is None:
             deployment = self.deploy(backend)
         plan = deployment.backend or backend or registry.negotiate()

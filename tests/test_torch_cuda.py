@@ -680,3 +680,54 @@ def test_new_kernels_are_deterministic(gen):
         first = call()
         for _ in range(3):
             assert torch.equal(call(), first)
+
+
+# -- the MoE / MLA substrate -----------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(1, 2048, 16, 64), (4, 512, 16, 64)])
+def test_flash_attn_bf16_at_granite_head_dim(gen, shape):
+    """The bf16 kernel's head-dim-64 instantiation at granite-moe's forward
+    shapes (16 heads of 64), the limits of ``test_flash_attn_kernel``."""
+    _check_flash(gen, shape, shape[1], True, torch.bfloat16, aligned=True)
+
+
+@pytest.mark.parametrize("arch_id", ["granite-moe-1b-a400m", "deepseek-v3-671b"])
+def test_moe_forward_on_the_card(gen, arch_id):
+    """A tiny MoE / MLA forward (the smoke arch) on the card against the
+    same parameters on the CPU: last-token logits within 3e-2 of their
+    scale, the same experts chosen and the same pairs kept in each MoE
+    layer's routing of the first layer's input, one flash_attn launch per
+    GQA layer, and a decode step's logits finite."""
+    from repro_torch import interop
+    from repro_torch.configs import base as cb
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    from repro_torch.nn import init as nninit
+    from repro_torch.nn import moe
+
+    arch = get_arch(arch_id)
+    cfg = arch.make_smoke()
+    cpu = nninit.materialize(cb.model_spec(arch, cfg), torch.Generator().manual_seed(0))
+    card = interop.to_device(cpu, "cuda")
+    toks = torch.randint(0, cfg.vocab, (2, 40), generator=torch.Generator().manual_seed(1))
+    before = registry.LAUNCHES["flash_attn"]
+    got = cb.prefill_fn(arch, cfg)(card, toks.cuda())
+    torch.cuda.synchronize()
+    gqa_layers = 0 if cfg.attn_kind == "mla" else cfg.n_layers
+    assert registry.LAUNCHES["flash_attn"] == before + gqa_layers
+    want = cb.prefill_fn(arch, cfg)(cpu, toks)
+    scale = max(1.0, float(want.float().abs().max()))
+    torch.testing.assert_close(got.float().cpu(), want.float(), atol=3e-2 * scale, rtol=0)
+    layer = lm._layer(cpu["body"], 0)["u0"]["ffn"]
+    x = torch.randn(80, cfg.d_model, generator=torch.Generator().manual_seed(2))
+    _, idx, _ = moe.route(layer, cfg.moe, x)
+    _, idx_card, _ = moe.route(interop.to_device(layer, "cuda"), cfg.moe, x.cuda())
+    assert torch.equal(idx_card.cpu(), idx)
+    cap = moe._capacity(cfg.moe, 80)
+    for a, b in zip(moe.dispatch(idx, cfg.moe.n_experts, cap),
+                    moe.dispatch(idx_card, cfg.moe.n_experts, cap)):
+        assert torch.equal(b.cpu(), a)
+    caches = lm.init_caches(cfg, 2, 8, device="cuda")
+    _, logits = lm.decode_step(card, cfg, caches, toks[:, 0].cuda(), 0)
+    assert bool(logits.isfinite().all())

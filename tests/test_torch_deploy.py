@@ -205,8 +205,8 @@ def test_unported_options_raise():
     for preflight in ("error", "warn"):
         with pytest.raises(NotImplementedError, match="#7"):
             p_deploy_mod.deploy(["nvsa"], preflight=preflight, device="cpu")
-    with pytest.raises(KeyError, match="#4"):
-        p_deploy_mod.deploy(["nvsa", "llama3.2-3b"], device="cpu")
+    with pytest.raises(KeyError, match="#4 item 3"):
+        p_deploy_mod.deploy(["nvsa", "rwkv6-7b"], device="cpu")
     with pytest.raises(ValueError, match="preflight must be"):
         p_deploy_mod.deploy(["nvsa"], preflight="strict", device="cpu")
     with pytest.raises(ValueError, match="at least one workload"):

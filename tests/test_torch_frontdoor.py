@@ -266,9 +266,15 @@ def _assert_nonempty(decisions, control):
 def test_runtime_registry_and_envelopes():
     assert p_rt.resolve_models("frontdoor", ["nvsa", "lvrf"]) == ("nvsa", "lvrf")
     assert set(p_rt.TRAFFIC_CLASSES["reason"].models()) == set(cb.REASON_WORKLOADS)
-    with pytest.raises(KeyError, match="Queue 1 #4"):
-        p_rt.resolve_models("frontdoor", ["llama3.2-3b"])
-    with pytest.raises(KeyError, match="Queue 1 #4"):
+    # LM archs resolve in the lm and frontdoor classes; the recurrent kinds
+    # still raise, naming their item
+    assert p_rt.resolve_models("frontdoor", ["nvsa", "llama3.2-3b"]) == \
+        ("nvsa", "llama3.2-3b")
+    assert "llama3.2-3b" in p_rt.TRAFFIC_CLASSES["lm"].models()
+    for workload in ("frontdoor", "lm"):
+        with pytest.raises(KeyError, match="Queue 1 #4 item 3"):
+            p_rt.resolve_models(workload, ["rwkv6-7b"])
+    with pytest.raises(ValueError, match="unknown models"):
         p_rt.resolve_models("lm", ["nvsa"])
     with pytest.raises(ValueError, match="unknown models"):
         p_rt.resolve_models("reason", ["resnet"])

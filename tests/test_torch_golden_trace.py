@@ -14,8 +14,9 @@ reference's ``GoldenTrace`` with its digests holding.
 
 ``tests/golden/nvsa_oracle_d128.jsonl`` (with its constants in the
 ``.npz`` beside it) is a trace the reference recorded, for ``chip_smoke.py``
-to replay on the card, where there is no JAX.  A test re-records it and
-holds the committed files to the reference; to write them anew:
+to replay on the card, where there is no JAX.  Its door runs on a virtual
+clock, so its groups follow from the arrivals alone.  A test re-records it
+and holds the committed files to the reference; to write them anew:
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_golden_trace.py
 """
@@ -48,13 +49,28 @@ FIXTURE_REQUESTS = 8
 FIXTURE_OPTIONS = {"nvsa": {"d": 128, "variant": "oracle"}}
 
 
+class VirtualClock:
+    """A clock that moves only when the door sleeps, so the groups a door
+    forms depend on the arrivals alone, not on how fast the host serves."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+    def sleep(self, dt: float):
+        self.t += dt
+
+
 def _reference_deploy(options):
     from repro.backend import registry as r_registry
 
+    clock = VirtualClock()
     return r_deploy.deploy(["nvsa"], r_deploy.Traffic(**TRAFFIC),
                            r_deploy.Budget(**BUDGET), seed=3, options=options,
                            backend=r_registry.negotiate(override=""),
-                           preflight="off")
+                           preflight="off", clock=clock, sleep=clock.sleep)
 
 
 def _numpy_tree(tree):
@@ -102,9 +118,11 @@ def bind_constants(dep, consts, device="cpu"):
 @pytest.fixture(scope="module")
 def golden(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("trace") / "golden.jsonl")
+    clock = VirtualClock()
     dep = p_deploy.deploy(["nvsa"], p_deploy.Traffic(**TRAFFIC),
                           p_deploy.Budget(**BUDGET), seed=3,
-                          options={"nvsa": {"d": 128}}, device="cpu")
+                          options={"nvsa": {"d": 128}}, device="cpu",
+                          clock=clock, sleep=clock.sleep)
     arrivals, _ = dep.synthetic_traffic(N_REQUESTS, seed=11)
     report, trace = p_trace.record(dep, arrivals, path)
     return dep, report, trace, path
@@ -181,8 +199,8 @@ def test_header_records_deploy_spec(golden):
 
 
 def test_replay_refuses_what_the_port_does_not_take(golden):
-    """A string backend (#3e), an LM model (#4) and a non-default LM field
-    of the reference's Budget (#4) raise; the defaults are accepted."""
+    """A string backend (#3e) and a recurrent LM model (#4 item 3) raise;
+    the reference's LM fields of Budget are taken at any value."""
     _, _, trace, path = golden
     with pytest.raises(NotImplementedError, match="#3e"):
         trace.replay(backend="xla")
@@ -190,13 +208,13 @@ def test_replay_refuses_what_the_port_does_not_take(golden):
         p_deploy.deploy(["nvsa"], backend=registry.negotiate("cpu"),
                         device="cpu")
     lines = [json.loads(l) for l in open(path)]
-    lines[0]["models"]["llama3.2-3b"] = {"class": "lm", "variant": None}
-    with pytest.raises(KeyError, match="#4"):
+    lines[0]["models"]["rwkv6-7b"] = {"class": "lm", "variant": None}
+    with pytest.raises(KeyError, match="#4 item 3"):
         p_trace.GoldenTrace.from_lines(lines).replay()
-    budget = dict(trace.header["deploy"]["budget"], **p_trace._LM_BUDGET)
+    budget = dict(trace.header["deploy"]["budget"])
     assert p_trace._port_budget(budget) == p_deploy.Budget(**BUDGET)
-    with pytest.raises(NotImplementedError, match="#4"):
-        p_trace._port_budget(dict(budget, max_slots=8))
+    assert p_trace._port_budget(dict(budget, max_slots=8)) == \
+        p_deploy.Budget(**BUDGET, max_slots=8)
 
 
 @pytest.mark.parametrize("recorded, replayed, served, want", [
@@ -237,7 +255,7 @@ def test_jax_recorded_trace_replays_on_the_port(jax_golden):
     assert set(trace.recorded_tags.values()) == {"interpret"}
     dep = bind_constants(trace.deploy(registry.negotiate("cpu")), consts)
     assert trace.header["deploy"]["budget"]["max_slots"] == \
-        p_trace._LM_BUDGET["max_slots"]
+        p_deploy.Budget().max_slots
     rep = trace.replay(deployment=dep)
     diff = trace.diff(rep)
     assert diff.tolerance == registry.KERNELS["circ_conv"].epsilon == 1e-3

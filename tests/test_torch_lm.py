@@ -1,6 +1,13 @@
 """Parity of the port's decoder LM (``repro_torch.models.lm``) and its arch
 adapter (``configs.base``, ``configs.registry``) with the JAX reference.
 
+The MoE / MLA archs (granite-moe-1b-a400m, deepseek-v3-671b, smoke width)
+are held the same way: forward and decode logits within 1e-4 at f32
+compute and 3e-2 of the logits' scale at bf16, the summed MoE aux loss,
+greedy ``Engine`` streams identical at f32 compute, and at published width
+the parameter tree (the MTP head's included), the parameter counts and the
+cache shapes.
+
 The four dense smoke archs (2-6 layers, d 64) with the reference's
 parameters carried across: logits of the full-context forward
 (``prefill_fn``, whose unwindowed layers call the flash_attn wrapper) and of
@@ -37,6 +44,7 @@ from repro_torch.configs import base as cbase
 from repro_torch.models import lm
 
 DENSE_ARCHS = ("llama3.2-3b", "stablelm-3b", "gemma3-12b", "starcoder2-3b")
+MOE_ARCHS = ("granite-moe-1b-a400m", "deepseek-v3-671b")
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}  # bf16: of the logits' scale
 
 
@@ -73,8 +81,8 @@ def _tokens(vocab: int, b: int, s: int, seed: int) -> np.ndarray:
 
 
 def test_registry_and_unported_archs():
-    assert sorted(ARCHS) == sorted(DENSE_ARCHS)
-    for arch_id in DENSE_ARCHS:
+    assert sorted(ARCHS) == sorted(DENSE_ARCHS + MOE_ARCHS)
+    for arch_id in DENSE_ARCHS + MOE_ARCHS:
         arch, jarch = get_arch(arch_id), JARCHS[arch_id]
         assert (arch.family, arch.kind, arch.source, arch.note) == \
             (jarch.family, jarch.kind, jarch.source, jarch.note)
@@ -83,6 +91,12 @@ def test_registry_and_unported_archs():
             fields = {f.name for f in dataclasses.fields(c)} - {
                 "param_dtype", "compute_dtype", "mla", "moe"}
             assert {f: getattr(c, f) for f in fields} == {f: getattr(jc, f) for f in fields}
+            for sub in ("mla", "moe"):
+                mine, theirs = getattr(c, sub), getattr(jc, sub)
+                assert (mine is None) == (theirs is None), (arch_id, sub)
+                if mine is not None:
+                    assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
+            assert str(c.param_dtype).split(".")[-1] == jnp.dtype(jc.param_dtype).name
     for arch_id in sorted(set(JARCHS) - set(ARCHS)):
         with pytest.raises(KeyError, match="Queue 1 #4"):
             get_arch(arch_id)
@@ -91,16 +105,20 @@ def test_registry_and_unported_archs():
 
 
 def test_unported_kinds_and_options_raise():
+    """The recurrent, vlm and enc-dec kinds still raise, naming Queue 1 #4
+    item 3; MoE, MLA and the MTP head are ported (MOE_ARCHS below), and an
+    unknown attention kind is refused."""
     arch = ARCHS["llama3.2-3b"]
     cfg = arch.make_smoke()
     for kind in ("rwkv", "griffin", "vlm", "encdec"):
-        with pytest.raises(NotImplementedError, match="Queue 1 #4"):
+        with pytest.raises(NotImplementedError, match="Queue 1 #4 item 3"):
             cbase.model_spec(dataclasses.replace(arch, kind=kind), cfg)
-    for bad in (dict(moe=object()), dict(attn_kind="mla"), dict(mtp=True)):
-        with pytest.raises(NotImplementedError, match="Queue 1 #4"):
-            lm.lm_spec(dataclasses.replace(cfg, **bad))
-    with pytest.raises(KeyError, match="Queue 1 #4"):
-        cbase.lm_engine("rwkv6-7b", device="cpu")
+    with pytest.raises(ValueError, match="unknown attn_kind"):
+        lm.lm_spec(dataclasses.replace(cfg, attn_kind="linear"))
+    for arch_id in ("rwkv6-7b", "recurrentgemma-9b", "internvl2-26b",
+                    "seamless-m4t-large-v2"):
+        with pytest.raises(KeyError, match="Queue 1 #4 item 3"):
+            cbase.lm_engine(arch_id, device="cpu")
 
 
 @pytest.mark.parametrize("arch_id", DENSE_ARCHS)
@@ -210,3 +228,120 @@ def test_param_count_and_device_default():
             lm.init_caches(arch.make_smoke(), 1, 8)
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cbase.lm_engine("llama3.2-3b")
+
+
+# -- the MoE / MLA archs ---------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def moe_params():
+    """The reference's smoke parameters of each MoE / MLA arch (MTP head
+    included), and the port's copy."""
+    out = {}
+    for i, arch_id in enumerate(MOE_ARCHS):
+        jarch = JARCHS[arch_id]
+        jp = jinit.materialize(jbase.model_spec(jarch, jarch.make_smoke()),
+                               jax.random.PRNGKey(30 + i))
+        out[arch_id] = (jp, interop.from_reference(jax.tree.map(np.asarray, jp),
+                                                   device="cpu"))
+    return out
+
+
+@pytest.mark.parametrize("arch_id", MOE_ARCHS)
+def test_moe_archs_at_published_width(arch_id):
+    """The parameter tree of the published config, the MTP head's
+    included, leaf for leaf (shape, dtype); the total and active parameter
+    counts; the stage plan and cache shapes."""
+    jarch, arch = JARCHS[arch_id], ARCHS[arch_id]
+    jcfg, cfg = jarch.make_full(), arch.make_full()
+    jleaves = jax.tree_util.tree_flatten_with_path(
+        jbase.model_spec(jarch, jcfg), is_leaf=lambda x: isinstance(x, jinit.P))[0]
+    leaves = jax.tree_util.tree_flatten_with_path(
+        cbase.model_spec(arch, cfg), is_leaf=lambda x: isinstance(x, lm.P))[0]
+    assert [(jax.tree_util.keystr(k), p.shape, p.axes) for k, p in leaves] == \
+        [(jax.tree_util.keystr(k), p.shape, p.axes) for k, p in jleaves]
+    assert {str(p.dtype).split(".")[-1] for _, p in leaves if "router" not in str(_)} \
+        == {jnp.dtype(p.dtype).name for _, p in jleaves if "router" not in str(_)}
+    assert cbase.param_count(arch, cfg) == jbase.param_count(jarch, jcfg)
+    assert cbase.active_param_count(arch, cfg) == jbase.active_param_count(jarch, jcfg)
+    jplan, plan = jlm.stage_plan(jcfg), lm.stage_plan(cfg)
+    assert (plan.prefix, plan.unit, plan.repeats, plan.tail) == \
+        (jplan.prefix, jplan.unit, jplan.repeats, jplan.tail)
+    jshapes = jax.tree.leaves(jlm.cache_shapes(jcfg, 3, 40))
+    assert [tuple(t.shape) for t in jax.tree.leaves(lm.cache_shapes(cfg, 3, 40))] == \
+        [s.shape for s in jshapes]
+
+
+@pytest.mark.parametrize("arch_id", MOE_ARCHS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_archs_prefill_fn_logits(moe_params, arch_id, dtype):
+    """Last-token logits of the full-context forward.  granite-moe's GQA
+    layers call the flash_attn wrapper; deepseek-v3's MLA layers do not."""
+    jp, p = moe_params[arch_id]
+    jcfg, cfg = _cfgs(arch_id, dtype)
+    toks = _tokens(cfg.vocab, 2, 37, seed=5)
+    want = jbase.prefill_fn(JARCHS[arch_id], jcfg)(jp, jnp.asarray(toks))
+    with registry.record_kernels() as rec:
+        got = cbase.prefill_fn(ARCHS[arch_id], cfg)(p, torch.from_numpy(toks).long())
+    n_flash = 0 if cfg.attn_kind == "mla" else cfg.n_layers
+    assert rec == [("flash_attn", "kernel")] * n_flash
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("arch_id", MOE_ARCHS)
+def test_moe_archs_forward_and_aux(moe_params, arch_id):
+    jp, p = moe_params[arch_id]
+    jcfg, cfg = _cfgs(arch_id, "float32")
+    toks = _tokens(cfg.vocab, 2, 21, seed=6)
+    jh, jaux = jlm.forward(jp, jcfg, jnp.asarray(toks))
+    h, aux = lm.forward(p, cfg, torch.from_numpy(toks).long())
+    _close(h, jh, "float32")
+    np.testing.assert_allclose(float(aux), float(jaux), atol=1e-5, rtol=0)
+    assert float(aux) > 0.0
+
+
+@pytest.mark.parametrize("arch_id", MOE_ARCHS)
+def test_moe_archs_decode_steps_logits(moe_params, arch_id):
+    """``decode_fn`` at f32 compute on f32 caches (MLA: the compressed
+    cache), slots at different depths, logits at every step."""
+    jp, p = moe_params[arch_id]
+    jcfg, cfg = _cfgs(arch_id, "float32")
+    jstep, _ = jbase.serve_fns(JARCHS[arch_id], jcfg, max_len=40)
+    jstep = jax.jit(jstep)
+    step, _ = cbase.serve_fns(ARCHS[arch_id], cfg, max_len=40)
+    jcaches, caches = _zeros_like_tree(
+        (jlm.cache_shapes(jcfg, 2, 40), lm.cache_shapes(cfg, 2, 40)),
+        jnp.float32, torch.float32)
+    toks = _tokens(cfg.vocab, 18, 2, seed=7)
+    start = np.array([0, 11], np.int32)
+    for t in range(18):
+        pos = start + t
+        jcaches, want = jstep(jp, jcaches, jnp.asarray(toks[t]), jnp.asarray(pos))
+        caches, got = step(p, caches, torch.from_numpy(toks[t]).long(),
+                           torch.from_numpy(pos).long())
+        _close(got, want, "float32")
+
+
+@pytest.mark.parametrize("arch_id", MOE_ARCHS)
+def test_moe_archs_engine_greedy_streams(moe_params, arch_id):
+    """The slot-pool ``Engine`` at f32 compute with the default caches:
+    greedy streams identical to the reference engine's, ragged prompts,
+    fewer slots than requests."""
+    from repro.serve import engine as jengine
+    from repro_torch.serve import engine as pengine
+
+    jp, p = moe_params[arch_id]
+    jcfg, cfg = _cfgs(arch_id, "float32")
+    serve = dict(max_new_tokens=6, max_slots=3, max_len=48, decode_block=4)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(1, 256, int(rng.integers(3, 30))).astype(np.int32)
+               for _ in range(5)]
+    jstep, jinit_c = jbase.serve_fns(JARCHS[arch_id], jcfg, max_len=48)
+    step, init_c = cbase.serve_fns(ARCHS[arch_id], cfg, max_len=48)
+    want = jengine.Engine(jstep, jinit_c, jengine.ServeConfig(**serve), params=jp).run(
+        [jengine.Request(uid=i, prompt=q) for i, q in enumerate(prompts)])
+    got = pengine.Engine(step, init_c, pengine.ServeConfig(**serve), params=p).run(
+        [pengine.Request(uid=i, prompt=q) for i, q in enumerate(prompts)])
+    assert sorted(got) == sorted(want) == list(range(5))
+    for uid, res in want.items():
+        assert got[uid].tokens.tolist() == np.asarray(res.tokens).tolist(), uid
