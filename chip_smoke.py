@@ -30,8 +30,9 @@ and prints no result line):
    row with its cluster size S and, where S > 1, the device time of the
    same launch at S = 1) and ``flash_attn`` (``flash_mha`` at
    llama3.2-3b's (1, 2048, 24, 128), causal, within 2e-5 at f32 and 1e-3 +
-   one bf16 step at bf16, both on the tensor cores, and at granite-moe's
-   (1, 2048, 16, 64) at bf16; also Sq = 100 against Skv = 300 and S = 1000
+   one bf16 step at bf16, both on the tensor cores, at granite-moe's
+   (1, 2048, 16, 64) and internvl2-26b's (1, 2048, 48, 128) at bf16; also
+   Sq = 100 against Skv = 300 and S = 1000
    at both dtypes; at S = 2048 f32 also the error
    of one tf32 product per f32 product, the split dropped, which must
    exceed the 2e-5), each beside its library call (FFT chain;
@@ -132,17 +133,18 @@ and prints no result line):
    within 1e-3 + one bf16 step.  Its slot-pool ``Engine``
    (``serve_fns``, ``ServeConfig(max_slots=8, max_len=512,
    max_new_tokens=32, decode_block=8, prefill_bucket=16)``) serving 16
-   ``SyntheticTokens`` prompts of 16-128 tokens: greedy twice (the second
+   ``SyntheticTokens`` prompts of 16-64 tokens: greedy twice (the second
    run measured), online ``submit`` / ``drain_ready`` equal to ``run()``,
    the same streams at ``max_slots=3`` but where they leave at a near tie,
    sampled (temperature 0.8, top-k 50) offline equal to online, every
    request answered with its budget.  Decode against the full-context
    forward over prompt + generated tokens: at every generated position of
-   every stream, the logits of ``decode_step`` scanned over the same
-   tokens within 3e-2 of the forward's logits' scale there, and each
-   greedy token the forward's argmax wherever the forward's top-2 margin
-   exceeds twice that (near ties counted); the decode read one position
-   late must lie beyond the tolerance somewhere.  Rows: tokens/s, ms per
+   every stream and the 16 prompt positions before, the logits of
+   ``decode_step`` scanned over the same tokens within 3e-2 of the
+   forward's logits' scale there, and each greedy token the forward's
+   argmax wherever the forward's top-2 margin exceeds twice that (near
+   ties counted); the decode read one position late must lie beyond the
+   tolerance somewhere on those same positions.  Rows: tokens/s, ms per
    decode step and per admission, parameter and KV-cache bytes,
    ``max_memory_allocated``.  Then gemma3-12b at its width and one pattern
    unit of depth (a reduced depth: 6 of its 48 layers, 5 local with window
@@ -166,7 +168,36 @@ and prints no result line):
    outside near ties, and that scan, each MoE layer's experts forced to
    those the forward chose (``RoutesHeld``), within 3e-2 of the forward's
    scale at every generated position (``lm_check_decode`` given the
-   engine's ``serve``).  Parameter, KV and peak bytes.
+   engine's ``serve``).  Parameter, KV and peak bytes.  Then the recurrent
+   kinds at their published widths (``lm_recurrent_arch``): rwkv6-7b (32
+   layers, d 4096, 7.02B f32 parameters) and recurrentgemma-9b (38 layers,
+   d 4096, RG-LRU and MQA with a 2048-token window, 9.40B), each the
+   ``prefill_fn`` forward at (1, 2048) and (4, 512) (no kernel: the WKV
+   recurrence, the RG-LRU scan and the causal conv are plain PyTorch, as
+   they are plain ``jnp`` in the reference), rwkv's chunked WKV (chunk 64)
+   against its token scan on 256 tokens within 3e-2 of the logits' scale
+   at f32 compute at 32 layers and at bf16 at 1 and 2 layers, the bf16 gap
+   reported at 4, 8, 16 and 32 (at this width the reference's own bf16
+   paths part by more than the tolerance from 4 layers on), the forward
+   at 2 (rwkv) or 3 (griffin: one unit) layers against the CPU, then the
+   engine at bf16 with exact-length prefill: 8 slots of 512, 8 prompts of
+   16, 32 and 48 tokens, 16 new, one prefill scan per distinct length,
+   the decode step's profile, and the decode held against the forward
+   at f32 compute and f32 decode state (the bf16 gap reported: rounding
+   flips grow through the layers) from position 15 of each sequence (the
+   positions before reported: while the state holds few tokens, rounding
+   alone parts the decode at 8 slots from itself at 1 slot at full
+   depth), the scale taken without the
+   input token's column (griffin's tied embedding echoes the input token
+   at ~81 against ~5 elsewhere), its tokens the argmax of the bf16 decode
+   scan at the engine's slot count outside near ties; rwkv6-7b also
+   served at 2 layers, held at bf16; recurrentgemma-9b also at one (rec,
+   rec, attn) unit of depth serving 2 prompts of 2056-2100 tokens, so its
+   rings wrap past the window, held at f32 as above.  Then internvl2-26b
+   at its width cut by memory to 38 of its 48 layers (``lm_vlm_arch``,
+   15.96B f32 parameters): the forward over 1024 random patch embeddings
+   and 1024 tokens, flash_attn once per layer at (1, 2048, 48, 128), held
+   against its plain version, and at 2 layers against the CPU.
 11. Door LM: LM traffic behind the front door.  A door built by hand over
    llama3.2-3b at its published width and an nvsa cnn fp32 engine at
    d = 256, 16 LM requests (16-64-token prompts, 16 new tokens, greedy)
@@ -175,10 +206,11 @@ and prints no result line):
    engine's offline run, held against the forward as in phase 10, every
    nvsa answer equal to its group's replay at the same bucket; rows of
    tokens/s and problems/s, p50 / p95 queue and service ms, close
-   reasons.  Then ``deploy(["nvsa", "llama3.2-3b"])`` at
-   the reference's smoke scale, warmed up, 8 requests a model recorded as
-   a golden trace and replayed through the same and a fresh card
-   deployment, tokens and answers exact.  The path's launches are those
+   reasons.  Then ``deploy(["nvsa", "llama3.2-3b"])`` and ``deploy(["nvsa",
+   "rwkv6-7b", "recurrentgemma-9b"])`` at the reference's smoke scale
+   (the recurrent LMs with exact-length prefill), each warmed up, 8
+   requests a model recorded as a golden trace and replayed through the
+   same and a fresh card deployment, tokens and answers exact.  The path's launches are those
    of the door's serve, the recorded serve and the replays: circ_conv
    only, since the LM engine admits prompts through ``decode_step`` token
    by token, as the reference's does (the decode check's forwards launch
@@ -191,7 +223,8 @@ and prints no result line):
    ``circ_dict`` corr and bf16 at (256, 16, 4, 256), ``unbind_classify``
    (8, 2, 4, 256, 5) under ``d256``, ``simd_fused`` bf16, (67, 5, 4, 128)
    under ``d128`` and (64, 1024, 4, 256) under ``m1024``, ``flash_attn``
-   bf16 at the same shape and bf16 at (1, 2048, 16, 64) under ``hd64``
+   bf16 at the same shape, bf16 at (1, 2048, 16, 64) under ``hd64`` and
+   bf16 at (1, 2048, 48, 128) under ``internvl2``
    (ms, device_ms, library_ms, bound_ms, bound_units, max_abs_err).
 13. The last line: ``{"ok": true, "device": {...}}``.
 
@@ -762,14 +795,16 @@ def flash_kernel_rows(gen) -> dict:
 
     main = {}
     b = 1
-    # llama3.2-3b's 24 heads of 128, and granite-moe's 16 heads of 64
+    # llama3.2-3b's 24 heads of 128, granite-moe's 16 heads of 64 and
+    # internvl2-26b's 48 heads of 128
     for sq, skv, causal, dtype, h, hd in ((2048, 2048, True, torch.float32, 24, 128),
                                           (2048, 2048, True, torch.bfloat16, 24, 128),
                                           (100, 300, True, torch.float32, 24, 128),
                                           (100, 300, True, torch.bfloat16, 24, 128),
                                           (1000, 1000, True, torch.float32, 24, 128),
                                           (1000, 1000, True, torch.bfloat16, 24, 128),
-                                          (2048, 2048, True, torch.bfloat16, 16, 64)):
+                                          (2048, 2048, True, torch.bfloat16, 16, 64),
+                                          (2048, 2048, True, torch.bfloat16, 48, 128)):
         scale = hd ** -0.5
         q = torch.randn(b, sq, h, hd, device="cuda", generator=gen).to(dtype)
         k = torch.randn(b, skv, h, hd, device="cuda", generator=gen).to(dtype)
@@ -818,6 +853,8 @@ def flash_kernel_rows(gen) -> dict:
         emit(row)
         if sq == 2048 and hd == 64:
             main["flash_attn_hd64"] = row
+        elif sq == 2048 and h == 48:
+            main["flash_attn_internvl2"] = row
         elif sq == 2048:
             main["flash_attn" if dtype == torch.float32 else "flash_attn_bf16"] = row
     return main
@@ -1883,14 +1920,17 @@ LM_ARCH = "llama3.2-3b"
 LM_FORWARD_SHAPES = ((1, 2048), (4, 512))   # (B, S) of the timed forwards
 LM_CPU_LAYERS, LM_CPU_SHAPE = 2, (1, 512)    # the forward held against the CPU
 LM_LOGIT_TOL = 3e-2     # of the logits' scale: 3e-2 x max(1, max |logit|)
+LM_CONTROL_BACK = 16    # prompt positions before the generated ones the control reads
+LM_REC_WARM = 15        # a held recurrent check leaves out each sequence's first 15 positions
 # decode and the full-context forward are two bf16 computations of the same
-# logits: at every generated position of every stream, the decode's logits
-# lie within LM_LOGIT_TOL of the forward's scale there.  A greedy token may
+# logits: at every generated position of every stream (and the
+# LM_CONTROL_BACK before), the decode's logits lie within LM_LOGIT_TOL of
+# the forward's scale there.  A greedy token may
 # so leave the forward's argmax only where the forward's top-2 margin is
 # at most twice that (a near tie, counted)
 LM_SERVE = dict(max_slots=8, max_len=512, max_new_tokens=32, decode_block=8,
                 prefill_bucket=16)
-LM_REQUESTS, LM_PROMPTS = 16, (16, 128)
+LM_REQUESTS, LM_PROMPTS = 16, (16, 64)
 LM_SAMPLED = dict(temperature=0.8, top_k=50)
 LM_RING_ARCH, LM_RING_LAYERS = "gemma3-12b", 6   # one 5:1 local:global unit
 LM_RING_REQUESTS, LM_RING_PROMPTS = 4, (1040, 1120)
@@ -1911,14 +1951,33 @@ LM_MOE_REQUESTS = {"granite-moe-1b-a400m": (8, (16, 64)),
 # ones repeated, so that experts overflow (random distinct tokens spread
 # evenly over the experts and drop nothing at a capacity factor of 1.25)
 LM_MOE_TOKENS, LM_MOE_DISTINCT = 2048, 32
-LM_PEAK_LIMIT = 70e9    # max_memory_allocated of deepseek-v3's run
+LM_PEAK_LIMIT = 70e9    # max_memory_allocated of each arch's run
+# the recurrent kinds at their published widths: rwkv6-7b (32 layers, d
+# 4096, WKV heads of 64, chunk 64) and recurrentgemma-9b (38 layers, d 4096,
+# RG-LRU and MQA with a 2048-token window, 2:1); their engines admit with
+# one exact-length prefill scan per distinct prompt length
+LM_RWKV_ARCH, LM_GRIFFIN_ARCH = "rwkv6-7b", "recurrentgemma-9b"
+LM_REC_ARCHS = (LM_RWKV_ARCH, LM_GRIFFIN_ARCH)
+LM_REC_FORWARDS = ((1, 2048), (4, 512))
+LM_REC_CHUNK_TOKENS = 256   # rwkv's chunked WKV against its token scan
+LM_RWKV_DEPTHS = (1, 2, 4, 8, 16, 32)   # ... at bf16 at these depths
+LM_RWKV_BF16_LAYERS = 2     # the depth to which the bf16 paths are held
+LM_REC_CPU_LAYERS = {LM_RWKV_ARCH: 2, LM_GRIFFIN_ARCH: 3}   # griffin: one unit
+LM_REC_SERVE = dict(LM_SERVE, max_new_tokens=16)   # 8 slots of 512 tokens
+LM_REC_REQUESTS, LM_REC_LENGTHS = 8, (16, 32, 48)   # three distinct lengths
+LM_REC_RING_REQUESTS, LM_REC_RING_PROMPTS = 2, (2056, 2100)   # past the window
+# internvl2-26b: 48 layers of 390M parameters and a 1.14B untied embed and
+# head, 79.4 GB of f32; cut by memory to 38 layers (63.8 GB)
+VLM_ARCH, VLM_LAYERS = "internvl2-26b", 38
+VLM_IMAGE_TOKENS = VLM_TEXT_TOKENS = 1024
+VLM_CPU_LAYERS, VLM_CPU_TOKENS = 2, 128
 
 
 def lm_config(arch_id: str):
     """The published width of ``arch_id``; gemma3-12b cut to one pattern unit
     of depth (6 of its 48 layers: 5 local with window 1024, 1 global),
     deepseek-v3-671b to ``LM_MLA_LAYERS`` (its 3 dense layers and 1 MoE
-    layer of 61)."""
+    layer of 61), internvl2-26b to ``VLM_LAYERS`` of its 48."""
     import dataclasses
 
     from repro_torch.configs import get_arch
@@ -1928,6 +1987,8 @@ def lm_config(arch_id: str):
         cfg = dataclasses.replace(cfg, n_layers=LM_RING_LAYERS)
     if arch_id == "deepseek-v3-671b":
         cfg = dataclasses.replace(cfg, n_layers=LM_MLA_LAYERS)
+    if arch_id == VLM_ARCH:
+        cfg = dataclasses.replace(cfg, lm=dataclasses.replace(cfg.lm, n_layers=VLM_LAYERS))
     return cfg
 
 
@@ -2021,49 +2082,72 @@ def flash_random_rows(shapes, gen, dev) -> list[dict]:
     return rows
 
 
-def lm_forward_logits(params, cfg, prompt, tokens, dev):
-    """The full-context forward over the prompt and the tokens before the
-    last: its f32 logits at each generated position (row j predicts
-    ``tokens[j]``)."""
+def lm_forward_logits(params, arch, cfg, prompt, tokens, dev, back: int = 0):
+    """The full-context forward (``configs.base.forward_fn``) over the
+    prompt and the tokens before the last: its f32 logits at each generated
+    position (row ``back + j`` predicts ``tokens[j]``), after those of the
+    ``back`` prompt positions before."""
     import numpy as np
     import torch
 
-    from repro_torch.models import lm
+    from repro_torch.configs import base as cb
 
+    forward, readout = cb.forward_fn(arch, cfg)
     ctx = torch.as_tensor(np.concatenate([prompt, tokens[:-1]]), device=dev)[None].long()
-    hidden, _ = lm.forward(params, cfg, ctx)
-    return lm.lm_logits(params, cfg, hidden[0, len(prompt) - 1:]).float()
+    return readout(params, forward(params, ctx)[0, len(prompt) - 1 - back:]).float()
 
 
-def lm_decode_logits(params, cfg, seqs, starts, dev, batch=None, cache_len=None):
-    """``decode_step`` scanned over ``seqs``, one slot each, with per-slot
-    positions (a slot past its end repeats its last token at its last
-    position, as the engine's prefill clamps); returns each slot's f32
+def lm_decode_logits(params, arch, cfg, seqs, starts, dev, batch=None, cache_len=None,
+                     state_dtype=None):
+    """``serve_fns``' decode step scanned over ``seqs``, one slot each, with
+    per-slot positions (a slot past its end repeats its last token at its
+    last position, as the engine's prefill clamps); returns each slot's f32
     logits at positions ``starts[i]`` and after.  ``batch`` / ``cache_len``
     (default: one slot per sequence, the longest sequence) give the scan an
     engine's slot count and KV length, so that it computes what that engine
-    computes; sequences then go ``batch`` at a time."""
+    computes; sequences then go ``batch`` at a time.  ``state_dtype``
+    casts the floating leaves of the decode state (the KV caches and
+    carries, bf16 as allocated)."""
     import torch
 
-    from repro_torch.models import lm
+    from repro_torch.common.tree import tree_map
+    from repro_torch.configs import base as cb
 
     if batch is not None and len(seqs) > batch:
         return [x for i in range(0, len(seqs), batch)
-                for x in lm_decode_logits(params, cfg, seqs[i:i + batch],
-                                          starts[i:i + batch], dev, batch, cache_len)]
+                for x in lm_decode_logits(params, arch, cfg, seqs[i:i + batch],
+                                          starts[i:i + batch], dev, batch, cache_len,
+                                          state_dtype)]
     top = max(map(len, seqs))
     seqs = list(seqs) + [seqs[0]] * ((batch or len(seqs)) - len(seqs))
-    caches = lm.init_caches(cfg, len(seqs), cache_len or top, device=dev)
+    step, init = cb.serve_fns(arch, cfg, cache_len or top)
+    caches = init(len(seqs), device=dev)
+    if state_dtype is not None:
+        caches = tree_map(lambda t: t.to(state_dtype) if t.is_floating_point() else t,
+                          caches)
     out = [[] for _ in seqs]
     for t in range(top):
         pos = [min(t, len(s) - 1) for s in seqs]
         tok = torch.tensor([int(s[p]) for s, p in zip(seqs, pos)], device=dev)
-        caches, logits = lm.decode_step(params, cfg, caches, tok,
-                                        torch.tensor(pos, device=dev))
+        caches, logits = step(params, caches, tok, torch.tensor(pos, device=dev))
         for i, s in enumerate(seqs[:len(starts)]):
             if starts[i] <= t < len(s):
                 out[i].append(logits[i].float())
     return [torch.stack(o) for o in out[:len(starts)]]
+
+
+def logit_scale(logits, inputs=None):
+    """max(1, max |logit|) of each row; with ``inputs`` (each row's input
+    token), over the other columns.  A tied embedding echoes the input
+    token (recurrentgemma-9b's echo logit is ~81 against ~5 elsewhere), so
+    a scale taken with that column would admit any error below the echo's
+    3 %."""
+    import torch
+
+    a = logits.abs()
+    if inputs is not None:
+        a = a.scatter(-1, torch.as_tensor(inputs, device=a.device).long()[:, None], 0.0)
+    return a.amax(-1).clamp(min=1.0)
 
 
 class RoutesHeld:
@@ -2107,16 +2191,18 @@ class RoutesHeld:
         return w, idx, probs
 
 
-def lm_check_decode(params, cfg, prompts, results, dev, label,
-                    serve: dict | None = None) -> dict:
+def lm_check_decode(params, arch, cfg, prompts, results, dev, label,
+                    serve: dict | None = None, held_cfg=None) -> dict:
     """The greedy streams against the full-context forward (flash_attn on the
     unwindowed layers) over prompt + generated tokens.  At every generated
-    position of every stream, the logits of ``decode_step`` scanned over
-    the same tokens lie within ``LM_LOGIT_TOL`` of the forward's scale
-    there, and the stream's token is the argmax wherever its top-2 margin
-    exceeds twice that (near ties counted).  A control reads the decode one
-    position late against the forward, which the tolerance must not admit
-    everywhere.
+    position of every stream, and at the ``LM_CONTROL_BACK`` prompt
+    positions before them, the logits of ``decode_step`` scanned over the
+    same tokens lie within ``LM_LOGIT_TOL`` of the forward's scale there,
+    and the stream's token is the argmax wherever its top-2 margin exceeds
+    twice that (near ties counted).  A control reads the decode one
+    position late against the forward over those same positions, which the
+    tolerance must not admit everywhere (a stream that repeats one token
+    cannot show a late read by itself, hence the prompt positions).
 
     A MoE arch passes its engine's ``serve``.  Routing is discrete: a
     last-bit difference between two bf16 computations of a token's hidden
@@ -2127,26 +2213,56 @@ def lm_check_decode(params, cfg, prompts, results, dev, label,
     then run again with each MoE layer's experts for each token forced to
     those the forward chose (``RoutesHeld``; the weights stay the scan's
     own), and that forced scan is what is held against the forward.  The
-    (token, layer) choices the forcing changed are counted.  Returns the
-    counts and each stream's margins, in units of the tie margin."""
+    (token, layer) choices the forcing changed are counted.
+
+    The recurrent archs at full depth pass ``serve`` and ``held_cfg``,
+    their config at f32 compute.  The tokens are then held to the argmax
+    of the bf16 scan at the engine's slot count, which computes what the
+    engine computes, and the decode scan, its state in f32 too, and the
+    forward are held against each other at ``held_cfg`` over the same
+    tokens, the scale taken without the input token's column
+    (``logit_scale``), from position ``LM_REC_WARM`` of each sequence on
+    (``lm_rec_early_rows`` reports the positions before: there the state
+    holds few tokens and rounding alone parts two computations of the
+    same function at full depth).  Rounding, not the function, parts the
+    two at full depth otherwise: at bf16 compute the decode's WKV scan and the
+    forward's chunked WKV part through bf16 rounding flips that grow
+    with depth, in the reference as in the port
+    (``tests/test_torch_rwkv_width.py``), and the bf16 carries of the
+    decode state (the token shifts, the conv window, the KV ring) feed
+    the same growth at f32 compute; the bf16 pair's largest gap is
+    reported, in units of the scale.  Returns the counts and each stream's
+    margins, in units of the tie margin."""
     import numpy as np
     import torch
 
     uids = sorted(results)
     seqs = [np.concatenate([prompts[u], results[u].tokens[:-1]]) for u in uids]
-    starts = [len(prompts[u]) - 1 for u in uids]
+    warm = 0 if held_cfg is None else LM_REC_WARM
+    back = [max(0, min(LM_CONTROL_BACK, len(prompts[u]) - 1 - warm)) for u in uids]
+    starts = [len(prompts[u]) - 1 - k for u, k in zip(uids, back)]
     scan = {} if serve is None else dict(batch=serve["max_slots"],
                                          cache_len=serve["max_len"])
     fwd, routes = [], []
-    for u in uids:
+    for u, k in zip(uids, back):
         with RoutesHeld() as held:
-            fwd.append(lm_forward_logits(params, cfg, prompts[u], results[u].tokens, dev))
+            fwd.append(lm_forward_logits(params, arch, cfg, prompts[u], results[u].tokens,
+                                         dev, k))
         routes.append(held.calls)
-    decoded = lm_decode_logits(params, cfg, seqs, starts, dev, **scan)
-    # the greedy tokens' reference: the forward, or for a MoE arch the scan
+    decoded = lm_decode_logits(params, arch, cfg, seqs, starts, dev, **scan)
+    # the greedy tokens' reference: the forward, or for a MoE or recurrent
+    # arch the scan
     argref = fwd if serve is None else decoded
-    forcing = None
-    if serve is not None:
+    forcing = own_gap = inputs = None
+    if held_cfg is not None:
+        own_gap = max(float(((d - f).abs().amax(-1) / logit_scale(f)).max())
+                      for d, f in zip(decoded, fwd))
+        fwd = [lm_forward_logits(params, arch, held_cfg, prompts[u], results[u].tokens,
+                                 dev, k) for u, k in zip(uids, back)]
+        decoded = lm_decode_logits(params, arch, held_cfg, seqs, starts, dev, **scan,
+                                   state_dtype=torch.float32)
+        inputs = [s[st:] for s, st in zip(seqs, starts)]
+    elif serve is not None:
         # the scan runs chunks of ``batch`` streams, each for its longest
         # stream's steps, one route call per MoE layer and step
         batch, n_moe, k = serve["max_slots"], len(routes[0]), cfg.moe.top_k
@@ -2161,22 +2277,24 @@ def lm_check_decode(params, cfg, prompts, results, dev, label,
                             want[r] = routes[n][layer][t]
                     forced.append(want)
         with RoutesHeld(forced) as forcing:
-            decoded = lm_decode_logits(params, cfg, seqs, starts, dev, **scan)
-    positions = near = flips = 0
+            decoded = lm_decode_logits(params, arch, cfg, seqs, starts, dev, **scan)
+    positions = held_positions = near = flips = 0
     worst = worst_share = 0.0
     late_beyond = late_n = 0
     margins = {}
-    for u, dec, f, a in zip(uids, decoded, fwd, argref):
-        tol = LM_LOGIT_TOL * f.abs().amax(-1).clamp(min=1.0)
+    for n, (u, dec, f, a, k) in enumerate(zip(uids, decoded, fwd, argref, back)):
+        tol = LM_LOGIT_TOL * logit_scale(f, None if inputs is None else inputs[n])
+        late = (dec[:-1] - f[1:]).abs().amax(-1) > tol[1:]
+        late_beyond, late_n = late_beyond + int(late.sum()), late_n + late.numel()
         gap = (dec - f).abs().amax(-1)
         j = int((gap / tol).argmax())
         check(bool((gap <= tol).all()),
-              f"{label}: request {u} position {j}: decode logits {float(gap[j])} "
-              f"from the forward's, beyond {float(tol[j])}")
+              f"{label}: request {u} position {j - k} after the prompt: decode logits "
+              f"{float(gap[j])} from the forward's, beyond {float(tol[j])}")
+        held_positions += len(gap)
         worst, worst_share = max(worst, float(gap.max())), max(worst_share,
                                                                 float((gap / tol).max()))
-        late = (dec[:-1] - f[1:]).abs().amax(-1) > tol[1:]
-        late_beyond, late_n = late_beyond + int(late.sum()), late_n + late.numel()
+        a = a[k:]
         top = a.topk(2, dim=-1).values
         margin = ((top[:, 0] - top[:, 1])
                   / (2 * LM_LOGIT_TOL * a.abs().amax(-1).clamp(min=1.0))).cpu().numpy()
@@ -2193,11 +2311,14 @@ def lm_check_decode(params, cfg, prompts, results, dev, label,
                 flips += 1
     check(late_beyond > 0, f"{label}: the decode one position late lies within the "
                            "tolerance everywhere, which so would not show it")
-    row = {"positions": positions, "near_ties": near, "tie_flips": flips,
-           "max_logit_gap": worst, "max_gap_of_tolerance": worst_share,
+    row = {"positions": positions, "held_positions": held_positions, "near_ties": near,
+           "tie_flips": flips, "max_logit_gap": worst, "max_gap_of_tolerance": worst_share,
            "late_by_one_beyond_tolerance": [late_beyond, late_n], "margins": margins}
     if forcing is not None:
         row["routing_choices_forced"] = [forcing.changed, sum(map(len, seqs)) * n_moe]
+    if held_cfg is not None:
+        row.update(held_at="float32 compute and state", scale_without_input_column=True,
+                   held_from_position=warm, own_dtype_max_gap_of_scale=own_gap)
     return row
 
 
@@ -2245,22 +2366,27 @@ def lm_same_streams(a: dict, b: dict, margins: dict, label: str) -> int:
     return left
 
 
-def lm_engine_row(step, init, params, cfg, serve: dict, prompts, label, dev,
-                  full: bool, held: FlashHeld) -> dict:
-    """Serve ``prompts`` through ``Engine``: greedy twice (the second run
-    measured) and online (``submit`` / ``drain_ready``), every request
-    answered with its budget, the greedy streams against the forward
-    (``lm_check_decode``, given ``serve`` for a MoE arch; its
-    ``flash_mha`` calls held by ``held``); with ``full`` also
-    sampled, offline and online, and, for a dense arch, at
-    ``max_slots=3``.  Returns the row, with its seconds."""
+def lm_engine_row(arch, params, cfg, serve: dict, prompts, label, dev,
+                  full: bool, held: FlashHeld, profile: bool = False,
+                  held_cfg=None) -> dict:
+    """Serve ``prompts`` through ``Engine`` on ``serve_fns(arch, cfg)``:
+    greedy twice (the second run measured) and online (``submit`` /
+    ``drain_ready``), every request answered with its budget, the greedy
+    streams against the forward (``lm_check_decode``, given ``serve`` for
+    a MoE arch or with ``held_cfg``; its ``flash_mha`` calls held by
+    ``held``); with ``full`` also sampled, offline and online, and, for a
+    dense arch, at ``max_slots=3``; with ``full`` or ``profile`` the decode
+    step's profile.  Returns the row, with its seconds."""
     import torch
 
     from repro_torch.common.tree import tree_leaves
+    from repro_torch.configs import base as cb
     from repro_torch.serve.engine import Engine, Request, ServeConfig
 
     t0 = time.perf_counter()
+    step, init = cb.serve_fns(arch, cfg, serve["max_len"])
     reqs = [Request(uid=i, prompt=p) for i, p in enumerate(prompts)]
+    moe = getattr(cfg, "moe", None)
 
     def engine(**kw):
         return Engine(step, init, ServeConfig(**{**serve, **kw}), params=params)
@@ -2292,8 +2418,9 @@ def lm_engine_row(step, init, params, cfg, serve: dict, prompts, label, dev,
     stats = dict(eng.stats)
     kv_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(eng._caches))
     with held:
-        decode = lm_check_decode(params, cfg, prompts, greedy, dev, label,
-                                 None if cfg.moe is None else serve)
+        decode = lm_check_decode(params, arch, cfg, prompts, greedy, dev, label,
+                                 None if moe is None and held_cfg is None else serve,
+                                 held_cfg)
     check(same(greedy, online(engine())), f"{label}: online greedy streams differ "
                                           "from run()")
     row = {"phase": "lm", "engine": label, "requests": len(prompts),
@@ -2304,10 +2431,11 @@ def lm_engine_row(step, init, params, cfg, serve: dict, prompts, label, dev,
            "ms_per_admission": (stats["wall_time_s"] - stats["decode_time_s"]) * 1e3
            / stats["prefills"],
            "utilization": eng.utilization(), "prefills": stats["prefills"],
+           "stateful_prefill": eng.cfg.stateful_prefill,
            "kv_cache_bytes": kv_bytes,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "decode_vs_forward": {k: v for k, v in decode.items() if k != "margins"}}
-    if full and cfg.moe is None:
+    if full and moe is None:
         row["max_slots_3_left_at_near_ties"] = lm_same_streams(
             greedy, engine(max_slots=3).run(reqs), decode["margins"], label)
     if full:
@@ -2317,6 +2445,7 @@ def lm_engine_row(step, init, params, cfg, serve: dict, prompts, label, dev,
               f"{label}: online sampled streams differ from run()")
         check(not same(sampled, greedy), f"{label}: sampled streams equal greedy ones")
         row["sampled"] = dict(LM_SAMPLED, online_equals_offline=True)
+    if full or profile:
         row["decode_step_profile"] = lm_step_profile(
             step, params, eng._caches, serve["max_slots"], serve["max_len"] // 2, dev)
     row["seconds"] = time.perf_counter() - t0
@@ -2417,10 +2546,9 @@ def lm_moe_arch(arch_id: str, dev: str, held: "FlashHeld") -> list[tuple]:
     serve_cfg = dropless(cfg)
     serve = LM_MOE_SERVE[arch_id]
     n, lens = LM_MOE_REQUESTS[arch_id]
-    step, init = cb.serve_fns(arch, serve_cfg, serve["max_len"])
     prompts = lm_prompts(cfg.vocab, n, lens, SEED + 5)
     peak = torch.cuda.max_memory_allocated()
-    row = lm_engine_row(step, init, params, serve_cfg, serve, prompts, arch_id, dev,
+    row = lm_engine_row(arch, params, serve_cfg, serve, prompts, arch_id, dev,
                         full=arch_id == LM_MOE_ARCHS[0], held=held)
     row.update(params=nninit.param_count(spec), param_bytes=nninit.param_bytes(spec),
                capacity_factor=serve_cfg.moe.capacity_factor,
@@ -2434,6 +2562,299 @@ def lm_moe_arch(arch_id: str, dev: str, held: "FlashHeld") -> list[tuple]:
             for b, s in LM_MOE_FORWARDS[arch_id]] if gqa_layers else []
 
 
+def lm_sliced(params, arch_id: str, cfg, n_layers: int):
+    """(params, cfg) of the first ``n_layers`` layers of ``arch_id``:
+    views of the stacked body, nothing copied (griffin: whole (rec, rec,
+    attn) units, its tail dropped)."""
+    import dataclasses
+
+    from repro_torch.common.tree import tree_map
+
+    if arch_id == LM_GRIFFIN_ARCH:
+        unit = len(cfg.pattern)
+        return ({**params, "body": tree_map(lambda t: t[:n_layers // unit], params["body"]),
+                 "tail": []}, dataclasses.replace(cfg, n_layers=n_layers))
+    if arch_id == VLM_ARCH:
+        return ({**params, "body": tree_map(lambda t: t[:n_layers], params["body"])},
+                dataclasses.replace(cfg, lm=dataclasses.replace(cfg.lm, n_layers=n_layers)))
+    return ({**params, "body": tree_map(lambda t: t[:n_layers], params["body"])},
+            dataclasses.replace(cfg, n_layers=n_layers))
+
+
+def lm_vs_cpu(forward_of, params, cfg, inputs, label: str) -> dict:
+    """``forward_of(cfg)(params, inputs)`` on the card against the same
+    function on the CPU with the same parameters, within ``LM_LOGIT_TOL``
+    of the CPU logits' scale."""
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.common.tree import tree_map
+
+    on_card = tree_map(lambda t: t.cuda() if isinstance(t, torch.Tensor) else t, inputs)
+    card = forward_of(cfg)(params, on_card).float().cpu()
+    cpu = forward_of(cfg)(interop.to_device(params, "cpu"), inputs).float()
+    err = float((card - cpu).abs().max())
+    tol = LM_LOGIT_TOL * max(1.0, float(cpu.abs().max()))
+    check(err <= tol, f"{label}: card {err} from the CPU, beyond {tol}")
+    return {"max_abs_err": err, "tolerance": tol, "max_abs_logit": float(cpu.abs().max()),
+            "argmax_equal": bool(torch.equal(card.argmax(-1), cpu.argmax(-1)))}
+
+
+def lm_fixed_prompts(vocab: int, lengths, seed: int):
+    """``SyntheticTokens`` prompts of the given lengths."""
+    import numpy as np
+
+    from repro_torch.data.tokens import SyntheticTokens, TokenPipelineConfig
+
+    toks, _ = SyntheticTokens(TokenPipelineConfig(
+        vocab_size=vocab, seq_len=max(lengths), global_batch=len(lengths),
+        seed=seed)).batch(0)
+    return [toks[i, :n].astype(np.int32) for i, n in enumerate(lengths)]
+
+
+def lm_rwkv_chunked_rows(params, cfg, toks) -> None:
+    """rwkv's chunked WKV (the forward's path) against its token scan (the
+    decode's) on ``toks``, their logits at every position: at
+    f32 compute at full depth, held within ``LM_LOGIT_TOL`` of the scan
+    logits' scale; at bf16 at each depth of ``LM_RWKV_DEPTHS``, held up to
+    ``LM_RWKV_BF16_LAYERS`` layers and reported beyond.  At bf16 the two
+    paths part through bf16 rounding flips of the WKV output where their
+    f32 sums differ in the last bits, and the gap grows with depth: at this
+    width the reference's own two paths part by more than the tolerance
+    from 4 layers on (``tests/test_torch_rwkv_width.py``), so the port's
+    are held where the reference's hold."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import rwkv6
+
+    f32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    for c, depth in [(f32, cfg.n_layers)] + [(cfg, d) for d in LM_RWKV_DEPTHS]:
+        p, cd = lm_sliced(params, LM_RWKV_ARCH, c, depth)
+        dtype = str(c.compute_dtype)[6:]
+        row = {"phase": "lm", "arch": LM_RWKV_ARCH, "wkv_chunked_vs_scan": list(toks.shape),
+               "chunk": cfg.chunk, "layers": depth, "compute": dtype}
+        out = {}
+        for impl in ("chunked", "scan"):
+            ci = dataclasses.replace(cd, impl=impl)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[impl] = rwkv6.logits(p, ci, rwkv6.forward(p, ci, toks)).float()
+            torch.cuda.synchronize()
+            row[f"{impl}_s"] = time.perf_counter() - t0
+        scale = max(1.0, float(out["scan"].abs().max()))
+        err = float((out["chunked"] - out["scan"]).abs().max())
+        held = dtype == "float32" or depth <= LM_RWKV_BF16_LAYERS
+        row.update(max_abs_err=err, tolerance=LM_LOGIT_TOL * scale, gap_of_scale=err / scale,
+                   held=held, argmax_equal_share=float(
+                       (out["chunked"].argmax(-1) == out["scan"].argmax(-1)).float().mean()))
+        emit(row)
+        check(not held or err <= row["tolerance"],
+              f"{LM_RWKV_ARCH}[{depth} layers]: chunked WKV {err} from the scan at "
+              f"{dtype} compute, beyond {row['tolerance']}")
+
+
+def lm_rec_early_rows(params, arch, cfg, prompts, serve: dict, dev) -> dict:
+    """The positions a held recurrent check leaves out, and the next: the
+    first ``LM_REC_WARM`` + 1 tokens of each prompt, at f32 compute and f32
+    state, the decode at the engine's slot count against the forward and
+    (the first two prompts) against the same decode at one slot (one
+    function, rounded in another order), per position the largest gap
+    over the prompts in units of the forward's scale.  Reported, not
+    held."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import base as cb
+
+    f32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    forward, readout = cb.forward_fn(arch, f32)
+    seqs = [p[:LM_REC_WARM + 1] for p in prompts[:serve["max_slots"]]]
+    slots = lm_decode_logits(params, arch, f32, seqs, [0] * len(seqs), dev,
+                             batch=serve["max_slots"], cache_len=serve["max_len"],
+                             state_dtype=torch.float32)
+    vs_forward, vs_one_slot = [], []
+    for i, s in enumerate(seqs):
+        f = readout(params, forward(params, torch.as_tensor(s, device=dev)[None].long())[0])
+        scale = logit_scale(f)
+        vs_forward.append((slots[i] - f).abs().amax(-1) / scale)
+        if i < 2:
+            one = lm_decode_logits(params, arch, f32, [s], [0], dev,
+                                   state_dtype=torch.float32)[0]
+            vs_one_slot.append((slots[i] - one).abs().amax(-1) / scale)
+    return {"positions": len(seqs[0]),
+            "decode_vs_forward_of_scale": torch.stack(vs_forward).amax(0).tolist(),
+            "slots_vs_one_slot_of_scale": torch.stack(vs_one_slot).amax(0).tolist()}
+
+
+def lm_recurrent_arch(arch_id: str, dev: str) -> None:
+    """One recurrent arch at its published width, parameters drawn on the
+    card: the ``prefill_fn`` forward at ``LM_REC_FORWARDS`` (no kernel:
+    rwkv's chunked WKV and griffin's RG-LRU scan and windowed attention are
+    plain PyTorch, as they are plain ``jnp`` in the reference), rwkv's
+    chunked WKV against its token scan (``lm_rwkv_chunked_rows``), the
+    forward at ``LM_REC_CPU_LAYERS`` layers against the CPU, then the
+    slot-pool engine at bf16 with exact-length prefill:
+    ``LM_REC_REQUESTS`` prompts of three distinct lengths, one prefill scan
+    per length, the decode held against the forward at f32 compute and
+    f32 decode state, the tokens the argmax of the bf16 decode scan
+    (``lm_check_decode`` with ``held_cfg``).  rwkv6-7b's engine also serves at
+    ``LM_RWKV_BF16_LAYERS`` layers, its decode held against the forward at
+    bf16; recurrentgemma-9b serves prompts past its 2048-token window at
+    one (rec, rec, attn) unit of depth, so its rings wrap, held at f32."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.backend import registry
+    from repro_torch.configs import base as cb
+    from repro_torch.configs import get_arch
+    from repro_torch.nn import init as nninit
+
+    arch, cfg = get_arch(arch_id), lm_config(arch_id)
+    spec = cb.model_spec(arch, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = nninit.materialize(spec, torch.Generator(dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    emit({"phase": "lm", "arch": arch_id, "n_layers": cfg.n_layers,
+          "params": nninit.param_count(spec), "param_bytes": nninit.param_bytes(spec),
+          "param_dtype": str(cfg.param_dtype), "compute_dtype": str(cfg.compute_dtype),
+          "draw_s": time.perf_counter() - t0})
+    forward = cb.prefill_fn(arch, cfg)
+    gen = torch.Generator("cpu").manual_seed(SEED)
+    for b, s in LM_REC_FORWARDS:
+        toks = torch.randint(0, cfg.vocab, (b, s), generator=gen).to(dev)
+        before = dict(registry.LAUNCHES)
+        logits = forward(params, toks)
+        torch.cuda.synchronize()
+        launched = {k: n - before[k] for k, n in registry.LAUNCHES.items() if n != before[k]}
+        check(not launched, f"{arch_id} forward {(b, s)}: launched {launched}")
+        check(tuple(logits.shape) == (b, cfg.vocab) and bool(logits.isfinite().all()),
+              f"{arch_id} forward {(b, s)}: logits")
+        ms = cuda_ms(lambda: forward(params, toks), reps=1, samples=3)
+        emit({"phase": "lm", "arch": arch_id, "forward": [b, s], "kernel_launches": 0,
+              "ms_per_forward": ms, "tokens_per_s": b * s / ms * 1e3,
+              "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    if arch_id == LM_RWKV_ARCH:
+        lm_rwkv_chunked_rows(params, cfg, torch.randint(
+            0, cfg.vocab, (1, LM_REC_CHUNK_TOKENS), generator=gen).to(dev))
+    n_cpu = LM_REC_CPU_LAYERS[arch_id]
+    params_c, cfg_c = lm_sliced(params, arch_id, cfg, n_cpu)
+    toks = torch.randint(0, cfg.vocab, LM_CPU_SHAPE, generator=gen)
+    emit({"phase": "lm", "arch": arch_id, "forward_vs_cpu": [n_cpu, *LM_CPU_SHAPE],
+          **lm_vs_cpu(lambda c: cb.prefill_fn(arch, c), params_c, cfg_c, toks, arch_id)})
+    del params_c
+
+    f32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    lengths = np.random.default_rng(SEED + 6).permutation(
+        [LM_REC_LENGTHS[i % len(LM_REC_LENGTHS)] for i in range(LM_REC_REQUESTS)])
+    prompts = lm_fixed_prompts(cfg.vocab, lengths, SEED + 6)
+    peak = torch.cuda.max_memory_allocated()
+    row = lm_engine_row(arch, params, cfg, LM_REC_SERVE, prompts, arch_id, dev,
+                        full=False, held=FlashHeld(), profile=True, held_cfg=f32)
+    check(row["stateful_prefill"], f"{arch_id}: the engine did not take serve_fns' "
+                                   "stateful_prefill tag")
+    row["decode_vs_forward"]["early_positions"] = lm_rec_early_rows(
+        params, arch, cfg, prompts, LM_REC_SERVE, dev)
+    # two greedy runs, each one admission group of three distinct lengths
+    check(row["prefills"] == 2 * len(LM_REC_LENGTHS),
+          f"{arch_id}: {row['prefills']} prefill scans, want one per distinct length")
+    row.update(params=nninit.param_count(spec), param_bytes=nninit.param_bytes(spec),
+               prompt_lens=[int(n) for n in lengths],
+               max_memory_allocated=max(peak, row["max_memory_allocated"]))
+    emit(row)
+    check(row["max_memory_allocated"] <= LM_PEAK_LIMIT,
+          f"{arch_id}: {row['max_memory_allocated']} bytes at the peak")
+    if arch_id == LM_RWKV_ARCH:
+        # the engine at bf16 where the reference's bf16 paths hold
+        params_b, cfg_b = lm_sliced(params, arch_id, cfg, LM_RWKV_BF16_LAYERS)
+        row = lm_engine_row(arch, params_b, cfg_b, LM_REC_SERVE, prompts,
+                            f"{arch_id}[{LM_RWKV_BF16_LAYERS} layers]", dev, full=False,
+                            held=FlashHeld())
+        row.update(prompt_lens=[int(n) for n in lengths])
+        emit(row)
+        del params_b
+    if arch_id == LM_GRIFFIN_ARCH:
+        # the ring past the window: one (rec, rec, attn) unit of depth
+        params_r, cfg_r = lm_sliced(params, arch_id, cfg, len(cfg.pattern))
+        prompts = lm_prompts(cfg.vocab, LM_REC_RING_REQUESTS, LM_REC_RING_PROMPTS, SEED + 7)
+        check(min(map(len, prompts)) > cfg.window, "ring prompts must pass the window")
+        serve = dict(LM_SERVE, max_slots=LM_REC_RING_REQUESTS, max_new_tokens=8,
+                     max_len=-(-(LM_REC_RING_PROMPTS[1] + 8) // 64) * 64)
+        row = lm_engine_row(arch, params_r, cfg_r, serve, prompts,
+                            f"{arch_id}[{cfg_r.n_layers} layers]", dev, full=False,
+                            held=FlashHeld(),
+                            held_cfg=dataclasses.replace(cfg_r, compute_dtype=torch.float32))
+        row.update(window=cfg.window, prompt_lens=[len(p) for p in prompts])
+        emit(row)
+        del params_r
+    del params
+    torch.cuda.empty_cache()
+
+
+def lm_vlm_arch(dev: str, held: FlashHeld) -> list[tuple]:
+    """internvl2-26b at its width, cut by memory to ``VLM_LAYERS`` of its 48
+    layers (f32 parameters drawn on the card): the ``prefill_fn`` forward
+    over ``VLM_IMAGE_TOKENS`` random patch embeddings and
+    ``VLM_TEXT_TOKENS`` tokens, flash_attn once per layer at (1, 2048, 48,
+    128), held against its plain version by ``held``; the forward at
+    ``VLM_CPU_LAYERS`` layers against the CPU.  Returns the flash_attn shape
+    with its KV heads."""
+    import torch
+
+    from repro_torch.backend import registry
+    from repro_torch.configs import base as cb
+    from repro_torch.configs import get_arch
+    from repro_torch.nn import init as nninit
+
+    arch, cfg = get_arch(VLM_ARCH), lm_config(VLM_ARCH)
+    spec = cb.model_spec(arch, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = nninit.materialize(spec, torch.Generator(dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    emit({"phase": "lm", "arch": VLM_ARCH, "n_layers": cfg.lm.n_layers,
+          "params": nninit.param_count(spec), "param_bytes": nninit.param_bytes(spec),
+          "draw_s": time.perf_counter() - t0})
+    forward = cb.prefill_fn(arch, cfg)
+    gen = torch.Generator("cpu").manual_seed(SEED + 8)
+
+    def inputs(n_img, n_txt):
+        return {"patch_embeds": torch.randn(1, n_img, cfg.lm.d_model, generator=gen),
+                "tokens": torch.randint(0, cfg.lm.vocab, (1, n_txt), generator=gen)}
+
+    batch = {k: v.to(dev) for k, v in inputs(VLM_IMAGE_TOKENS, VLM_TEXT_TOKENS).items()}
+    before = registry.LAUNCHES["flash_attn"]
+    with held:
+        logits = forward(params, batch)
+    torch.cuda.synchronize()
+    launches = registry.LAUNCHES["flash_attn"] - before
+    check(launches == cfg.lm.n_layers, f"{VLM_ARCH} forward: {launches} flash_attn "
+                                       f"launches, want {cfg.lm.n_layers}")
+    check(tuple(logits.shape) == (1, cfg.lm.vocab) and bool(logits.isfinite().all()),
+          f"{VLM_ARCH} forward: logits")
+    ms = cuda_ms(lambda: forward(params, batch), reps=1, samples=3)
+    s = VLM_IMAGE_TOKENS + VLM_TEXT_TOKENS
+    emit({"phase": "lm", "arch": VLM_ARCH, "forward": [1, VLM_IMAGE_TOKENS, VLM_TEXT_TOKENS],
+          "flash_attn_launches": launches, "ms_per_forward": ms,
+          "tokens_per_s": s / ms * 1e3,
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    check(torch.cuda.max_memory_allocated() <= LM_PEAK_LIMIT,
+          f"{VLM_ARCH}: {torch.cuda.max_memory_allocated()} bytes at the peak")
+    params_c, cfg_c = lm_sliced(params, VLM_ARCH, cfg, VLM_CPU_LAYERS)
+    emit({"phase": "lm", "arch": VLM_ARCH,
+          "forward_vs_cpu": [VLM_CPU_LAYERS, VLM_CPU_TOKENS, VLM_CPU_TOKENS],
+          **lm_vs_cpu(lambda c: cb.prefill_fn(arch, c), params_c, cfg_c,
+                      inputs(VLM_CPU_TOKENS, VLM_CPU_TOKENS), VLM_ARCH)})
+    del params, params_c
+    torch.cuda.empty_cache()
+    return [(1, s, cfg.lm.n_heads, cfg.lm.hd, cfg.lm.n_kv_heads)]
+
+
 def phase_lm(dev: str = "cuda") -> dict[str, int]:
     """The LM substrate on the card at published width: llama3.2-3b's
     full-context forward (``configs.base.prefill_fn``, flash_attn on all 28
@@ -2443,8 +2864,10 @@ def phase_lm(dev: str = "cuda") -> dict[str, int]:
     depth (a reduced depth: 6 of 48 layers) serving prompts longer than its
     1024-token window, so the local layers' ring caches wrap; then the MoE /
     MLA archs (``lm_moe_arch``): granite-moe-1b-a400m at its width and
-    deepseek-v3-671b at its width cut to 4 layers.  Returns the path's
-    launch counts."""
+    deepseek-v3-671b at its width cut to 4 layers; then the recurrent kinds
+    at their widths (``lm_recurrent_arch``: rwkv6-7b, recurrentgemma-9b)
+    and internvl2-26b cut to ``VLM_LAYERS`` (``lm_vlm_arch``).  Returns the
+    path's launch counts."""
     import dataclasses
 
     import torch
@@ -2499,9 +2922,8 @@ def phase_lm(dev: str = "cuda") -> dict[str, int]:
                       f"CPU, beyond {tol}")
     del params2, card, cpu
 
-    step, init = cb.serve_fns(arch, cfg, LM_SERVE["max_len"])
     prompts = lm_prompts(cfg.vocab, LM_REQUESTS, LM_PROMPTS, SEED)
-    emit(lm_engine_row(step, init, params, cfg, LM_SERVE, prompts, LM_ARCH, dev,
+    emit(lm_engine_row(arch, params, cfg, LM_SERVE, prompts, LM_ARCH, dev,
                        full=True, held=held))
     del params
     torch.cuda.empty_cache()
@@ -2514,9 +2936,8 @@ def phase_lm(dev: str = "cuda") -> dict[str, int]:
     check(min(map(len, prompts)) > cfg.window, "ring prompts must pass the window")
     serve = dict(LM_SERVE, max_slots=LM_RING_REQUESTS,
                  max_len=-(-(LM_RING_PROMPTS[1] + LM_SERVE["max_new_tokens"]) // 64) * 64)
-    step, init = cb.serve_fns(arch, cfg, serve["max_len"])
     before = registry.LAUNCHES["flash_attn"]
-    row = lm_engine_row(step, init, params, cfg, serve, prompts,
+    row = lm_engine_row(arch, params, cfg, serve, prompts,
                         f"{LM_RING_ARCH}[{LM_RING_LAYERS} layers]", dev, full=False,
                         held=held)
     row.update(params=nninit.param_count(spec), param_bytes=nninit.param_bytes(spec),
@@ -2531,6 +2952,11 @@ def phase_lm(dev: str = "cuda") -> dict[str, int]:
     # dim 64, deepseek-v3's MLA layers the plain attention
     for arch_id in LM_MOE_ARCHS:
         forward_heads += lm_moe_arch(arch_id, dev, held)
+    # the recurrent kinds (no kernel on their paths), then the VLM: every
+    # layer of its forward on flash_attn at internvl2's 48 heads
+    for arch_id in LM_REC_ARCHS:
+        lm_recurrent_arch(arch_id, dev)
+    forward_heads += lm_vlm_arch(dev, held)
     counts = dict(registry.LAUNCHES)
     check(counts["flash_attn"] > 0, "flash_attn was not launched on the lm path")
     # the kernel at the shapes this path gave it: every forward shape and
@@ -2557,8 +2983,10 @@ DOOR_LM_SERVE = dict(LM_SERVE, max_new_tokens=16)   # 8 slots of 512 tokens
 DOOR_NVSA_REQUESTS = 64
 DOOR_OFFERED = 0.5      # of each model's sequential rate, measured here
 DOOR_DEADLINE_S = 0.02
-DOOR_DEPLOY_MODELS = ("nvsa", LM_ARCH)
-DOOR_DEPLOY_REQUESTS = 8   # per model, deploy() at the reference's smoke scale
+# deploy() at the reference's smoke scale for the LMs: nvsa beside llama3.2-3b,
+# then beside the recurrent kinds
+DOOR_DEPLOY_MODELS = (("nvsa", LM_ARCH), ("nvsa", *LM_REC_ARCHS))
+DOOR_DEPLOY_REQUESTS = 8   # per model
 
 
 def door_rows(report, label: str, offered: dict) -> None:
@@ -2587,6 +3015,61 @@ def door_rows(report, label: str, offered: dict) -> None:
               "closed": dict(collections.Counter(g.close_reason for g in groups))})
 
 
+def door_deploy_trace(models) -> dict[str, int]:
+    """``deploy(models)`` (nvsa and LM smoke archs) on the card, warmed up,
+    ``DOOR_DEPLOY_REQUESTS`` a model of its synthetic traffic recorded as a
+    golden trace (lm and reason classes), replayed through the same and a
+    fresh card deployment, tokens and answers exact.  Returns the launches
+    of the recorded serve and the replays."""
+    import tempfile
+
+    from repro_torch.backend import registry
+    from repro_torch.serve import trace as tr
+    from repro_torch.serve.deploy import deploy
+
+    t0 = time.perf_counter()
+    dep = deploy(list(models), preflight="off")
+    deploy_s = time.perf_counter() - t0
+    dep.warmup()
+    lms = [m for m in models if m != "nvsa"]
+    check(dep.classes == {"nvsa": "reason", **{m: "lm" for m in lms}},
+          f"deploy: {dep.classes}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "door_lm.jsonl")
+        arrivals, _ = dep.synthetic_traffic(DOOR_DEPLOY_REQUESTS, seed=500)
+        registry.reset_launches()
+        report, trace = tr.record(dep, arrivals, path)
+        door_rows(report, "deploy", {m: dep.traffic.rate_rps for m in dep.engines})
+        check(all(len(r) == DOOR_DEPLOY_REQUESTS for r in report.results.values()),
+              "door_lm deploy: not every recorded request was answered")
+        for m in lms:
+            check(trace.header["models"][m]["class"] == "lm", f"door_lm: {m} not lm")
+        legs = (("same_deployment", lambda: (trace, {"deployment": dep})),
+                ("fresh_card", lambda: (tr.GoldenTrace.load(path),
+                                        {"backend": registry.negotiate("cuda")})))
+        for name, setup in legs:
+            t0 = time.perf_counter()
+            golden, kw = setup()
+            replay = golden.replay(**kw)
+            diff = golden.diff(replay)
+            emit({"phase": "door_lm_trace", "models": list(models), "leg": name,
+                  "tolerance": diff.tolerance, "max_abs_err": diff.max_abs_err,
+                  "n_compared": diff.n_compared,
+                  "lm_results": sum(m in lms for m, _ in golden.results),
+                  "kernels": sorted(replay.kernels), "seconds": time.perf_counter() - t0,
+                  "describe": diff.describe()})
+            check(diff.tolerance == 0.0 and diff.ok,
+                  f"door_lm trace {name}: {diff.describe()}")
+            check(diff.n_compared == len(models) * DOOR_DEPLOY_REQUESTS,
+                  f"door_lm trace {name}: compared {diff.n_compared}")
+        served = dict(registry.LAUNCHES)
+    emit({"phase": "door_lm", "door": "deploy", "models": list(models),
+          "deploy_s": deploy_s, "stateful_prefill": {
+              m: dep.engines[m].cfg.stateful_prefill for m in lms},
+          "summary": dep.summary()})
+    return served
+
+
 def phase_door_lm(dev: str = "cuda") -> dict[str, int]:
     """LM traffic behind the port's front door on the card.  (1) A door
     built by hand over llama3.2-3b at its published width (the ``lm``
@@ -2599,15 +3082,12 @@ def phase_door_lm(dev: str = "cuda") -> dict[str, int]:
     token (the engine is slot-invariant), and the decode check of the
     ``lm`` phase holds the streams against the full-context forward; every
     nvsa answer equals the same engine's replay of its door group, at the
-    same bucket, bit for bit.  (2) ``deploy()`` of nvsa
-    and llama3.2-3b at the reference's smoke scale on the card: warmed up,
-    ``DOOR_DEPLOY_REQUESTS`` a model of its synthetic traffic recorded as a
-    golden trace (lm and reason classes), replayed through the same and a
-    fresh card deployment, tokens and answers exact.  Returns the launch
-    counts of the served windows: the door's serve, the recorded serve and
-    the replays, not the checks."""
-    import tempfile
-
+    same bucket, bit for bit.  (2) ``deploy()`` of nvsa beside llama3.2-3b,
+    then beside rwkv6-7b and recurrentgemma-9b, at the reference's smoke
+    scale on the card (``door_deploy_trace``): recorded and replayed,
+    tokens and answers exact.  Returns the launch counts of the served
+    windows: the door's serve, the recorded serves and the replays, not
+    the checks."""
     import numpy as np
     import torch
 
@@ -2615,8 +3095,6 @@ def phase_door_lm(dev: str = "cuda") -> dict[str, int]:
     from repro_torch.configs import base as cb
     from repro_torch.configs import get_arch
     from repro_torch.nn import init as nninit
-    from repro_torch.serve import trace as tr
-    from repro_torch.serve.deploy import deploy
     from repro_torch.serve.engine import Engine, Request, ServeConfig
     from repro_torch.serve.frontdoor import (FrontDoor, FrontDoorConfig, merge_arrivals,
                                              poisson_arrivals)
@@ -2672,7 +3150,7 @@ def phase_door_lm(dev: str = "cuda") -> dict[str, int]:
         check(list(streams[uid].tokens) == list(res.tokens),
               f"door_lm: request {uid}'s stream differs from the offline run")
     with held:
-        decode = lm_check_decode(params, cfg, prompts, streams, dev, "door_lm")
+        decode = lm_check_decode(params, arch, cfg, prompts, streams, dev, "door_lm")
     replayed = 0
     for g in report.groups:
         if g.model != "nvsa":
@@ -2696,41 +3174,11 @@ def phase_door_lm(dev: str = "cuda") -> dict[str, int]:
     del params, lm_eng, door
     torch.cuda.empty_cache()
 
-    # deploy() of nvsa and the LM's smoke arch, recorded and replayed
-    t0 = time.perf_counter()
-    dep = deploy(list(DOOR_DEPLOY_MODELS), preflight="off")
-    deploy_s = time.perf_counter() - t0
-    dep.warmup()
-    check(dep.classes == {"nvsa": "reason", LM_ARCH: "lm"}, f"deploy: {dep.classes}")
-    with tempfile.TemporaryDirectory() as tmp:
-        path = str(Path(tmp) / "door_lm.jsonl")
-        arrivals, _ = dep.synthetic_traffic(DOOR_DEPLOY_REQUESTS, seed=500)
-        registry.reset_launches()
-        report, trace = tr.record(dep, arrivals, path)
-        door_rows(report, "deploy", {m: dep.traffic.rate_rps for m in dep.engines})
-        check(all(len(r) == DOOR_DEPLOY_REQUESTS for r in report.results.values()),
-              "door_lm deploy: not every recorded request was answered")
-        check(trace.header["models"][LM_ARCH]["class"] == "lm", "door_lm: no lm class")
-        legs = (("same_deployment", lambda: (trace, {"deployment": dep})),
-                ("fresh_card", lambda: (tr.GoldenTrace.load(path),
-                                        {"backend": registry.negotiate("cuda")})))
-        for name, setup in legs:
-            t0 = time.perf_counter()
-            golden, kw = setup()
-            replay = golden.replay(**kw)
-            diff = golden.diff(replay)
-            emit({"phase": "door_lm_trace", "leg": name, "tolerance": diff.tolerance,
-                  "max_abs_err": diff.max_abs_err, "n_compared": diff.n_compared,
-                  "lm_results": sum(m == LM_ARCH for m, _ in golden.results),
-                  "kernels": sorted(replay.kernels), "seconds": time.perf_counter() - t0,
-                  "describe": diff.describe()})
-            check(diff.tolerance == 0.0 and diff.ok,
-                  f"door_lm trace {name}: {diff.describe()}")
-            check(diff.n_compared == 2 * DOOR_DEPLOY_REQUESTS,
-                  f"door_lm trace {name}: compared {diff.n_compared}")
-        counts = {k: n + registry.LAUNCHES[k] for k, n in counts.items()}
-    emit({"phase": "door_lm", "door": "deploy", "deploy_s": deploy_s,
-          "summary": dep.summary()})
+    # deploy() of nvsa beside the LMs' smoke archs, recorded and replayed:
+    # llama3.2-3b, then the recurrent kinds
+    for models in DOOR_DEPLOY_MODELS:
+        served = door_deploy_trace(models)
+        counts = {k: n + served[k] for k, n in counts.items()}
     # the LM engine admits prompts through ``decode_step`` token by token, as
     # the reference's does, so LM traffic launches no flash_attn
     check(counts["circ_conv"] > 0, "kernel circ_conv was not launched on the "
@@ -2743,13 +3191,14 @@ def phase_door_lm(dev: str = "cuda") -> dict[str, int]:
 # the other rows a kernel's entry of the ``kernels`` line carries, under
 # these keys: circ_conv at NVSA's served bucket, circ_dict corr and bf16,
 # unbind_classify at d = 256, simd_fused bf16, at d = 128 and at M = 1024,
-# flash_attn bf16 and bf16 at head dim 64
+# flash_attn bf16, bf16 at head dim 64 and bf16 at internvl2-26b's 48 heads
 SUB_ROWS = {"circ_conv": (("served", "circ_conv_served"),),
             "circ_dict": (("corr", "circ_dict_corr"), ("bf16", "circ_dict_bf16")),
             "unbind_classify": (("d256", "unbind_classify_d256"),),
             "simd_fused": (("bf16", "simd_fused_bf16"), ("d128", "simd_fused_d128"),
                            ("m1024", "simd_fused_m1024")),
-            "flash_attn": (("bf16", "flash_attn_bf16"), ("hd64", "flash_attn_hd64"))}
+            "flash_attn": (("bf16", "flash_attn_bf16"), ("hd64", "flash_attn_hd64"),
+                           ("internvl2", "flash_attn_internvl2"))}
 
 
 def main() -> int:

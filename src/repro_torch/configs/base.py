@@ -5,9 +5,12 @@ The port of ``repro.configs.base``.  ``ArchSpec`` is the uniform adapter of
 the LM architectures (``configs/registry.py:ARCHS``): ``model_spec``,
 ``prefill_fn`` (the full-context forward, last-token logits),
 ``decode_fn``, ``serve_fns`` (the ``Engine``'s decode step and cache
-allocator) and ``lm_engine``.  The port has the ``lm`` kind only (the dense
-GQA decoders and the MoE / MLA ones); the other kinds raise, naming
-ROADMAP Queue 1 #4 item 3.
+allocator) and ``lm_engine``.  The port has the kinds ``lm`` (the dense GQA
+decoders and the MoE / MLA ones), ``rwkv`` and ``griffin`` (the recurrent
+decoders, served with exact-length prefill scans: ``serve_fns`` tags their
+cache allocator ``stateful_prefill``) and ``vlm`` (patch embeddings before
+the ``lm`` body; not servable, as in the reference).  The enc-dec kind
+raises, naming ROADMAP Queue 1 #4 item 3.
 
 For NSAI reasoning, each
 :class:`ReasonWorkload` entry declares how a workload serves: its stage
@@ -36,11 +39,14 @@ from repro_torch import interop
 from repro_torch.backend import registry
 from repro_torch.core import workloads
 from repro_torch.data import raven
+from repro_torch.models import griffin as griffin_mod
 from repro_torch.models import lm as lm_mod
 from repro_torch.models import lvrf as lv
 from repro_torch.models import mimonet as mm
 from repro_torch.models import nvsa as nv
 from repro_torch.models import prae as pr
+from repro_torch.models import rwkv6 as rwkv_mod
+from repro_torch.models import vlm as vlm_mod
 from repro_torch.nn import init as nninit
 from repro_torch.serve import schedule as sch
 from repro_torch.serve.reason import ReasonConfig, ReasonEngine, ReasonRequest
@@ -54,8 +60,9 @@ from repro_torch.serve.schedule import StageSpec, TensorSpec
 
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
-    """The reference's ``ArchSpec`` without ``fsdp`` and ``opt_8bit``, the
-    sharding and optimizer switches that wait for Queue 1 #5 and #6."""
+    """The reference's ``ArchSpec``.  ``fsdp`` and ``opt_8bit`` (the
+    sharding and optimizer switches) are recorded for Queue 1 #5 and #6;
+    nothing reads them yet."""
 
     id: str
     family: str                   # moe | dense | ssm | hybrid | vlm | audio
@@ -63,32 +70,63 @@ class ArchSpec:
     make_full: Callable[[], Any]
     make_smoke: Callable[[], Any]
     supports_long: bool = False
+    fsdp: bool = False            # shard the non-TP weight dim over data
+    opt_8bit: bool = False        # quantized AdamW moments
     note: str = ""
     source: str = ""
 
 
+_MODS = {"lm": lm_mod, "rwkv": rwkv_mod, "griffin": griffin_mod, "vlm": vlm_mod}
+_SPECS = {"lm": "lm_spec", "rwkv": "rwkv_spec", "griffin": "griffin_spec",
+          "vlm": "vlm_spec"}
+
+
 def _mod(kind: str):
-    if kind == "lm":
-        return lm_mod
-    if kind in ("rwkv", "griffin", "vlm", "encdec"):
+    if kind in _MODS:
+        return _MODS[kind]
+    if kind == "encdec":
         raise NotImplementedError(
             f"arch kind {kind!r} is not ported yet (ROADMAP Queue 1 #4 item 3: "
-            "nn/ssm.py, rwkv6, griffin, encdec and vlm)")
+            "models/encdec.py, with cross_attention and encode_kv)")
     raise ValueError(kind)
 
 
 def model_spec(arch: ArchSpec, cfg):
-    return _mod(arch.kind).lm_spec(cfg)
+    return getattr(_mod(arch.kind), _SPECS[arch.kind])(cfg)
+
+
+def forward_fn(arch: ArchSpec, cfg):
+    """(forward, readout) of a token-input kind (``lm``, ``rwkv``,
+    ``griffin``): ``forward(params, tokens)`` gives the full-context
+    forward's hidden states (B, S, D), ``readout(params, hidden)`` their
+    logits.  ``vlm`` takes patch embeddings too, and ``prefill_fn`` reads
+    its hidden states itself."""
+    m = _mod(arch.kind)
+    if arch.kind == "lm":
+        return (lambda params, tokens: m.forward(params, cfg, tokens)[0],
+                lambda params, hidden: m.lm_logits(params, cfg, hidden))
+    if arch.kind in ("rwkv", "griffin"):
+        return (lambda params, tokens: m.forward(params, cfg, tokens),
+                lambda params, hidden: m.logits(params, cfg, hidden))
+    raise NotImplementedError(f"{arch.kind}: its forward takes non-token inputs")
 
 
 def prefill_fn(arch: ArchSpec, cfg):
     """Full-context forward returning last-token logits (inference
-    prefill); every unwindowed layer runs the ``flash_attn`` kernel."""
-    m = _mod(arch.kind)
+    prefill).  Every unwindowed attention layer runs the ``flash_attn``
+    kernel (``lm``, ``vlm``); ``rwkv`` runs the chunked WKV, ``griffin``
+    the RG-LRU scan and windowed plain attention.  The ``vlm`` function
+    takes ``{"patch_embeds", "tokens"}`` in place of the tokens."""
+    if arch.kind == "vlm":
+        def f(params, batch):
+            hidden, _ = vlm_mod.forward(params, cfg, batch["patch_embeds"],
+                                        batch["tokens"])
+            return lm_mod.lm_logits(params, cfg.lm, hidden[:, -1:])[:, 0]
+        return f
+    forward, readout = forward_fn(arch, cfg)
 
     def f(params, tokens):
-        hidden, _ = m.forward(params, cfg, tokens)
-        return m.lm_logits(params, cfg, hidden[:, -1:])[:, 0]
+        return readout(params, forward(params, tokens)[:, -1:])[:, 0]
 
     return f
 
@@ -105,14 +143,29 @@ def decode_fn(arch: ArchSpec, cfg):
 def serve_fns(arch: ArchSpec, cfg, max_len: int):
     """(decode_step, init_caches) pair for the continuous-batching
     ``Engine``: ``decode_step`` takes a per-slot (B,) position vector (or
-    an int); ``init_caches(batch, device)`` allocates zeroed KV caches of
-    ``max_len`` per slot on ``device``."""
+    an int); ``init_caches(batch, device)`` allocates zeroed decode state
+    with ``max_len`` KV capacity per slot on ``device``.  The recurrent
+    kinds (rwkv, griffin) carry O(1) or windowed state, which bucketed
+    prefill's pad steps would corrupt, so ``init_caches`` is tagged
+    ``stateful_prefill = True`` and the Engine runs exact-length prefill
+    scans.  ``vlm`` and ``encdec`` raise, as in the reference: serving
+    needs their non-token inputs."""
     m = _mod(arch.kind)
     step = decode_fn(arch, cfg)
-
-    def init(batch: int, device=None):
-        return m.init_caches(cfg, batch, max_len, device=device)
-
+    if arch.kind == "lm":
+        def init(batch: int, device=None):
+            return m.init_caches(cfg, batch, max_len, device=device)
+    elif arch.kind == "rwkv":
+        def init(batch: int, device=None):
+            return m.init_state(cfg, batch, device=device)
+    elif arch.kind == "griffin":
+        def init(batch: int, device=None):
+            return m.init_state(cfg, batch, max_len, device=device)
+    else:
+        raise NotImplementedError(
+            f"{arch.kind}: serving needs non-token inputs (patch embeddings / "
+            "encoder frames) — use the model module's forward / decode_step")
+    init.stateful_prefill = arch.kind in ("rwkv", "griffin")
     return step, init
 
 

@@ -43,7 +43,7 @@ def smoke() -> LMConfig:
 
 ARCH = ArchSpec(
     id="deepseek-v3-671b", family="moe", kind="lm",
-    make_full=full, make_smoke=smoke,
+    make_full=full, make_smoke=smoke, fsdp=True, opt_8bit=True,
     note="MLA compressed KV cache; EP over model axis; MTP exercises "
          "inter-loop overlap. FSDP + 8-bit AdamW to fit 16 GB/chip.",
     source="arXiv:2412.19437",

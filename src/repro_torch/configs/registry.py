@@ -1,25 +1,27 @@
 """Architecture registry: an arch id resolves here.
 
-The port has the reference's decoders of kind ``lm``: the MoE / MLA pair
-(granite-moe-1b-a400m, deepseek-v3-671b) and the four dense GQA archs.  The
-reference's other ids need modules that are not ported yet; ``get_arch``
-names the ROADMAP Queue 1 item for each.
+The port has the reference's decoders of kind ``lm`` (the MoE / MLA pair
+granite-moe-1b-a400m and deepseek-v3-671b, and the four dense GQA archs),
+the recurrent kinds ``rwkv`` (rwkv6-7b) and ``griffin``
+(recurrentgemma-9b), and the ``vlm`` kind (internvl2-26b).  The
+reference's enc-dec id needs modules that are not ported yet; ``get_arch``
+names the ROADMAP Queue 1 item for it.
 """
 from repro_torch.configs.deepseek_v3_671b import ARCH as deepseek_v3
 from repro_torch.configs.gemma3_12b import ARCH as gemma3
 from repro_torch.configs.granite_moe_1b_a400m import ARCH as granite_moe
+from repro_torch.configs.internvl2_26b import ARCH as internvl2
 from repro_torch.configs.llama3_2_3b import ARCH as llama32
+from repro_torch.configs.recurrentgemma_9b import ARCH as recurrentgemma
+from repro_torch.configs.rwkv6_7b import ARCH as rwkv6
 from repro_torch.configs.stablelm_3b import ARCH as stablelm
 from repro_torch.configs.starcoder2_3b import ARCH as starcoder2
 
 ARCHS = {a.id: a for a in [granite_moe, deepseek_v3, llama32, stablelm, gemma3,
-                           starcoder2]}
+                           starcoder2, rwkv6, recurrentgemma, internvl2]}
 
 #: The reference's arch ids that the port lacks, and what each needs.
 NOT_PORTED = {
-    "rwkv6-7b": "nn/ssm.py and models/rwkv6.py",
-    "recurrentgemma-9b": "nn/ssm.py and models/griffin.py",
-    "internvl2-26b": "models/vlm.py",
     "seamless-m4t-large-v2": "models/encdec.py",
 }
 

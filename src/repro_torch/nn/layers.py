@@ -1,5 +1,6 @@
-"""Layers: dense, embedding, norms, RoPE, activations, MLP blocks (the LM
-substrate) and conv, eval-mode batchnorm, pooling (the NVSA frontend).
+"""Layers: dense, embedding, norms, RoPE, activations, MLP blocks, the
+causal temporal conv of the RG-LRU block (the LM substrate) and conv,
+eval-mode batchnorm, pooling (the NVSA frontend).
 
 Each layer is a pair (``<name>_spec`` -> P tree, ``<name>`` apply fn) like
 ``repro.nn.layers``.  The LM layers keep the reference's arithmetic: norms
@@ -81,6 +82,18 @@ def layernorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     var = xf.var(dim=-1, keepdim=True, unbiased=False)
     y = (xf - mu) * torch.rsqrt(var + eps)
     y = y * params["scale"].float() + params["bias"].float()
+    return y.to(x.dtype)
+
+
+def groupnorm(x: torch.Tensor, num_groups: int, scale: torch.Tensor,
+              bias: torch.Tensor, eps: float = 64e-5) -> torch.Tensor:
+    """GroupNorm over the last axis, in f32 (RWKV's time-mix output)."""
+    *lead, d = x.shape
+    xf = x.float().reshape(*lead, num_groups, d // num_groups)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    y = ((xf - mu) * torch.rsqrt(var + eps)).reshape(*lead, d)
+    y = y * scale.float() + bias.float()
     return y.to(x.dtype)
 
 
@@ -215,3 +228,34 @@ def maxpool2d(x: torch.Tensor, k: int = 2, stride: int | None = None) -> torch.T
 
 def avgpool_global(x: torch.Tensor) -> torch.Tensor:
     return x.mean(dim=(1, 2))
+
+
+def conv1d_spec(d: int, width: int = 4, dtype=torch.float32):
+    """Depthwise temporal conv: ``w`` (K, D), the reference's layout (2-D, so
+    ``interop.from_reference`` carries it across unchanged)."""
+    return {
+        "w": P((width, d), (None, "embed"), init="normal",
+               scale=1.0 / math.sqrt(width), dtype=dtype),
+        "b": P((d,), ("embed",), init="zeros", dtype=dtype),
+    }
+
+
+def causal_conv1d(params, x: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Depthwise causal temporal conv. x: (B, S, D).  The K shifted products
+    are summed in the reference's order, in ``x``'s dtype."""
+    w = params["w"].to(compute_dtype)  # (K, D)
+    k, s = w.shape[0], x.shape[1]
+    pad = F.pad(x, (0, 0, k - 1, 0))
+    y = pad[:, 0:s] * w[0]
+    for i in range(1, k):
+        y = y + pad[:, i:i + s] * w[i]
+    return y + params["b"].to(compute_dtype)
+
+
+def causal_conv1d_step(params, state: torch.Tensor, x_t: torch.Tensor):
+    """One decode step. state: (B, K-1, D), the trailing inputs; x_t: (B, D).
+    Returns (new state, y (B, D))."""
+    w = params["w"].to(x_t.dtype)
+    window = torch.cat([state.to(x_t.dtype), x_t[:, None, :]], dim=1)  # (B, K, D)
+    y = torch.einsum("bkd,kd->bd", window, w) + params["b"].to(x_t.dtype)
+    return window[:, 1:, :], y

@@ -22,12 +22,13 @@ For each NSAI workload:
    constants drawn from a ``torch.Generator`` seeded with ``(seed, model
    index)``.
 
-An LM model has no DSE step, as in the reference: its ``ServeConfig``
-comes from the budget's LM fields (``max_slots``, ``max_len``,
-``decode_block``, ``max_new_tokens``) overridden by its options, and
-``configs.base.lm_engine`` builds the slot-pool ``Engine`` over the arch's
-smoke config, its parameters drawn from the same ``(seed, model index)``
-seed.
+An LM model (kind ``lm``, ``rwkv`` or ``griffin``; the recurrent kinds
+prefill with exact-length scans) has no DSE step, as in the reference:
+its ``ServeConfig`` comes from the budget's LM fields (``max_slots``,
+``max_len``, ``decode_block``, ``max_new_tokens``) overridden by its
+options, and ``configs.base.lm_engine`` builds the slot-pool ``Engine``
+over the arch's smoke config, its parameters drawn from the same ``(seed,
+model index)`` seed.
 
 The result is a :class:`Deployment`: one
 :class:`~repro_torch.serve.frontdoor.FrontDoor` over every engine, with an
@@ -48,8 +49,7 @@ co-search, Queue 1 #3d and #6; LM replica pools and tensor-parallel
 decode, #4 item 4), ``preflight=`` other than ``"off"`` (the analyzer,
 #7).  ``backend=`` other than None raises too, by design (#3e): the
 device selects each kernel, and no plan may send a CUDA tensor to a plain
-version.  A recurrent arch (rwkv6-7b, recurrentgemma-9b) raises
-``KeyError`` (#4 item 3).
+version.
 """
 
 from __future__ import annotations

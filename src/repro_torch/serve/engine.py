@@ -5,7 +5,12 @@ of ``max_slots`` KV-cache slots of ``max_len`` tokens each.  Requests wait
 in a FIFO queue and are admitted as soon as a slot frees up: admission runs
 one ragged, padded prefill for the whole admission group, scanning the
 prompts through ``decode_step`` with every slot's position clamped to its
-prompt length, then merges the admitted rows into the pool.  Decode runs
+prompt length, then merges the admitted rows into the pool.  Recurrent
+state (rwkv, griffin) would take the pad steps in, so under
+``stateful_prefill`` admission runs one exact-length scan per distinct
+prompt length instead, in ascending length, as the reference does; the
+engine turns the flag on by itself when ``init_caches`` carries the
+``stateful_prefill`` tag (``configs.base.serve_fns`` sets it).  Decode runs
 ``decode_block`` tokens per block with every live slot at its own position;
 a slot that samples EOS or spends its budget retires and emits ``pad_id``
 to the block's end, and freed slots are refilled only at block boundaries,
@@ -30,9 +35,7 @@ same uids online.  Stats split warmup from measured runs: a run that first
 meets a shape (the first decode block, a new padded prefill length) is
 warmup, as in the reference, where such a run compiles.
 
-Not ported: ``stateful_prefill`` (exact-length prefill scans for recurrent
-state, which waits for ``nn/ssm.py``) and ``LockstepEngine`` (the bench
-baseline, ROADMAP Queue 1 #8).
+Not ported: ``LockstepEngine`` (the bench baseline, ROADMAP Queue 1 #8).
 """
 
 from __future__ import annotations
@@ -63,6 +66,10 @@ class ServeConfig:
     max_len: int = 128            # per-slot KV capacity (prompt + new tokens)
     decode_block: int = 8         # tokens per decode block
     prefill_bucket: int = 16      # pad prompt scans to a multiple of this
+    # exact-length prefill scans, one per distinct prompt length (recurrent
+    # state cannot absorb pad steps); forced on by a tagged init_caches, and
+    # a caller may set it, as a deploy() option (so a trace's options) can
+    stateful_prefill: bool = False
     # sampling streams are keyed by (seed, uid, token index): see the module
     seed: int = 0
 
@@ -140,6 +147,11 @@ class Engine:
     def __init__(self, decode_step: Callable, init_caches: Callable,
                  cfg: ServeConfig, params=None, clock=time.perf_counter,
                  wall=time.perf_counter):
+        # configs.base.serve_fns tags init_caches for archs whose cumulative
+        # recurrent state bucketed pad steps would corrupt: honour the tag,
+        # so that no caller has to set the flag
+        if getattr(init_caches, "stateful_prefill", False) and not cfg.stateful_prefill:
+            cfg = dataclasses.replace(cfg, stateful_prefill=True)
         self.cfg = cfg
         self.init_caches = init_caches
         self.params = params
@@ -285,9 +297,10 @@ class Engine:
         return torch.as_tensor(a).to(self.device)
 
     def _admit(self):
-        """Fill free slots from the queue with one ragged batched prefill."""
-        cfg = self.cfg
-        slots, state = self._slots, self._state
+        """Fill free slots from the queue: one ragged batched prefill, or
+        under ``stateful_prefill`` one exact-length prefill per distinct
+        prompt length."""
+        cfg, slots = self.cfg, self._slots
         free = [i for i, s in enumerate(slots) if s.request is None]
         if not free or not self._queue:
             return
@@ -299,15 +312,30 @@ class Engine:
             slots[slot_idx].tokens = []
             slots[slot_idx].budget = self._budget(req)
 
-        plen_max = max(len(r.prompt) for _, r in group)
-        padded = -(-plen_max // cfg.prefill_bucket) * cfg.prefill_bucket
+        if cfg.stateful_prefill:
+            # one exact-length scan per distinct prompt length (state-safe)
+            by_len: dict[int, list] = {}
+            for slot_idx, req in group:
+                by_len.setdefault(len(req.prompt), []).append((slot_idx, req))
+            plan = [(items, length) for length, items in sorted(by_len.items())]
+        else:
+            plen_max = max(len(r.prompt) for _, r in group)
+            plan = [(group, -(-plen_max // cfg.prefill_bucket) * cfg.prefill_bucket)]
+        for items, padded in plan:
+            self._prefill_group(items, padded)
+
+    def _prefill_group(self, items, padded: int):
+        """Prefill ``items`` ((slot, request) pairs) as one scan of
+        ``padded`` steps, merge their rows into the pool and take each
+        one's first token."""
+        cfg, slots, state = self.cfg, self._slots, self._state
         if ("prefill", padded) not in self._warmed:
             self._warmed.add(("prefill", padded))
             self._cold_run = True
         tokens = np.full((cfg.max_slots, padded), cfg.pad_id, np.int64)
         plens = np.zeros((cfg.max_slots,), np.int64)
         admit = np.zeros((cfg.max_slots,), bool)
-        for slot_idx, req in group:
+        for slot_idx, req in items:
             p = np.asarray(req.prompt, np.int64).reshape(-1)
             tokens[slot_idx, : len(p)] = p
             plens[slot_idx] = len(p)
@@ -327,17 +355,17 @@ class Engine:
         # first token: each admitted request's stream at index 0 (other rows
         # are computed and never read)
         streams = [None] * cfg.max_slots
-        for slot_idx, req in group:
+        for slot_idx, req in items:
             streams[slot_idx] = (req.uid, 0)
         first = self._sample(last_logits, streams).cpu().numpy()
-        for slot_idx, req in group:
+        for slot_idx, req in items:
             state["tok"][slot_idx] = first[slot_idx]
             state["pos"][slot_idx] = plens[slot_idx]
             state["active"][slot_idx] = True
             state["budget"][slot_idx] = slots[slot_idx].budget
             state["gen"][slot_idx] = 1
         # a first token can already finish the request (EOS / budget 1)
-        for slot_idx, req in group:
+        for slot_idx, req in items:
             self._push_token(slot_idx, int(first[slot_idx]))
 
     def _push_token(self, i: int, token: int):

@@ -11,11 +11,10 @@ registry of traffic classes
 validates its model list against.
 
 The registry serves the four reasoners of ``configs.base.REASON_WORKLOADS``
-(class ``reason``) and the LM archs the port builds (class ``lm``, the
-slot-pool ``serve.engine.Engine`` of ``configs.base.lm_engine``); the
-``frontdoor`` class mixes both.  The reference's recurrent archs
-(rwkv6-7b, recurrentgemma-9b) raise ``KeyError`` naming ROADMAP Queue 1 #4
-item 3, which ports their kinds.
+(class ``reason``) and the token-in, token-out LM archs (class ``lm``: the
+kinds ``lm``, ``rwkv`` and ``griffin``, through the slot-pool
+``serve.engine.Engine`` of ``configs.base.lm_engine``); the ``frontdoor``
+class mixes both.  The ``vlm`` kind is not servable, as in the reference.
 """
 
 from __future__ import annotations
@@ -142,22 +141,12 @@ def engine_observation(engine: Any) -> dict[str, Any]:
 # the runtime registry
 # ---------------------------------------------------------------------------
 
-#: The reference's servable recurrent arch ids (kinds rwkv / griffin),
-#: whose kinds the port does not build yet.
-LM_MODELS_NOT_PORTED: tuple[str, ...] = ("recurrentgemma-9b", "rwkv6-7b")
-
-
-def recurrent_not_ported(what: str) -> KeyError:
-    return KeyError(f"{what}: the rwkv and griffin kinds are not ported yet "
-                    "(ROADMAP Queue 1 #4 item 3, nn/ssm.py)")
-
-
 def _lm_model_ids() -> tuple[str, ...]:
-    """Arch ids the slot-pool Engine can serve: every arch the port builds
-    (all of kind ``lm``)."""
+    """Arch ids the slot-pool Engine can serve (token-in, token-out kinds)."""
     from repro_torch.configs import ARCHS
 
-    return tuple(sorted(ARCHS))
+    return tuple(sorted(a for a, spec in ARCHS.items()
+                        if spec.kind in ("lm", "rwkv", "griffin")))
 
 
 def _reason_model_ids() -> tuple[str, ...]:
@@ -194,17 +183,13 @@ TRAFFIC_CLASSES: dict[str, TrafficClass] = {
 
 
 def resolve_models(workload: str, models: Iterable[str]) -> tuple[str, ...]:
-    """Validate a model list against a traffic class's registry entry.  A
-    recurrent arch id of the reference raises ``KeyError`` (not ported)."""
+    """Validate a model list against a traffic class's registry entry."""
     tc = TRAFFIC_CLASSES.get(workload)
     if tc is None:
         raise KeyError(f"unknown workload {workload!r}; "
                        f"available: {tuple(TRAFFIC_CLASSES)}")
     known = tc.models()
     out = tuple(models)
-    lm = [m for m in out if m in LM_MODELS_NOT_PORTED]
-    if lm and workload != "reason":
-        raise recurrent_not_ported(f"LM models {lm}")
     bad = [m for m in out if m not in known]
     if bad:
         raise ValueError(f"{workload}: unknown models {bad}; "

@@ -34,9 +34,8 @@ digests.  Each package loads the other's files.
 The port takes no lowering override (ROADMAP Queue 1 #3e): ``backend`` is
 None or a :class:`~repro_torch.backend.registry.LoweringPlan`, whose
 platform says where a fresh deployment runs; a string raises.  Traces of
-the ``lm`` class record and replay like NSAI ones, with token ids compared
-exactly; a header naming a recurrent arch (rwkv6-7b, recurrentgemma-9b)
-raises ``KeyError`` (#4 item 3).
+the ``lm`` class (the kinds ``lm``, ``rwkv`` and ``griffin``) record and
+replay like NSAI ones, with token ids compared exactly.
 """
 
 from __future__ import annotations
@@ -51,7 +50,6 @@ import numpy as np
 import torch
 
 from repro_torch.backend import registry
-from repro_torch.serve import runtime as rt
 from repro_torch.serve.frontdoor import ArrivalRequest, FrontDoorReport
 
 TRACE_VERSION = 1
@@ -348,10 +346,6 @@ class GoldenTrace:
                 not isinstance(backend, registry.LoweringPlan):
             raise TypeError(f"backend must be None or a LoweringPlan, got "
                             f"{type(backend).__name__}")
-        unported = [m for m in self.header["models"]
-                    if m in rt.LM_MODELS_NOT_PORTED]
-        if unported:
-            raise rt.recurrent_not_ported(f"models {unported} of the trace")
         if deployment is None:
             deployment = self.deploy(backend)
         plan = deployment.backend or backend or registry.negotiate()

@@ -205,8 +205,15 @@ def test_unported_options_raise():
     for preflight in ("error", "warn"):
         with pytest.raises(NotImplementedError, match="#7"):
             p_deploy_mod.deploy(["nvsa"], preflight=preflight, device="cpu")
-    with pytest.raises(KeyError, match="#4 item 3"):
-        p_deploy_mod.deploy(["nvsa", "rwkv6-7b"], device="cpu")
+    # the recurrent LMs deploy, with exact-length prefill (served beside
+    # nvsa in tests/test_torch_engine.py); the vlm and enc-dec archs are not
+    # servable, as in the reference
+    dep = p_deploy_mod.deploy(["rwkv6-7b", "recurrentgemma-9b"], device="cpu")
+    assert dep.classes == {"rwkv6-7b": "lm", "recurrentgemma-9b": "lm"}
+    assert all(e.cfg.stateful_prefill for e in dep.engines.values())
+    for arch_id in ("internvl2-26b", "seamless-m4t-large-v2"):
+        with pytest.raises(ValueError, match="unknown models"):
+            p_deploy_mod.deploy(["nvsa", arch_id], device="cpu")
     with pytest.raises(ValueError, match="preflight must be"):
         p_deploy_mod.deploy(["nvsa"], preflight="strict", device="cpu")
     with pytest.raises(ValueError, match="at least one workload"):

@@ -219,3 +219,176 @@ def test_lm_engine_on_the_cpu_with_synthetic_tokens():
     assert np.array_equal(toks, jtoks) and np.array_equal(targets, jtargets)
     out = eng.generate(list(toks))
     assert out.shape == (5, 4) and ((0 <= out) & (out < cfg.vocab)).all()
+
+
+# ---------------------------------------------------------------------------
+# the recurrent kinds: exact-length (stateful) prefill
+# ---------------------------------------------------------------------------
+
+RECURRENT = ("rwkv6-7b", "recurrentgemma-9b")
+# three distinct lengths, two past griffin's smoke window of 16, so its ring
+# caches wrap during prefill
+RAGGED = (5, 21, 9, 21, 5, 18)
+
+
+@pytest.fixture(scope="module")
+def recurrent():
+    """Per recurrent arch: the f32-compute configs, the reference's params
+    and the port's copy."""
+    out = {}
+    for i, arch_id in enumerate(RECURRENT):
+        jcfg = dataclasses.replace(JARCHS[arch_id].make_smoke(), compute_dtype=jnp.float32)
+        cfg = dataclasses.replace(ARCHS[arch_id].make_smoke(), compute_dtype=torch.float32)
+        jp = jinit.materialize(jbase.model_spec(JARCHS[arch_id], jcfg),
+                               jax.random.PRNGKey(60 + i))
+        out[arch_id] = (jcfg, cfg, jp,
+                        interop.from_reference(jax.tree.map(np.asarray, jp), device="cpu"))
+    return out
+
+
+def test_serve_fns_tag_forces_stateful_prefill():
+    """rwkv / griffin served with a default ServeConfig must not run
+    bucketed pad steps through cumulative state: ``serve_fns`` tags
+    ``init_caches`` and the Engine turns the flag on by itself; positional
+    KV caches keep bucketed prefill (the reference's test, for both
+    recurrent kinds)."""
+    for arch_id in RECURRENT:
+        arch = ARCHS[arch_id]
+        step, init_caches = cbase.serve_fns(arch, arch.make_smoke(), max_len=MAX_LEN)
+        assert init_caches.stateful_prefill
+        eng = pengine.Engine(step, init_caches, pengine.ServeConfig(max_len=MAX_LEN))
+        assert eng.cfg.stateful_prefill
+    arch = ARCHS["llama3.2-3b"]
+    step, init_caches = cbase.serve_fns(arch, arch.make_smoke(), max_len=MAX_LEN)
+    assert not init_caches.stateful_prefill
+    eng = pengine.Engine(step, init_caches, pengine.ServeConfig(max_len=MAX_LEN))
+    assert not eng.cfg.stateful_prefill
+
+
+@pytest.mark.parametrize("arch_id", RECURRENT)
+def test_stateful_prefill_ragged_matches_reference(recurrent, arch_id):
+    """Six ragged requests of three distinct lengths on four slots at f32
+    compute: greedy streams, slots and stats identical to the reference
+    ``Engine``'s (one exact-length prefill per distinct length of each
+    admission group, in ascending length), and each stream equal to the
+    request served alone."""
+    jcfg, cfg, jp, p = recurrent[arch_id]
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, 256, n).astype(np.int32) for n in RAGGED]
+    kw = dict(max_new_tokens=6, max_slots=4, max_len=MAX_LEN, decode_block=4)
+    jstep, jinit_ = jbase.serve_fns(JARCHS[arch_id], jcfg, max_len=MAX_LEN)
+    jeng = jengine.Engine(jstep, jinit_, jengine.ServeConfig(**kw), params=jp)
+    step, init_ = cbase.serve_fns(ARCHS[arch_id], cfg, max_len=MAX_LEN)
+    eng = pengine.Engine(step, init_, pengine.ServeConfig(**kw), params=p)
+    want, got = _run(jeng, prompts, jengine), _run(eng, prompts, pengine)
+    assert _streams(got) == _streams(want)
+    assert {u: r.slot for u, r in got.items()} == {u: r.slot for u, r in want.items()}
+    # first group: lengths 5, 21, 9, 21 -> three scans; the refills (5, 18)
+    # come one request at a time as slots free
+    assert eng.stats["prefills"] == jeng.stats["prefills"] >= 3
+    for key in ("requests", "tokens", "decode_blocks", "slot_steps",
+                "active_slot_steps", "slots_served"):
+        assert eng.stats[key] == jeng.stats[key], key
+    for i, prompt in enumerate(prompts):
+        alone = eng.run([pengine.Request(uid=100 + i, prompt=prompt)])[100 + i]
+        np.testing.assert_array_equal(alone.tokens, got[i].tokens)
+
+
+def test_stateful_prefill_runs_one_scan_per_distinct_length(recurrent):
+    """Admission under ``stateful_prefill`` scans each distinct prompt
+    length once, in ascending length, at exactly that length: no pad step
+    reaches the recurrent state."""
+    _, cfg, _, p = recurrent["rwkv6-7b"]
+    step, init_ = cbase.serve_fns(ARCHS["rwkv6-7b"], cfg, max_len=MAX_LEN)
+    eng = pengine.Engine(step, init_, pengine.ServeConfig(
+        max_new_tokens=2, max_slots=4, max_len=MAX_LEN, decode_block=2), params=p)
+    scans = []
+    prefill = eng._prefill
+    eng._prefill = lambda caches, tokens, plens: (
+        scans.append((tokens.shape[1], sorted(set(plens.tolist()) - {0}))),
+        prefill(caches, tokens, plens))[1]
+    rng = np.random.default_rng(8)
+    eng.run([pengine.Request(uid=i, prompt=rng.integers(0, 256, n).astype(np.int32))
+             for i, n in enumerate((12, 3, 12, 7))])
+    assert scans == [(3, [3]), (7, [7]), (12, [12])]
+    assert eng.stats["prefills"] == 3
+
+
+def test_stateful_prefill_set_by_the_caller_on_positional_caches(models):
+    """``ServeConfig.stateful_prefill`` set by the caller, as a ``deploy()``
+    option (an LM's ``ServeConfig`` overrides) and so a golden trace's
+    recorded options can carry it, on a positional KV arch at f32 compute:
+    greedy streams and stats equal to the reference ``Engine``'s under the
+    same flag, one prefill scan per distinct length of each admission
+    group, and the streams equal to bucketed prefill's."""
+    prompts = _prompts(7, seed=4)
+    jeng = _ref_engine(models, "llama3.2-3b", stateful_prefill=True)
+    eng = _engine(models, "llama3.2-3b", stateful_prefill=True)
+    got = _run(eng, prompts, pengine)
+    assert _streams(got) == _streams(_run(jeng, prompts, jengine))
+    for key in ("prefills", "requests", "tokens", "decode_blocks", "slot_steps",
+                "active_slot_steps"):
+        assert eng.stats[key] == jeng.stats[key], key
+    plain = _engine(models, "llama3.2-3b")
+    bucketed = _run(plain, prompts, pengine)
+    assert not plain.cfg.stateful_prefill
+    # the first group's three prompts have three lengths: three scans for one
+    assert eng.stats["prefills"] > plain.stats["prefills"]
+    assert {u: r.tokens.tolist() for u, r in got.items()} == \
+        {u: r.tokens.tolist() for u, r in bucketed.items()}
+
+
+def test_rwkv_beside_nvsa_through_deploy_and_trace(tmp_path, monkeypatch):
+    """``deploy(["nvsa", "rwkv6-7b"])`` on the CPU behind one front door on a
+    virtual clock, the LM at f32 compute: every request answered, the rwkv
+    streams equal to the reference ``Engine``'s over the same parameters,
+    and a golden trace of the serve replays bit-exact through the same and
+    a fresh deployment (tokens and answers exact)."""
+    import importlib
+
+    from repro_torch.backend import registry
+    from repro_torch.serve import trace as p_trace
+
+    p_deploy = importlib.import_module("repro_torch.serve.deploy")
+
+    arch_id = "rwkv6-7b"
+    arch = ARCHS[arch_id]
+    monkeypatch.setitem(ARCHS, arch_id, dataclasses.replace(
+        arch, make_smoke=lambda: dataclasses.replace(arch.make_smoke(),
+                                                     compute_dtype=torch.float32)))
+    t = [0.0]
+
+    def sleep(dt):
+        t[0] += dt
+
+    budget = dict(max_pes=1024, max_batch=4, max_slots=2, max_len=MAX_LEN,
+                  max_new_tokens=6)
+    dep = p_deploy.deploy(["nvsa", arch_id],
+                          p_deploy.Traffic(rate_rps=50.0, deadline_s=0.01),
+                          p_deploy.Budget(**budget), seed=3,
+                          options={"nvsa": {"variant": "oracle", "d": 128}},
+                          preflight="off", clock=lambda: t[0], sleep=sleep,
+                          device="cpu")
+    assert dep.classes == {"nvsa": "reason", arch_id: "lm"}
+    assert dep.engines[arch_id].cfg.stateful_prefill
+    arrivals = list(dep.synthetic_traffic(6)[0])
+    path = str(tmp_path / "rwkv.jsonl")
+    report, trace = p_trace.record(dep, arrivals, path)
+    assert {m: sorted(r) for m, r in report.results.items()} == \
+        {"nvsa": list(range(6)), arch_id: list(range(6))}
+    assert {g.model for g in report.groups} == {"nvsa", arch_id}
+
+    jcfg = dataclasses.replace(JARCHS[arch_id].make_smoke(), compute_dtype=jnp.float32)
+    jp = jax.tree.map(lambda x: jnp.asarray(x.numpy()), dep.engines[arch_id].params)
+    jstep, jinit_ = jbase.serve_fns(JARCHS[arch_id], jcfg, max_len=MAX_LEN)
+    jeng = jengine.Engine(jstep, jinit_, jengine.ServeConfig(
+        max_slots=2, max_len=MAX_LEN, max_new_tokens=6), params=jp)
+    want = jeng.run([jengine.Request(uid=a.request.uid, prompt=a.request.prompt)
+                     for a in arrivals if a.model == arch_id])
+    for uid, res in want.items():
+        np.testing.assert_array_equal(report.results[arch_id][uid].tokens, res.tokens)
+
+    for kw in ({"deployment": dep}, {"backend": registry.negotiate("cpu")}):
+        diff = p_trace.GoldenTrace.load(path).replay_and_diff(**kw)
+        assert diff.tolerance == 0.0 and diff.n_compared == 12
+        assert diff.ok, diff.describe()

@@ -18,6 +18,7 @@ from _hypothesis_compat import given, settings, st
 
 from repro.serve import control as r_ctl
 from repro.serve import frontdoor as r_fd
+from repro.serve import runtime as r_rt
 from repro.serve import slo as r_slo
 from repro_torch.configs import base as cb
 from repro_torch.serve import control as p_ctl
@@ -266,14 +267,18 @@ def _assert_nonempty(decisions, control):
 def test_runtime_registry_and_envelopes():
     assert p_rt.resolve_models("frontdoor", ["nvsa", "lvrf"]) == ("nvsa", "lvrf")
     assert set(p_rt.TRAFFIC_CLASSES["reason"].models()) == set(cb.REASON_WORKLOADS)
-    # LM archs resolve in the lm and frontdoor classes; the recurrent kinds
-    # still raise, naming their item
+    # LM archs resolve in the lm and frontdoor classes, the recurrent kinds
+    # among them (as in the reference); the vlm kind is not servable
     assert p_rt.resolve_models("frontdoor", ["nvsa", "llama3.2-3b"]) == \
         ("nvsa", "llama3.2-3b")
     assert "llama3.2-3b" in p_rt.TRAFFIC_CLASSES["lm"].models()
     for workload in ("frontdoor", "lm"):
-        with pytest.raises(KeyError, match="Queue 1 #4 item 3"):
-            p_rt.resolve_models(workload, ["rwkv6-7b"])
+        assert p_rt.resolve_models(workload, ["rwkv6-7b", "recurrentgemma-9b"]) == \
+            ("rwkv6-7b", "recurrentgemma-9b")
+        with pytest.raises(ValueError, match="unknown models"):
+            p_rt.resolve_models(workload, ["internvl2-26b"])
+    assert set(p_rt.TRAFFIC_CLASSES["lm"].models()) == \
+        set(r_rt.TRAFFIC_CLASSES["lm"].models())
     with pytest.raises(ValueError, match="unknown models"):
         p_rt.resolve_models("lm", ["nvsa"])
     with pytest.raises(ValueError, match="unknown models"):

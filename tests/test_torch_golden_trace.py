@@ -199,8 +199,10 @@ def test_header_records_deploy_spec(golden):
 
 
 def test_replay_refuses_what_the_port_does_not_take(golden):
-    """A string backend (#3e) and a recurrent LM model (#4 item 3) raise;
-    the reference's LM fields of Budget are taken at any value."""
+    """A string backend (#3e) raises, and a model neither package serves (the
+    vlm arch) is refused; a recurrent LM model in the header is taken (its
+    kind is ported); the reference's LM fields of Budget are taken at any
+    value."""
     _, _, trace, path = golden
     with pytest.raises(NotImplementedError, match="#3e"):
         trace.replay(backend="xla")
@@ -208,9 +210,18 @@ def test_replay_refuses_what_the_port_does_not_take(golden):
         p_deploy.deploy(["nvsa"], backend=registry.negotiate("cpu"),
                         device="cpu")
     lines = [json.loads(l) for l in open(path)]
-    lines[0]["models"]["rwkv6-7b"] = {"class": "lm", "variant": None}
-    with pytest.raises(KeyError, match="#4 item 3"):
-        p_trace.GoldenTrace.from_lines(lines).replay()
+
+    def naming(arch_id):
+        header = dict(lines[0], models={**lines[0]["models"],
+                                        arch_id: {"class": "lm", "variant": None}})
+        header["deploy"] = dict(header["deploy"], workloads=[
+            *header["deploy"]["workloads"], arch_id])
+        return p_trace.GoldenTrace.from_lines([header, *lines[1:]])
+
+    with pytest.raises(ValueError, match="unknown models"):
+        naming("internvl2-26b").replay(backend=registry.negotiate("cpu"))
+    dep = naming("rwkv6-7b").deploy(registry.negotiate("cpu"))
+    assert dep.classes["rwkv6-7b"] == "lm"
     budget = dict(trace.header["deploy"]["budget"])
     assert p_trace._port_budget(budget) == p_deploy.Budget(**BUDGET)
     assert p_trace._port_budget(dict(budget, max_slots=8)) == \

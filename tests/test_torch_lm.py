@@ -81,7 +81,12 @@ def _tokens(vocab: int, b: int, s: int, seed: int) -> np.ndarray:
 
 
 def test_registry_and_unported_archs():
-    assert sorted(ARCHS) == sorted(DENSE_ARCHS + MOE_ARCHS)
+    """The ``lm`` archs field for field; the recurrent and vlm archs are
+    registered (held in ``test_torch_{rwkv,griffin,vlm}.py``); the enc-dec
+    arch alone still raises, naming Queue 1 #4 item 3."""
+    assert sorted(ARCHS) == sorted(DENSE_ARCHS + MOE_ARCHS + (
+        "rwkv6-7b", "recurrentgemma-9b", "internvl2-26b"))
+    assert set(JARCHS) - set(ARCHS) == {"seamless-m4t-large-v2"}
     for arch_id in DENSE_ARCHS + MOE_ARCHS:
         arch, jarch = get_arch(arch_id), JARCHS[arch_id]
         assert (arch.family, arch.kind, arch.source, arch.note) == \
@@ -105,20 +110,26 @@ def test_registry_and_unported_archs():
 
 
 def test_unported_kinds_and_options_raise():
-    """The recurrent, vlm and enc-dec kinds still raise, naming Queue 1 #4
-    item 3; MoE, MLA and the MTP head are ported (MOE_ARCHS below), and an
-    unknown attention kind is refused."""
+    """The enc-dec kind still raises, naming Queue 1 #4 item 3; the
+    recurrent and vlm kinds are ported, and ``serve_fns`` refuses the vlm
+    kind as the reference's does (it needs patch embeddings); an unknown
+    attention kind is refused."""
     arch = ARCHS["llama3.2-3b"]
     cfg = arch.make_smoke()
-    for kind in ("rwkv", "griffin", "vlm", "encdec"):
-        with pytest.raises(NotImplementedError, match="Queue 1 #4 item 3"):
-            cbase.model_spec(dataclasses.replace(arch, kind=kind), cfg)
+    with pytest.raises(NotImplementedError, match="Queue 1 #4 item 3"):
+        cbase.model_spec(dataclasses.replace(arch, kind="encdec"), cfg)
     with pytest.raises(ValueError, match="unknown attn_kind"):
         lm.lm_spec(dataclasses.replace(cfg, attn_kind="linear"))
-    for arch_id in ("rwkv6-7b", "recurrentgemma-9b", "internvl2-26b",
-                    "seamless-m4t-large-v2"):
-        with pytest.raises(KeyError, match="Queue 1 #4 item 3"):
-            cbase.lm_engine(arch_id, device="cpu")
+    with pytest.raises(KeyError, match="Queue 1 #4 item 3"):
+        cbase.lm_engine("seamless-m4t-large-v2", device="cpu")
+    vlm_arch = ARCHS["internvl2-26b"]
+    with pytest.raises(NotImplementedError, match="non-token inputs"):
+        cbase.serve_fns(vlm_arch, vlm_arch.make_smoke(), max_len=32)
+    with pytest.raises(NotImplementedError, match="non-token inputs"):
+        cbase.lm_engine("internvl2-26b", device="cpu")
+    for arch_id in ("rwkv6-7b", "recurrentgemma-9b"):
+        eng, _ = cbase.lm_engine(arch_id, device="cpu")
+        assert eng.cfg.stateful_prefill
 
 
 @pytest.mark.parametrize("arch_id", DENSE_ARCHS)
