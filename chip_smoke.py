@@ -118,6 +118,27 @@ and prints no result line):
    backward) and ``fused_unbind_classify`` at MIMONet's width, within 1e-4
    of the CPU; ``flash_mha`` refusing grad and taking a transposed view
    bit for bit as its contiguous copy.
+9b. Train: NSAI training on the card at the published widths (after the
+   ops phase; its launches under ``launches_by_path["train"]``).  First
+   step, card against CPU from one seeded init and one batch:
+   ``nvsa.frontend_loss`` (``NVSAConfig()``: d = 256, cnn_width 16,
+   cnn_feat 128; 64 panels), ``mimonet.loss_fn`` (``MIMONetConfig()``: d =
+   128, K = 2, trunk 2 x 1024; 32 problems, so circ_elem runs forward and
+   backward at (64, 4, 128)) and ``lvrf.loss_fn`` (``LVRFConfig()``, d =
+   128, 16 oracle problems): the loss within 1e-5, every grad leaf within
+   1e-4 of its max |grad|, the BN batch stats within 1e-5 of their scale,
+   one AdamW step within 2 lr everywhere and 1e-6 at all but one element
+   in 10^3 (``TRAIN_FIRST_TOL``; TF32 off).  Then the
+   ``examples/train_nvsa_raven_torch.py`` twin: 400 steps on the panels of
+   400 problems (the loss every 50 steps, ms a step on the host clock; the
+   last 50 steps' mean loss below a quarter of step 0's), and Tab. IV on 128
+   problems per style (raven, iraven, pgm by fp32, bf16, int8, mp, int4:
+   answer and rule accuracy, memory bytes; fp32 answer accuracy >= 0.9,
+   the fp32 / mp memory ratio inside (3.5, 8.5)).  MIMONet: 200 AdamW
+   steps on panel pairs labelled by shape type (the loss falling, ms a
+   step, accuracy on 64 held-out pairs).  LVRF at d = 128: 60 full-batch
+   SGD steps at lr 0.5 on the 16 oracle problems (accuracy >= 0.9).  The
+   phase's seconds and ``max_memory_allocated``.
 10. LM: the LM substrate at published width.  llama3.2-3b
    (``make_full()``: 28 layers, d 3072, 24 heads and 8 KV heads of 128,
    d_ff 8192, vocab 128256; f32 parameters drawn on the card from a seeded
@@ -148,7 +169,7 @@ and prints no result line):
    decode step and per admission, parameter and KV-cache bytes,
    ``max_memory_allocated``.  Then gemma3-12b at its width and one pattern
    unit of depth (a reduced depth: 6 of its 48 layers, 5 local with window
-   1024 and 1 global, 2.35B parameters) serving 4 greedy prompts of
+   1024 and 1 global, 2.35B parameters) serving 2 greedy prompts of
    1040-1120 tokens, so the local layers' ring caches wrap, with the same
    checks against its forward (plain windowed attention on the local
    layers, flash_attn on the global one).  Then the MoE / MLA archs:
@@ -219,7 +240,8 @@ and prints no result line):
    paths (each path's counts set to 0 just before it runs and read just
    after) and its times at its path's shape, its bound and the units the
    bound counts; entries carry other rows (``SUB_ROWS``): ``circ_conv``
-   the (8, 4, 256) bucket under ``served`` (39 of NVSA's 42 calls),
+   the (8, 4, 256) bucket under ``served`` (39 of NVSA's 42 calls) and
+   MIMONet's training shape (64, 4, 128) under ``train`` and ``train_corr``,
    ``circ_dict`` corr and bf16 at (256, 16, 4, 256), ``unbind_classify``
    (8, 2, 4, 256, 5) under ``d256``, ``simd_fused`` bf16, (67, 5, 4, 128)
    under ``d128`` and (64, 1024, 4, 256) under ``m1024``, ``flash_attn``
@@ -461,6 +483,8 @@ def phase_kernels() -> dict:
                     main["circ_conv"] = row
                 if (mode, n, d) == ("conv", 8, 256):  # 39 of NVSA's 42 calls
                     main["circ_conv_served"] = row
+                if (n, d) == (64, 128):  # MIMONet's training step (32 problems)
+                    main[f"circ_conv_train_{mode}"] = row
     strided_circ_rows(gen)
     for int4 in (False, True):
         for m, k, n in ((16, 128, 5), (64, 128, 6), (64, 128, 8), (67, 130, 7),
@@ -1914,6 +1938,232 @@ def ops_gradients(gen, launched) -> None:
           "bit_identical_to_contiguous": True})
 
 
+# -- phase 9b: NSAI training ----------------------------------------------------
+
+TRAIN_FIRST_TOL = {"loss": 1e-5, "grad": 1e-4, "stats": 1e-5}   # card against CPU
+TRAIN_STEPS, TRAIN_PROBLEMS, TRAIN_EVAL = 400, 400, 128   # the example's defaults
+MIMO_STEPS, MIMO_BATCH, MIMO_PAIRS = 200, 32, 800
+LVRF_STEPS, LVRF_LR = 60, 0.5
+
+
+def twin_example():
+    """``examples/train_nvsa_raven_torch.py`` as a module."""
+    import importlib.util
+
+    path = ROOT / "examples" / "train_nvsa_raven_torch.py"
+    spec = importlib.util.spec_from_file_location("train_nvsa_raven_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def tree_rel_err(got, want) -> float:
+    """Largest |got - want| over a tree's leaves, each leaf's error taken
+    relative to its own max |want|; None leaves must match."""
+    from repro_torch.common.tree import tree_leaves
+
+    worst = 0.0
+    for g, w in zip(tree_leaves(got), tree_leaves(want), strict=True):
+        check((g is None) == (w is None), "a gradient is None on one device only")
+        if w is not None:
+            scale = max(float(w.abs().max()), 1e-30)
+            worst = max(worst, float((g.cpu().float() - w.float()).abs().max()) / scale)
+    return worst
+
+
+def train_first_step(label: str, fn, has_aux: bool, params, args, ocfg) -> None:
+    """One seeded init and one batch through ``fn`` on the card and on the
+    CPU: the loss, every grad leaf (relative to its max |grad|), the BN
+    batch stats (relative to their scale) and one AdamW step.  An Adam
+    first step moves each element by up to lr whatever its gradient's
+    size, so the step is held within 2 lr everywhere, and within 1e-6 at
+    all but one element in 10^3 (gradients f32 rounding away from 0)."""
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.backend import registry
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.train import optimizer as opt
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = interop.to_device(params, dev)
+        a = [interop.to_device(x, dev) for x in args]
+        before = registry.LAUNCHES["circ_conv"]
+        value, grads = opt.value_and_grad(fn, has_aux)(p, *a)
+        new, _, metrics = opt.apply_updates(p, grads, opt.init_state(p, ocfg), ocfg)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[dev] = (value, grads, new, metrics, registry.LAUNCHES["circ_conv"] - before)
+    (vg, gg, ng, mg, launches), (vc, gc, nc, mc, _) = out["cuda"], out["cpu"]
+    loss_g, loss_c = (float(v[0] if has_aux else v) for v in (vg, vc))
+    loss_err = abs(loss_g - loss_c)
+    grad_err = tree_rel_err(gg, gc)
+    stats_err = 0.0
+    if has_aux:
+        check(list(vg[1]) == list(vc[1]), f"train {label}: BN stats paths differ")
+        stats_err = tree_rel_err([list(t) for t in vg[1].values()],
+                                 [list(t) for t in vc[1].values()])
+    lr0 = float(mc["lr"])
+    diffs = torch.cat([(g.cpu() - c).abs().reshape(-1)
+                       for g, c in zip(tree_leaves(ng), tree_leaves(nc))])
+    step_max, step_far = float(diffs.max()), int((diffs > 1e-6).sum())
+    row = {"phase": "train", "row": "first_step", "model": label, "loss_cuda": loss_g,
+           "loss_cpu": loss_c, "loss_abs_err": loss_err, "grad_rel_err": grad_err,
+           "bn_stats_rel_err": stats_err, "grad_norm_cuda": float(mg["grad_norm"]),
+           "grad_norm_cpu": float(mc["grad_norm"]), "adamw_step_max_abs_diff": step_max,
+           "adamw_elements_beyond_1e-6": step_far, "adamw_elements": diffs.numel(),
+           "lr0": lr0, "circ_conv_launches": launches, "tolerances": TRAIN_FIRST_TOL}
+    emit(row)
+    check(loss_err <= TRAIN_FIRST_TOL["loss"], f"train {label}: loss {loss_err} from the CPU")
+    check(grad_err <= TRAIN_FIRST_TOL["grad"], f"train {label}: grads {grad_err} from the CPU")
+    check(stats_err <= TRAIN_FIRST_TOL["stats"], f"train {label}: BN stats {stats_err}")
+    check(step_max <= 2 * lr0 and step_far <= diffs.numel() // 1000,
+          f"train {label}: AdamW step {step_max} ({step_far} elements beyond 1e-6)")
+
+
+def phase_train() -> dict[str, int]:
+    """NSAI training on the card at the published widths; returns the
+    path's launch counts.  a. first-step parity with the CPU for
+    ``nvsa.frontend_loss`` (``NVSAConfig()``, 64 panels),
+    ``mimonet.loss_fn`` (``MIMONetConfig()``, 32 problems of K = 2, so
+    circ_elem runs at (64, 4, 128)) and ``lvrf.loss_fn`` (``LVRFConfig()``,
+    16 oracle problems); b. the ``train_nvsa_raven`` twin: 400 steps on the
+    panels of 400 problems, then Tab. IV on 128 problems per style;
+    c. MIMONet: 200 AdamW steps on panel pairs labelled by shape type;
+    d. LVRF: 60 full-batch SGD steps at lr 0.5 on the 16 oracle problems."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.backend import registry
+    from repro_torch.data import raven
+    from repro_torch.models import lvrf, mimonet, nvsa
+    from repro_torch.nn import init as nninit
+    from repro_torch.train import optimizer as opt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    twin = twin_example()
+    ocfg = opt.AdamWConfig(lr=3e-3, warmup_steps=20, total_steps=TRAIN_STEPS,
+                           weight_decay=1e-4)
+    registry.reset_launches()
+
+    # a. first-step parity, card against CPU
+    ncfg = nvsa.NVSAConfig()
+    imgs, attrs = raven.panel_dataset(ncfg.raven, seed=11, n_problems=4)
+    gen = torch.Generator().manual_seed(SEED)
+    train_first_step("nvsa", nvsa.frontend_loss, True,
+                     nninit.materialize(nvsa.nvsa_spec(ncfg), gen),
+                     (ncfg, torch.from_numpy(imgs), torch.from_numpy(attrs)), ocfg)
+    mcfg = mimonet.MIMONetConfig()
+    k = mcfg.n_channels
+    pair_imgs, pair_attrs = raven.panel_dataset(mcfg.raven, seed=12,
+                                                n_problems=MIMO_PAIRS * k // 16)
+    pairs = torch.from_numpy(pair_imgs).reshape(-1, k, *pair_imgs.shape[1:])
+    shapes = torch.from_numpy(pair_attrs[:, 0]).reshape(-1, k)
+    mkeys = mimonet.mimonet_keys(mcfg, gen)
+    train_first_step("mimonet", mimonet.loss_fn, True,
+                     nninit.materialize(mimonet.mimonet_spec(mcfg), gen),
+                     (mkeys, mcfg, pairs[:MIMO_BATCH], shapes[:MIMO_BATCH]), ocfg)
+    lcfg = lvrf.LVRFConfig()
+    batch = raven.generate_batch(lcfg.raven, seed=5, n=16)
+    ctx = nvsa.oracle_pmfs(ncfg, torch.from_numpy(batch["context_attrs"]))
+    cand = nvsa.oracle_pmfs(ncfg, torch.from_numpy(batch["candidate_attrs"]))
+    answers = torch.from_numpy(batch["answer"]).long()
+    books = lvrf.lvrf_codebooks(lcfg, gen)
+    lparams = nninit.materialize(lvrf.lvrf_spec(lcfg), gen)
+    train_first_step("lvrf", lvrf.loss_fn, False, lparams,
+                     (books, lcfg, ctx, cand, answers), ocfg)
+
+    # b. the example's run and Tab. IV
+    t0 = time.perf_counter()
+    params, losses, loop_s = twin.train_frontend(ncfg, TRAIN_STEPS, TRAIN_PROBLEMS,
+                                                  device="cuda")
+    loss0, late = float(losses[0]), losses[-50:]   # steps 350-399 of 400
+    emit({"phase": "train", "row": "nvsa_frontend", "steps": TRAIN_STEPS,
+          "panels": TRAIN_PROBLEMS * 16, "batch": 64,
+          "loss_every_50": [float(losses[s]) for s in range(0, TRAIN_STEPS, 50)],
+          "loss_last": float(losses[-1]), "loss_last_50_mean": float(late.mean()),
+          "loss_last_50_range": [float(late.min()), float(late.max())],
+          "ms_per_step": loop_s / TRAIN_STEPS * 1e3, "seconds": time.perf_counter() - t0})
+    check(bool(torch.isfinite(losses).all()), "nvsa training: a loss is not finite")
+    check(float(late.mean()) < loss0 / 4,
+          f"nvsa training: mean loss {float(late.mean())} of the last 50 steps, "
+          f"step 0 {loss0}")
+    tab = twin.tab4(params, ncfg, TRAIN_EVAL)
+    for style, row in tab.items():
+        for label, r in row.items():
+            emit({"phase": "train", "row": "tab4", "style": style, "precision": label, **r})
+        check(row["fp32"]["answer_acc"] >= 0.9,
+              f"Tab. IV {style} fp32 answer accuracy {row['fp32']['answer_acc']}")
+    ratio = tab["raven"]["fp32"]["memory_bytes"] / tab["raven"]["mp"]["memory_bytes"]
+    emit({"phase": "train", "row": "tab4_memory_ratio", "fp32_over_mp": ratio})
+    check(3.5 < ratio < 8.5, f"Tab. IV memory ratio {ratio}")
+
+    # c. MIMONet: AdamW at the example's lr on panel pairs labelled by shape
+    mparams = nninit.materialize(mimonet.mimonet_spec(mcfg),
+                                 torch.Generator(device="cuda").manual_seed(SEED))
+    keys_d = mkeys.cuda()
+    n_train = pairs.shape[0] - 64  # the last 64 pairs held out
+    pairs_d, shapes_d = pairs.cuda(), shapes.cuda()
+    mocfg = dataclasses.replace(ocfg, total_steps=MIMO_STEPS)
+    mstate = opt.init_state(mparams, mocfg)
+    grad_fn = opt.value_and_grad(mimonet.loss_fn, has_aux=True)
+    rng = np.random.default_rng(0)
+    mlosses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MIMO_STEPS):
+        idx = torch.from_numpy(rng.integers(0, n_train, MIMO_BATCH)).cuda()
+        (loss, stats), grads = grad_fn(mparams, keys_d, mcfg, pairs_d[idx], shapes_d[idx])
+        mparams, mstate, _ = opt.apply_updates(mparams, grads, mstate, mocfg)
+        mparams = mimonet.apply_bn_stats(mparams, stats, momentum=0.9)
+        mlosses.append(loss)
+    mlosses = torch.stack(mlosses).cpu()
+    mimo_s = time.perf_counter() - t0
+    first, last = float(mlosses[:20].mean()), float(mlosses[-20:].mean())
+    acc_train = mimonet.accuracy(mparams, keys_d, mcfg, pairs_d[:64], shapes_d[:64])
+    acc_held = mimonet.accuracy(mparams, keys_d, mcfg, pairs_d[n_train:], shapes_d[n_train:])
+    emit({"phase": "train", "row": "mimonet", "steps": MIMO_STEPS, "batch": MIMO_BATCH,
+          "loss_every_50": [float(mlosses[s]) for s in range(0, MIMO_STEPS, 50)],
+          "loss_mean_first_20": first, "loss_mean_last_20": last,
+          "ms_per_step": mimo_s / MIMO_STEPS * 1e3, "accuracy_train_64": acc_train,
+          "accuracy_held_out_64": acc_held})
+    check(bool(torch.isfinite(mlosses).all()) and last < first,
+          f"mimonet training: loss {first} -> {last}")
+
+    # d. LVRF at d = 128: full-batch SGD, as test_lvrf_learns_rules_quickly
+    lp = {k: v.cuda() for k, v in lparams.items()}
+    args = ([b.cuda() for b in books], lcfg, [c.cuda() for c in ctx],
+            [c.cuda() for c in cand], answers.cuda())
+    lvrf_grad = opt.value_and_grad(lvrf.loss_fn)
+    llosses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LVRF_STEPS):
+        loss, grads = lvrf_grad(lp, *args)
+        lp = {k: lp[k] - LVRF_LR * grads[k] for k in lp}
+        llosses.append(loss)
+    llosses = torch.stack(llosses).cpu()
+    lvrf_s = time.perf_counter() - t0
+    lacc = lvrf.accuracy(lp, *args)
+    emit({"phase": "train", "row": "lvrf", "d": lcfg.d, "steps": LVRF_STEPS,
+          "loss_first": float(llosses[0]), "loss_last": float(llosses[-1]),
+          "ms_per_step": lvrf_s / LVRF_STEPS * 1e3, "accuracy": lacc})
+    check(lacc >= 0.9, f"lvrf training: accuracy {lacc}")
+
+    counts = dict(registry.LAUNCHES)
+    check(counts["circ_conv"] > 0, "kernel circ_conv was not launched on the train path")
+    emit({"phase": "train", "row": "phase", "seconds": time.perf_counter() - t_phase,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "launches": {k: v for k, v in counts.items() if v}})
+    return counts
+
+
 # -- phase 10: the LM substrate --------------------------------------------------
 
 LM_ARCH = "llama3.2-3b"
@@ -1933,7 +2183,7 @@ LM_SERVE = dict(max_slots=8, max_len=512, max_new_tokens=32, decode_block=8,
 LM_REQUESTS, LM_PROMPTS = 16, (16, 64)
 LM_SAMPLED = dict(temperature=0.8, top_k=50)
 LM_RING_ARCH, LM_RING_LAYERS = "gemma3-12b", 6   # one 5:1 local:global unit
-LM_RING_REQUESTS, LM_RING_PROMPTS = 4, (1040, 1120)
+LM_RING_REQUESTS, LM_RING_PROMPTS = 2, (1040, 1120)   # each past the 1024 window
 # the MoE / MLA archs: granite-moe at its published width (GQA at head dim
 # 64 on flash_attn), deepseek-v3 at its width cut to its 3 dense layers and
 # its first MoE layer (MLA on the plain attention, bf16 parameters, the MTP
@@ -3189,10 +3439,12 @@ def phase_door_lm(dev: str = "cuda") -> dict[str, int]:
 
 
 # the other rows a kernel's entry of the ``kernels`` line carries, under
-# these keys: circ_conv at NVSA's served bucket, circ_dict corr and bf16,
+# these keys: circ_conv at NVSA's served bucket and at MIMONet's training
+# shape (conv and corr), circ_dict corr and bf16,
 # unbind_classify at d = 256, simd_fused bf16, at d = 128 and at M = 1024,
 # flash_attn bf16, bf16 at head dim 64 and bf16 at internvl2-26b's 48 heads
-SUB_ROWS = {"circ_conv": (("served", "circ_conv_served"),),
+SUB_ROWS = {"circ_conv": (("served", "circ_conv_served"), ("train", "circ_conv_train_conv"),
+                          ("train_corr", "circ_conv_train_corr")),
             "circ_dict": (("corr", "circ_dict_corr"), ("bf16", "circ_dict_bf16")),
             "unbind_classify": (("d256", "unbind_classify_d256"),),
             "simd_fused": (("bf16", "simd_fused_bf16"), ("d128", "simd_fused_d128"),
@@ -3224,6 +3476,7 @@ def main() -> int:
     paths["replica"] = phase_replica()
     paths["trace"] = phase_trace(dep)
     paths["ops"] = phase_ops()
+    paths["train"] = phase_train()
     paths["lm"] = phase_lm()
     paths["door_lm"] = phase_door_lm()
     emit({"phase": "launches_by_path", **paths})

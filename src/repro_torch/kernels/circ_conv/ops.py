@@ -18,8 +18,9 @@ of the Pallas ``circ_dict``.
 ``circ_elem`` is differentiable, as the reference's custom VJPs: its
 backward is ``circ_elem`` again (conv: da = corr(b, g), db = corr(a, g);
 corr: da = corr(g, b), db = conv(g, a)), so on the card it launches the
-same kernel twice; the gradient of a broadcast operand is summed by
-autograd's own expand backward.  ``circ_bind_dict`` has no backward, as
+same kernel once for each operand that needs a gradient (a constant key
+or codebook gets ``None`` and no launch); the gradient of a broadcast
+operand is summed by autograd's own expand backward.  ``circ_bind_dict`` has no backward, as
 the reference's ``circ_dict``: on the card it raises when autograd would
 need one.
 """
@@ -120,11 +121,19 @@ class _CircElem(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, y = ctx.saved_tensors
+        need_x, need_y = ctx.needs_input_grad[:2]
+        dx = dy = None
         if ctx.mode == "conv":
-            dx, dy = circ_elem(y, g, "corr"), circ_elem(x, g, "corr")
+            if need_x:
+                dx = circ_elem(y, g, "corr").to(x.dtype)
+            if need_y:
+                dy = circ_elem(x, g, "corr").to(y.dtype)
         else:
-            dx, dy = circ_elem(g, y, "corr"), circ_elem(g, x, "conv")
-        return dx.to(x.dtype), dy.to(y.dtype), None
+            if need_x:
+                dx = circ_elem(g, y, "corr").to(x.dtype)
+            if need_y:
+                dy = circ_elem(g, x, "conv").to(y.dtype)
+        return dx, dy, None
 
 
 @registry.kernel_call("circ_conv")

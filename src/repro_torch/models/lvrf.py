@@ -1,7 +1,8 @@
 """LVRF — Learn-VRF: probabilistic abduction with learned VSA rules
 (Hersche et al., NeurIPS'23), in PyTorch.
 
-The port of ``repro.models.lvrf`` (serving path).  A rule ``R_k`` maps a
+The port of ``repro.models.lvrf``: the serving path, ``loss_fn`` and
+``accuracy``.  A rule ``R_k`` maps a
 row's first two panel codes to a predicted third code by binding.
 Abduction is a softmax posterior over rules from the two complete context
 rows; execution is the posterior-weighted binding on row 3.  Every rule
@@ -117,3 +118,18 @@ def solve_from_pmfs(params, books, cfg: LVRFConfig, ctx_pmfs, cand_pmfs):
     codes = encode_codes(books, cfg, ctx_pmfs)
     posts = abduce(params, cfg, codes)
     return execute(params, books, cfg, codes, posts, cand_pmfs), posts
+
+
+def loss_fn(params, books, cfg: LVRFConfig, ctx_pmfs, cand_pmfs,
+            answers: torch.Tensor) -> torch.Tensor:
+    """Answer cross-entropy.  The learned rules and roles are bound by
+    circ_conv, so its backward carries their gradient at d >= 128."""
+    logp, _ = solve_from_pmfs(params, books, cfg, ctx_pmfs, cand_pmfs)
+    return -torch.gather(logp, 1, answers[:, None].long()).mean()
+
+
+def accuracy(params, books, cfg: LVRFConfig, ctx_pmfs, cand_pmfs,
+             answers: torch.Tensor) -> float:
+    with torch.no_grad():
+        logp, _ = solve_from_pmfs(params, books, cfg, ctx_pmfs, cand_pmfs)
+    return float((logp.argmax(-1) == answers).float().mean())

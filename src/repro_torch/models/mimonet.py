@@ -1,6 +1,8 @@
 """MIMONet — computation in superposition (Menet et al., NeurIPS'23), in PyTorch.
 
-The port of ``repro.models.mimonet`` (serving path: eval mode only).  K
+The port of ``repro.models.mimonet``: the serving path, and the training
+half (``loss_fn`` with train-mode batchnorm, the BN EMA fold,
+``accuracy``).  K
 inputs are bound with per-channel unitary keys, bundled into one superposed
 code, pushed through one shared trunk (one forward pass for K inputs), then
 unbound per channel and classified.  Binding and unbinding run on the
@@ -66,12 +68,16 @@ def mimonet_keys(cfg: MIMONetConfig, generator: torch.Generator) -> torch.Tensor
 # (simd)
 
 
-def encode(params, cfg: MIMONetConfig, images: torch.Tensor) -> torch.Tensor:
+def encode(params, cfg: MIMONetConfig, images: torch.Tensor, train: bool = False,
+           bn_stats: dict | None = None) -> torch.Tensor:
     """images: (N, K, H, W, 1) -> per-channel codes (N, K, blocks, d).
-    Eval-mode batchnorm: a request's codes do not depend on its group."""
+    ``train=False`` uses the running BN stats: a request's codes do not
+    depend on its group.  ``train=True`` uses batch statistics and records
+    them in ``bn_stats`` for ``apply_bn_stats``."""
     n, k, h, w, c = images.shape
     feats = resnet.resnet(params["encoder"], _resnet_cfg(cfg),
-                          images.reshape(n * k, h, w, c))
+                          images.reshape(n * k, h, w, c), train=train,
+                          bn_stats=bn_stats)
     return feats.reshape(n, k, cfg.blocks, cfg.d)
 
 
@@ -124,3 +130,29 @@ def forward(params, keys: torch.Tensor, cfg: MIMONetConfig,
     codes = encode(params, cfg, images)
     x = trunk(params, superpose(keys, codes))
     return classify(params, unbind(keys, cfg, x))
+
+
+def loss_fn(params, keys: torch.Tensor, cfg: MIMONetConfig, images: torch.Tensor,
+            labels: torch.Tensor):
+    """Per-channel cross-entropy in train-mode BN, staged as the reference
+    (``classify(unbind(...))``, so its gradient runs through circ_conv's
+    backward).  labels: (N, K).  Returns ``(loss, bn_stats)``."""
+    bn_stats: dict = {}
+    codes = encode(params, cfg, images, train=True, bn_stats=bn_stats)
+    logits = classify(params, unbind(keys, cfg, trunk(params, superpose(keys, codes))))
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.gather(logp, -1, labels[..., None].long()).mean(), bn_stats
+
+
+def apply_bn_stats(params, bn_stats: dict, momentum: float = 0.9):
+    """EMA-fold one step's encoder BN batch statistics into the running
+    stats; returns a new params tree."""
+    return {**params,
+            "encoder": layers.bn_apply_stats(params["encoder"], bn_stats, momentum)}
+
+
+def accuracy(params, keys: torch.Tensor, cfg: MIMONetConfig, images: torch.Tensor,
+             labels: torch.Tensor) -> float:
+    with torch.no_grad():
+        logits = forward(params, keys, cfg, images)
+    return float((logits.argmax(-1) == labels).float().mean())

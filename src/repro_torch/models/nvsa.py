@@ -1,6 +1,8 @@
 """NVSA — Neuro-Vector-Symbolic Architecture (Hersche et al. 2023), in PyTorch.
 
-The port of ``repro.models.nvsa`` (serving path: eval mode only):
+The port of ``repro.models.nvsa``: the serving path, and the frontend's
+training half (``frontend_loss`` with train-mode batchnorm, the BN EMA
+fold, ``accuracy`` and the Tab. IV memory count):
 
   neuro:    ResNet frontend -> per-attribute PMFs over discrete values
   symbolic: FPE block-code encoding -> VSA rule abduction -> rule
@@ -8,7 +10,8 @@ The port of ``repro.models.nvsa`` (serving path: eval mode only):
             -> candidate similarity
 
 Precision is a config knob: ``nn_precision`` fake-quantises the frontend
-(and, with ``use_qmatmul``, runs the attribute heads on the qmatmul kernel);
+(int8/int4; with ``use_qmatmul`` the attribute heads run on the qmatmul
+kernel) or computes it in bf16;
 ``symb_precision`` fake-quantises codebooks and panel codes.
 """
 
@@ -16,9 +19,10 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
-from repro_torch.common.tree import tree_map
+from repro_torch.common.tree import tree_leaves, tree_map
 from repro_torch.data.raven import N_RULES, RavenConfig
 from repro_torch.kernels.qmatmul import ops as qops
 from repro_torch.nn import layers, resnet
@@ -34,7 +38,7 @@ class NVSAConfig:
     cnn_feat: int = 128
     rule_temp: float = 0.1
     answer_temp: float = 0.05
-    nn_precision: str = "fp32"    # fp32 | int8 | int4 (bf16: not ported yet)
+    nn_precision: str = "fp32"    # fp32 | bf16 | int8 | int4
     symb_precision: str = "fp32"  # fp32 | bf16 | int8 | int4
     # run the attribute heads on the qmatmul kernel when nn_precision is
     # int8/int4 (the served mixed-precision path)
@@ -118,22 +122,42 @@ def quantize_codebooks(cfg: NVSAConfig, codebooks):
     }
 
 
+_BITS_OF = {"fp32": 32, "bf16": 16, "int8": 8, "int4": 4}
+
+
+def nvsa_memory_bytes(cfg: NVSAConfig, params) -> int:
+    """Model memory at the configured mixed precision (Tab. IV): every
+    parameter at ``nn_precision`` bits, the codebooks, shift codes and
+    roles at ``symb_precision`` bits."""
+    bits_nn = _BITS_OF[cfg.nn_precision]
+    bits_sy = _BITS_OF[cfg.symb_precision]
+    nn_elems = sum(x.numel() for x in tree_leaves(params))
+    sy_elems = sum((2 * n - 1) * cfg.blocks * cfg.d for n in cfg.raven.attr_sizes)
+    sy_elems += (2 * cfg.raven.n_attrs + cfg.raven.n_attrs) * cfg.blocks * cfg.d
+    return (nn_elems * bits_nn + sy_elems * bits_sy) // 8
+
+
 # ---------------------------------------------------------------------------
 # Neuro frontend
 # ---------------------------------------------------------------------------
 
 
-def frontend_pmfs(params, cfg: NVSAConfig, images: torch.Tensor):
+def frontend_pmfs(params, cfg: NVSAConfig, images: torch.Tensor,
+                  train: bool = False, bn_stats: dict | None = None):
     """images: (N, H, W, 1) -> (list of (N, V_attr) PMFs, list of logits).
 
-    Eval-mode batchnorm: each image's PMFs are independent of its batch."""
-    if cfg.nn_precision not in ("fp32", *_BITS):
-        raise NotImplementedError(
-            f"nn_precision={cfg.nn_precision!r} is not ported yet")
+    ``train=False`` (serving, ``solve``) uses the running BN stats, so each
+    image's PMFs are independent of its batch.  ``train=True`` uses batch
+    statistics and records them in ``bn_stats`` for
+    ``frontend_apply_bn_stats``.  At ``nn_precision="bf16"`` the ResNet and
+    heads compute in bf16; the logits are f32."""
     p = params
     if cfg.nn_precision in _BITS:
         p = quant_tree(params, cfg.nn_precision)
-    feats = torch.relu(resnet.resnet(p["frontend"], _resnet_cfg(cfg), images))
+    compute_dtype = torch.bfloat16 if cfg.nn_precision == "bf16" else torch.float32
+    feats = torch.relu(resnet.resnet(p["frontend"], _resnet_cfg(cfg), images,
+                                     train=train, compute_dtype=compute_dtype,
+                                     bn_stats=bn_stats))
     if cfg.use_qmatmul and cfg.nn_precision in _BITS:
         # heads on the qmatmul kernel: int8 activations (per-row scales) x
         # int8/packed-int4 weights (per-column scales)
@@ -144,9 +168,30 @@ def frontend_pmfs(params, cfg: NVSAConfig, images: torch.Tensor):
             y = qops.qdense(feats.float(), h["w"].float(), bits_w=bits)
             logits.append(y + h["b"].float())
     else:
-        logits = [layers.dense(p["heads"][f"attr{i}"], feats).float()
+        logits = [layers.dense(p["heads"][f"attr{i}"], feats, compute_dtype).float()
                   for i in range(cfg.raven.n_attrs)]
     return [torch.softmax(l, dim=-1) for l in logits], logits
+
+
+def frontend_loss(params, cfg: NVSAConfig, images: torch.Tensor, attrs: torch.Tensor):
+    """Supervised attribute cross-entropy, the frontend's training
+    objective, in train-mode BN.  attrs: (N, n_attrs) integer labels.
+    Returns ``(loss, bn_stats)``: the batch statistics feed
+    ``frontend_apply_bn_stats``."""
+    bn_stats: dict = {}
+    _, logits = frontend_pmfs(params, cfg, images, train=True, bn_stats=bn_stats)
+    loss = 0.0
+    for i, l in enumerate(logits):
+        logp = torch.log_softmax(l, dim=-1)
+        loss = loss - torch.gather(logp, 1, attrs[:, i: i + 1].long()).mean()
+    return loss / cfg.raven.n_attrs, bn_stats
+
+
+def frontend_apply_bn_stats(params, bn_stats: dict, momentum: float = 0.9):
+    """EMA-fold one step's BN batch statistics into the frontend's running
+    stats; returns a new params tree."""
+    return {**params,
+            "frontend": layers.bn_apply_stats(params["frontend"], bn_stats, momentum)}
 
 
 # ---------------------------------------------------------------------------
@@ -254,6 +299,23 @@ def solve(params, codebooks, cfg: NVSAConfig, context: torch.Tensor,
     ctx_pmfs = [p.reshape(n, 8, -1) for p in ctx_pmfs]
     cand_pmfs = [p.reshape(n, 8, -1) for p in cand_pmfs]
     return reason(cfg, codebooks, ctx_pmfs, cand_pmfs)
+
+
+def accuracy(params, codebooks, cfg: NVSAConfig, batch) -> tuple[float, float]:
+    """(answer accuracy, rule accuracy) of ``solve`` on a numpy batch of
+    ``data.raven.generate_batch``, on the params' device (the codebooks are
+    moved there)."""
+    dev = tree_leaves(params)[0].device
+    codebooks = tree_map(lambda t: t.to(dev), codebooks)
+    with torch.no_grad():
+        logp, rule_probs = solve(params, codebooks, cfg,
+                                 torch.as_tensor(batch["context"], device=dev),
+                                 torch.as_tensor(batch["candidates"], device=dev))
+    answers = torch.as_tensor(np.asarray(batch["answer"]), device=dev)
+    rules = torch.as_tensor(np.asarray(batch["rules"]), device=dev)
+    ans_acc = (logp.argmax(-1) == answers).float().mean()
+    rule_acc = (rule_probs.argmax(-1).T == rules).float().mean()
+    return float(ans_acc), float(rule_acc)
 
 
 def oracle_pmfs(cfg: NVSAConfig, attrs: torch.Tensor):

@@ -87,3 +87,14 @@ def solve_from_pmfs(cfg: PrAEConfig, ctx_pmfs, cand_pmfs):
                                      torch.log(pred9 + cfg.eps))
     logp = torch.log_softmax(total / cfg.answer_temp, dim=-1)
     return logp, torch.stack(posts)
+
+
+def accuracy(cfg: PrAEConfig, ctx_pmfs, cand_pmfs, answers: torch.Tensor, rules=None):
+    """(answer accuracy, rule accuracy or None when ``rules`` is None)."""
+    logp, posts = solve_from_pmfs(cfg, ctx_pmfs, cand_pmfs)
+    acc = float((logp.argmax(-1) == answers).float().mean())
+    racc = None
+    if rules is not None:
+        rules = torch.as_tensor(rules, device=posts.device)
+        racc = float((posts.argmax(-1).T == rules).float().mean())
+    return acc, racc

@@ -1,6 +1,6 @@
 """Layers: dense, embedding, norms, RoPE, activations, MLP blocks, the
 causal temporal conv of the RG-LRU block (the LM substrate) and conv,
-eval-mode batchnorm, pooling (the NVSA frontend).
+batchnorm (eval and train mode), pooling (the NVSA frontend).
 
 Each layer is a pair (``<name>_spec`` -> P tree, ``<name>`` apply fn) like
 ``repro.nn.layers``.  The LM layers keep the reference's arithmetic: norms
@@ -212,11 +212,50 @@ def batchnorm_spec(c: int, dtype=torch.float32):
     }
 
 
-def batchnorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Eval-mode BN with the running stats: per-example independent."""
-    inv = torch.rsqrt(params["var"].float() + eps) * params["scale"].float()
-    y = (x.float() - params["mean"].float()) * inv + params["bias"].float()
+def batchnorm(params, x: torch.Tensor, train: bool = False, eps: float = 1e-5,
+              stats_sink: dict | None = None, stats_key=None) -> torch.Tensor:
+    """Functional BN over the last (channel) axis.  ``train=False`` uses the
+    running stats: per-example independent.  ``train=True`` normalises with
+    the batch's f32 mean and population variance and, given a
+    ``stats_sink`` dict, records them (detached) under ``stats_key`` for
+    :func:`bn_apply_stats`."""
+    if train:
+        axes = tuple(range(x.dim() - 1))
+        xf = x.float()
+        mean = xf.mean(dim=axes)
+        var = xf.var(dim=axes, correction=0)
+        if stats_sink is not None:
+            stats_sink[stats_key] = (mean.detach(), var.detach())
+    else:
+        mean, var = params["mean"], params["var"]
+    inv = torch.rsqrt(var.float() + eps) * params["scale"].float()
+    y = (x.float() - mean.float()) * inv + params["bias"].float()
     return y.to(x.dtype)
+
+
+def bn_apply_stats(params, stats: dict, momentum: float = 0.9):
+    """Fold collected BN batch statistics into the running stats (an EMA).
+
+    ``stats`` maps a path into ``params`` (dict keys and list indices, e.g.
+    ``("stages", 0, 1, "bn1")``) to ``(batch_mean, batch_var)``.  Returns a
+    new tree with those ``mean`` / ``var`` leaves replaced; every other leaf
+    is shared."""
+    def update(tree, path, mean, var):
+        if not path:
+            return {**tree,
+                    "mean": momentum * tree["mean"] + (1 - momentum) * mean,
+                    "var": momentum * tree["var"] + (1 - momentum) * var}
+        head, rest = path[0], path[1:]
+        if isinstance(tree, dict):
+            return {k: (update(v, rest, mean, var) if k == head else v)
+                    for k, v in tree.items()}
+        return [update(v, rest, mean, var) if i == head else v
+                for i, v in enumerate(tree)]
+
+    with torch.no_grad():
+        for path, (mean, var) in stats.items():
+            params = update(params, tuple(path), mean, var)
+    return params
 
 
 def maxpool2d(x: torch.Tensor, k: int = 2, stride: int | None = None) -> torch.Tensor:

@@ -2,7 +2,7 @@
 
 The port of ``repro.nn.resnet``: stages ``(2, 2, 2, 2)``, a projection
 shortcut wherever the stride or width changes, and batchnorm in eval mode
-(the serving path; training comes with a later slice).
+(serving) or train mode (batch statistics, collected for the EMA fold).
 """
 
 from __future__ import annotations
@@ -57,27 +57,39 @@ def resnet_spec(cfg: ResNetConfig):
     return spec
 
 
-def _block(params, x, stride: int, compute_dtype):
+def _block(params, x, stride: int, train: bool, compute_dtype, bn_stats, path):
+    def bn(name, y):
+        return layers.batchnorm(params[name], y, train, stats_sink=bn_stats,
+                                stats_key=path + (name,))
+
     y = layers.conv2d(params["conv1"], x, stride=stride, compute_dtype=compute_dtype)
-    y = torch.relu(layers.batchnorm(params["bn1"], y))
+    y = torch.relu(bn("bn1", y))
     y = layers.conv2d(params["conv2"], y, compute_dtype=compute_dtype)
-    y = layers.batchnorm(params["bn2"], y)
+    y = bn("bn2", y)
     if "proj" in params:
-        x = layers.batchnorm(params["proj_bn"], layers.conv2d(
-            params["proj"], x, stride=stride, compute_dtype=compute_dtype))
+        x = bn("proj_bn", layers.conv2d(params["proj"], x, stride=stride,
+                                        compute_dtype=compute_dtype))
     return torch.relu(x + y)
 
 
-def resnet(params, cfg: ResNetConfig, images: torch.Tensor,
-           compute_dtype=torch.float32) -> torch.Tensor:
-    """images: (B, H, W, C) -> (B, out_dim), eval-mode batchnorm."""
+def resnet(params, cfg: ResNetConfig, images: torch.Tensor, train: bool = False,
+           compute_dtype=torch.float32, bn_stats: dict | None = None) -> torch.Tensor:
+    """images: (B, H, W, C) -> (B, out_dim).
+
+    ``train=False`` uses the running stats, so each example's output is
+    independent of its batch (serving).  ``train=True`` uses batch
+    statistics; pass a ``bn_stats`` dict to collect each BN layer's batch
+    mean / var under its path into ``params`` (``("stem_bn",)``,
+    ``("stages", si, bi, "bn1")``), which ``layers.bn_apply_stats`` folds
+    into the running stats."""
     x = layers.conv2d(params["stem"], images.to(compute_dtype), stride=2,
                       compute_dtype=compute_dtype)
-    x = torch.relu(layers.batchnorm(params["stem_bn"], x))
+    x = torch.relu(layers.batchnorm(params["stem_bn"], x, train, stats_sink=bn_stats,
+                                    stats_key=("stem_bn",)))
     x = layers.maxpool2d(x, 3, 2)
     for si, stage in enumerate(params["stages"]):
         for bi, block in enumerate(stage):
             stride = 2 if (bi == 0 and si > 0) else 1
-            x = _block(block, x, stride, compute_dtype)
+            x = _block(block, x, stride, train, compute_dtype, bn_stats, ("stages", si, bi))
     x = layers.avgpool_global(x)
     return layers.dense(params["head"], x, compute_dtype)

@@ -1,0 +1,168 @@
+"""AdamW with optional 8-bit moments, over the port's parameter trees.
+
+The port of ``repro.train.optimizer``, with its functional API:
+``apply_updates(params, grads, state, cfg) -> (params, state, metrics)``
+over nested dicts and lists of tensors (``common.tree``).  The 8-bit path
+keeps ``m`` and ``sqrt(v)`` as blockwise-scaled int8 (round half to even,
+clamped to [-128, 127], zero-padded to ``qblock``), re-quantised each step.
+
+A leaf the loss does not reach (BN running stats under ``train=True``) has
+no gradient in torch, where JAX gives zeros: a ``None`` grad is taken as
+zeros, so the norm, the decay and the moments are the reference's.
+``value_and_grad`` takes the gradients of a loss in that form.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.common.tree import tree_leaves, tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.01
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    min_lr_ratio: float = 0.1
+    quantized_state: bool = False  # 8-bit moments
+    qblock: int = 256
+
+
+def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.full((), x, dtype=torch.float32, device=like.device)
+
+
+def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    """Linear warmup, then cosine decay to ``min_lr_ratio``; f32 on
+    ``step``'s device.  Every division is by a 0-d tensor: PyTorch divides
+    by a Python scalar on the card, and divides a Python scalar by a tensor
+    everywhere, through a reciprocal, which can be one ulp off."""
+    step = torch.as_tensor(step)
+    s = step.float()
+    warm = torch.clamp((s + 1) / _f32(cfg.warmup_steps, s), max=1.0)
+    prog = torch.clamp((s - cfg.warmup_steps)
+                       / _f32(max(1, cfg.total_steps - cfg.warmup_steps), s), 0.0, 1.0)
+    cos = cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * 0.5 * (1 + torch.cos(math.pi * prog))
+    return cfg.lr * warm * cos
+
+
+# --- blockwise int8 moment quantisation --------------------------------------
+
+
+def _q8(x: torch.Tensor, block: int):
+    """(q int8 (n_blocks, block), scale f32 (n_blocks, 1))."""
+    flat = x.reshape(-1)
+    pad = (-flat.numel()) % block
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    blocks = flat.reshape(-1, block)
+    amax = torch.clamp(blocks.abs().amax(dim=1, keepdim=True), min=1e-12)
+    scale = amax / _f32(127.0, amax)
+    q = torch.clamp(torch.round(blocks / scale), -128, 127).to(torch.int8)
+    return q, scale.float()
+
+
+def _dq8(q: torch.Tensor, scale: torch.Tensor, shape, size: int) -> torch.Tensor:
+    return (q.float() * scale).reshape(-1)[:size].reshape(shape)
+
+
+def init_state(params, cfg: AdamWConfig):
+    """Zero moments for every leaf, on its device, and ``step`` 0 (int32)."""
+    def zero_like(p):
+        if cfg.quantized_state:
+            n_blocks = -(-p.numel() // cfg.qblock)
+            return {
+                "m_q": torch.zeros((n_blocks, cfg.qblock), dtype=torch.int8, device=p.device),
+                "m_s": torch.zeros((n_blocks, 1), dtype=torch.float32, device=p.device),
+                "v_q": torch.zeros((n_blocks, cfg.qblock), dtype=torch.int8, device=p.device),
+                "v_s": torch.zeros((n_blocks, 1), dtype=torch.float32, device=p.device),
+            }
+        return {"m": torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+                "v": torch.zeros(p.shape, dtype=torch.float32, device=p.device)}
+    device = tree_leaves(params)[0].device
+    return {"mu": tree_map(zero_like, params),
+            "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of squares of every (non-None) leaf, in f32."""
+    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                          for x in tree_leaves(tree) if x is not None))
+
+
+def apply_updates(params, grads, state, cfg: AdamWConfig):
+    """One AdamW step.  Returns (new_params, new_state, metrics).
+
+    The lr comes from the step before the increment, the bias corrections
+    from the step after; the global-norm clip and the weight decay cover
+    every leaf."""
+    with torch.no_grad():
+        step = state["step"] + 1
+        gnorm = global_norm(grads)
+        clip = torch.clamp(_f32(cfg.grad_clip, gnorm) / torch.clamp(gnorm, min=1e-12),
+                           max=1.0)
+        lr = schedule(cfg, state["step"])
+        bc1 = 1 - torch.pow(_f32(cfg.b1, step), step.float())
+        bc2 = 1 - torch.pow(_f32(cfg.b2, step), step.float())
+
+        def upd(p, g, mu):
+            g = torch.zeros(p.shape, dtype=torch.float32, device=p.device) if g is None \
+                else g.float() * clip
+            if cfg.quantized_state:
+                m = _dq8(mu["m_q"], mu["m_s"], g.shape, g.numel())
+                # v is kept as quantised sqrt(v): sqrt halves the dynamic
+                # range, so small entries do not round to zero
+                v = torch.square(_dq8(mu["v_q"], mu["v_s"], g.shape, g.numel()))
+            else:
+                m, v = mu["m"], mu["v"]
+            m = cfg.b1 * m + (1 - cfg.b1) * g
+            v = cfg.b2 * v + (1 - cfg.b2) * g * g
+            update = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+            pf = p.float()
+            new_p = (pf - lr * (update + cfg.weight_decay * pf)).to(p.dtype)
+            if cfg.quantized_state:
+                mq, ms = _q8(m, cfg.qblock)
+                vq, vs = _q8(torch.sqrt(v), cfg.qblock)
+                return new_p, {"m_q": mq, "m_s": ms, "v_q": vq, "v_s": vs}
+            return new_p, {"m": m, "v": v}
+
+        # at each parameter leaf: its grad (or None) and its moment dict
+        out = tree_map(upd, params, grads, state["mu"])
+    new_params = tree_map(lambda _, o: o[0], params, out)
+    new_mu = tree_map(lambda _, o: o[1], params, out)
+    return new_params, {"mu": new_mu, "step": step}, {"grad_norm": gnorm, "lr": lr}
+
+
+def _unflatten(structure, leaves: list):
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), structure)
+
+
+def value_and_grad(fn, has_aux: bool = False):
+    """``jax.value_and_grad`` over the first argument, a tree of tensors:
+    returns ``g(params, *args) -> (value, grads)`` (``((value, aux),
+    grads)`` with ``has_aux``), the value and grads detached.  A float
+    leaf the value does not reach gets ``None``; ``apply_updates`` takes
+    it as zeros."""
+    def g(params, *args, **kwargs):
+        leaves = [p.detach().requires_grad_(p.is_floating_point())
+                  for p in tree_leaves(params)]
+        out = fn(_unflatten(params, leaves), *args, **kwargs)
+        value = out[0] if has_aux else out
+        wrt = [p for p in leaves if p.requires_grad]
+        got = iter(torch.autograd.grad(value, wrt, allow_unused=True))
+        grads = _unflatten(params, [next(got) if p.requires_grad else None
+                                    for p in leaves])
+        if has_aux:
+            return (value.detach(), out[1]), grads
+        return value.detach(), grads
+    return g

@@ -330,6 +330,66 @@ def test_bind_unbind_gradient_on_the_card(gen, d, op, dtype):
         torch.testing.assert_close(g_gpu.cpu().float(), g_cpu.float(), atol=1e-4, rtol=rtol)
 
 
+def _loss_grads_on(dev, fn, has_aux, params, *args):
+    """``fn``'s loss and grads on ``dev`` (params and tensor args moved
+    there), and the circ_conv launches of the value and its backward."""
+    from repro_torch.common.tree import tree_map
+    from repro_torch.train import optimizer as opt
+
+    def move(t):
+        return t.to(dev) if isinstance(t, torch.Tensor) else t
+
+    args = [tree_map(move, a) for a in args]
+    before = registry.LAUNCHES["circ_conv"]
+    out, grads = opt.value_and_grad(fn, has_aux)(tree_map(move, params), *args)
+    loss = float(out[0] if has_aux else out)
+    return loss, grads, registry.LAUNCHES["circ_conv"] - before
+
+
+@pytest.mark.parametrize("model", ["mimonet", "lvrf"])
+def test_training_loss_backward_on_the_card(gen, model):
+    """mimonet.loss_fn (4 problems of K = 2, d = 128) and lvrf.loss_fn (16
+    oracle problems, d = 128) on the card against the CPU: the loss within
+    1e-5, each grad leaf within 1e-4 of its max |grad|, TF32 off.  Their
+    gradients run through circ_conv's backward, one launch per operand that
+    needs a gradient: mimonet 2 forward + 2 backward launches (the keys are
+    constants), lvrf 27 + 36 (the 18 role binds of constant codes need one
+    product, the 9 rule binds two)."""
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.data import raven
+    from repro_torch.models import lvrf, mimonet, nvsa
+    from repro_torch.nn import init as nninit
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = torch.Generator().manual_seed(3)
+    if model == "mimonet":
+        cfg = mimonet.MIMONetConfig(d=128, cnn_width=4, trunk_hidden=128)
+        params = nninit.materialize(mimonet.mimonet_spec(cfg), cpu)
+        keys = mimonet.mimonet_keys(cfg, cpu)
+        images = torch.rand(4, 2, 32, 32, 1, generator=cpu)
+        labels = torch.randint(0, cfg.n_classes, (4, 2), generator=cpu)
+        fn, has_aux, args, want = mimonet.loss_fn, True, (keys, cfg, images, labels), 2 + 2
+    else:
+        cfg = lvrf.LVRFConfig(d=128)
+        params = nninit.materialize(lvrf.lvrf_spec(cfg), cpu)
+        books = lvrf.lvrf_codebooks(cfg, cpu)
+        batch = raven.generate_batch(cfg.raven, seed=5, n=16)
+        ncfg = nvsa.NVSAConfig()
+        ctx = nvsa.oracle_pmfs(ncfg, torch.from_numpy(batch["context_attrs"]))
+        cand = nvsa.oracle_pmfs(ncfg, torch.from_numpy(batch["candidate_attrs"]))
+        answers = torch.from_numpy(batch["answer"])
+        fn, has_aux, args, want = lvrf.loss_fn, False, (books, cfg, ctx, cand, answers), 27 + 36
+    got = {dev: _loss_grads_on(dev, fn, has_aux, params, *args) for dev in ("cuda", "cpu")}
+    assert got["cuda"][2] == want and got["cpu"][2] == 0
+    assert abs(got["cuda"][0] - got["cpu"][0]) <= 1e-5
+    for g_gpu, g_cpu in zip(tree_leaves(got["cuda"][1]), tree_leaves(got["cpu"][1])):
+        assert (g_gpu is None) == (g_cpu is None)
+        if g_cpu is not None:
+            scale = max(float(g_cpu.abs().max()), 1e-30)
+            torch.testing.assert_close(g_gpu.cpu(), g_cpu, atol=1e-4 * scale, rtol=0)
+
+
 def test_unbind_classify_gradient_on_the_card(gen):
     """fused_unbind_classify on the card: the forward is one kernel launch,
     the backward the plain chain's autograd (no launch); gradients in all
