@@ -116,8 +116,9 @@ and prints no result line):
    at f32 and 1e-3 + one bf16 step at bf16.  Gradients on the card:
    ``vsa.bind`` and ``vsa.unbind`` at 4 x 256 (two circ_conv launches per
    backward) and ``fused_unbind_classify`` at MIMONet's width, within 1e-4
-   of the CPU; ``flash_mha`` refusing grad and taking a transposed view
-   bit for bit as its contiguous copy.
+   of the CPU; ``flash_mha``'s gradient (kernel forward, plain-chain
+   backward) within 1e-4 of each input's max |grad| of the CPU's, and it
+   taking a transposed view bit for bit as its contiguous copy.
 9b. Train: NSAI training on the card at the published widths (after the
    ops phase; its launches under ``launches_by_path["train"]``).  First
    step, card against CPU from one seeded init and one batch:
@@ -219,6 +220,31 @@ and prints no result line):
    15.96B f32 parameters): the forward over 1024 random patch embeddings
    and 1024 tokens, flash_attn once per layer at (1, 2048, 48, 128), held
    against its plain version, and at 2 layers against the CPU.
+10b. Train LM: LM training on the card (its launches under
+   ``launches_by_path["train_lm"]``).  llama3.2-3b's first step at its
+   published width cut to 2 layers, f32 compute (the 3xTF32 flash kernel)
+   and tokens (1, 128), card against CPU with phase 9b's checks (loss
+   1e-5, grads 1e-4 of each leaf's max, one AdamW step within 2 lr and
+   within 1e-6 at all but one element in 10^3); then all 28 layers (f32
+   parameters, bf16 compute, AdamW with f32 moments donated in place,
+   remat off as its config says) for 6 steps of ``trainer.train_step`` on
+   one (1, 2048) ``SyntheticTokens`` batch: 28 flash_attn launches a step
+   (the forward; the backward recomputes the plain chain), ms a step on
+   the host clock and in CUDA events, ``max_memory_allocated``, the loss
+   at each step (finite, the last below step 0's), the first flash_attn
+   call held against its plain version, and one more step under
+   ``torch.profiler`` (host and device time, the kernels).  Then the
+   ``examples/train_lm_torch.py`` twin at ``full100m`` (~101M parameters)
+   with the reference example's defaults (200 steps of 8 x 256, lr 1e-3,
+   warmup 20, a checkpoint every 50, remat on: 24 flash_attn launches a
+   step), its mean loss over the last 20 steps below the first 20's; then
+   again with ``FailureInjector(fail_at_step=130)`` under
+   ``run_with_restarts``, resumed from step 100's checkpoint: its losses of
+   steps 100-199 and its final parameters and moments bit for bit the
+   uninterrupted run's, and one profiled step of it.  Last, outside the
+   path's counts, flash_attention's backward at (1, 2048, 24, 128) bf16
+   (the plain chain, recomputed) beside the kernel forward, SDPA's forward
+   plus backward and the backward's bound.
 11. Door LM: LM traffic behind the front door.  A door built by hand over
    llama3.2-3b at its published width and an nvsa cnn fp32 engine at
    d = 256, 16 LM requests (16-64-token prompts, 16 new tokens, greedy)
@@ -279,6 +305,7 @@ SEED = 0
 # measured problems/s of each (workload label, schedule) served in phases
 # 3-5; the deploy phase offers each model half its sequential rate
 RATES: dict[tuple[str, str], float] = {}
+CARD = ""   # the card's name and power limit, as nvidia-smi gives them
 
 
 def emit(obj) -> None:
@@ -336,10 +363,12 @@ def phase_device():
 
     from repro_torch.kernels import _build
 
+    global CARD
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    print(smi.splitlines()[0], flush=True)
+    CARD = smi.splitlines()[0]
+    print(CARD, flush=True)
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
@@ -1873,8 +1902,10 @@ def ops_gradients(gen, launched) -> None:
     vsa.unbind at NVSA's 4 x 256 (512 codes against one broadcast key; the
     backward is two circ_conv launches) and fused_unbind_classify at
     MIMONet's width (backward through the plain chain, no launch), each
-    within 1e-4 of the CPU; flash_mha refusing grad, and taking the (B, S,
-    H, hd) view of a (B, H, S, hd) tensor bit for bit as its copy."""
+    within 1e-4 of the CPU; flash_mha's gradient (its kernel forward, the
+    plain chain's backward, no launch) within 1e-4 of each input's max
+    |grad| of the CPU's, and flash_mha taking the (B, S, H, hd) view of a
+    (B, H, S, hd) tensor bit for bit as its copy."""
     import torch
 
     from repro_torch.kernels.flash_attn import ops as flash_ops
@@ -1923,11 +1954,21 @@ def ops_gradients(gen, launched) -> None:
     b, sq, h, hd = 1, 2048, 24, 128
     q, kk, v = (torch.randn(b, h, sq, hd, device="cuda", generator=gen).transpose(1, 2)
                 for _ in range(3))
-    try:
-        flash_ops.flash_mha(q.clone().requires_grad_(), kk, v, hd ** -0.5)
-        raise AssertionError("flash_mha under grad: no error")
-    except RuntimeError as err:
-        check("no backward" in str(err), f"flash_mha under grad: {err}")
+    w = torch.randn(b, sq, h, hd, device="cuda", generator=gen)
+    grads = []
+    for dev in ("cuda", "cpu"):
+        leaves = [t.to(dev).clone().requires_grad_() for t in (q, kk, v)]
+        out = launched(lambda: flash_ops.flash_mha(*leaves, hd ** -0.5), "flash_attn",
+                       int(dev == "cuda"))
+        check(out.grad_fn is not None, f"flash_mha under grad on {dev}: no grad_fn")
+        loss = (w.to(dev) * out).sum()
+        g = launched(lambda: torch.autograd.grad(loss, leaves), "flash_attn", 0)
+        grads.append([t.cpu() for t in g])
+    err = max(float((x - y).abs().max()) / float(y.abs().max()) for x, y in zip(*grads))
+    check(err <= 1e-4, f"flash_mha gradient {err} of its scale from the CPU's")
+    emit({"phase": "ops", "entry": "flash_mha backward", "shape": [b, sq, h, hd],
+          "layout": "(B, H, S, hd) transposed", "launches": {"forward": 1, "backward": 0},
+          "max_grad_diff_vs_cpu_of_scale": err})
     view = launched(lambda: flash_ops.flash_mha(q, kk, v, hd ** -0.5), "flash_attn", 1)
     copy = launched(lambda: flash_ops.flash_mha(q.contiguous(), kk.contiguous(),
                                                 v.contiguous(), hd ** -0.5), "flash_attn", 1)
@@ -1946,12 +1987,11 @@ MIMO_STEPS, MIMO_BATCH, MIMO_PAIRS = 200, 32, 800
 LVRF_STEPS, LVRF_LR = 60, 0.5
 
 
-def twin_example():
-    """``examples/train_nvsa_raven_torch.py`` as a module."""
+def example_module(name: str):
+    """``examples/<name>.py`` as a module."""
     import importlib.util
 
-    path = ROOT / "examples" / "train_nvsa_raven_torch.py"
-    spec = importlib.util.spec_from_file_location("train_nvsa_raven_torch", path)
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -1971,13 +2011,15 @@ def tree_rel_err(got, want) -> float:
     return worst
 
 
-def train_first_step(label: str, fn, has_aux: bool, params, args, ocfg) -> None:
+def train_first_step(label: str, fn, has_aux: bool, params, args, ocfg,
+                     phase: str = "train", kernel: str = "circ_conv") -> None:
     """One seeded init and one batch through ``fn`` on the card and on the
     CPU: the loss, every grad leaf (relative to its max |grad|), the BN
     batch stats (relative to their scale) and one AdamW step.  An Adam
     first step moves each element by up to lr whatever its gradient's
     size, so the step is held within 2 lr everywhere, and within 1e-6 at
-    all but one element in 10^3 (gradients f32 rounding away from 0)."""
+    all but one element in 10^3 (gradients f32 rounding away from 0).  The
+    row counts ``kernel``'s launches on the card."""
     import torch
 
     from repro_torch import interop
@@ -1989,12 +2031,12 @@ def train_first_step(label: str, fn, has_aux: bool, params, args, ocfg) -> None:
     for dev in ("cuda", "cpu"):
         p = interop.to_device(params, dev)
         a = [interop.to_device(x, dev) for x in args]
-        before = registry.LAUNCHES["circ_conv"]
+        before = registry.LAUNCHES[kernel]
         value, grads = opt.value_and_grad(fn, has_aux)(p, *a)
         new, _, metrics = opt.apply_updates(p, grads, opt.init_state(p, ocfg), ocfg)
         if dev == "cuda":
             torch.cuda.synchronize()
-        out[dev] = (value, grads, new, metrics, registry.LAUNCHES["circ_conv"] - before)
+        out[dev] = (value, grads, new, metrics, registry.LAUNCHES[kernel] - before)
     (vg, gg, ng, mg, launches), (vc, gc, nc, mc, _) = out["cuda"], out["cpu"]
     loss_g, loss_c = (float(v[0] if has_aux else v) for v in (vg, vc))
     loss_err = abs(loss_g - loss_c)
@@ -2008,12 +2050,12 @@ def train_first_step(label: str, fn, has_aux: bool, params, args, ocfg) -> None:
     diffs = torch.cat([(g.cpu() - c).abs().reshape(-1)
                        for g, c in zip(tree_leaves(ng), tree_leaves(nc))])
     step_max, step_far = float(diffs.max()), int((diffs > 1e-6).sum())
-    row = {"phase": "train", "row": "first_step", "model": label, "loss_cuda": loss_g,
+    row = {"phase": phase, "row": "first_step", "model": label, "loss_cuda": loss_g,
            "loss_cpu": loss_c, "loss_abs_err": loss_err, "grad_rel_err": grad_err,
            "bn_stats_rel_err": stats_err, "grad_norm_cuda": float(mg["grad_norm"]),
            "grad_norm_cpu": float(mc["grad_norm"]), "adamw_step_max_abs_diff": step_max,
            "adamw_elements_beyond_1e-6": step_far, "adamw_elements": diffs.numel(),
-           "lr0": lr0, "circ_conv_launches": launches, "tolerances": TRAIN_FIRST_TOL}
+           "lr0": lr0, f"{kernel}_launches": launches, "tolerances": TRAIN_FIRST_TOL}
     emit(row)
     check(loss_err <= TRAIN_FIRST_TOL["loss"], f"train {label}: loss {loss_err} from the CPU")
     check(grad_err <= TRAIN_FIRST_TOL["grad"], f"train {label}: grads {grad_err} from the CPU")
@@ -2047,7 +2089,7 @@ def phase_train() -> dict[str, int]:
     torch.backends.cudnn.allow_tf32 = False
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    twin = twin_example()
+    twin = example_module("train_nvsa_raven_torch")
     ocfg = opt.AdamWConfig(lr=3e-3, warmup_steps=20, total_steps=TRAIN_STEPS,
                            weight_decay=1e-4)
     registry.reset_launches()
@@ -2293,14 +2335,17 @@ class FlashHeld:
     def _held(self, q, k, v, scale, causal=True):
         from repro_torch.kernels.flash_attn import ref as flash_ref
 
+        import torch
+
         out = self._launch(q, k, v, scale, causal)
         if tuple(q.shape) not in self._seen:
             self._seen.add(tuple(q.shape))
             b, s, h, hd = q.shape
             flat = lambda t: t.transpose(1, 2).reshape(b * h, t.shape[1], hd)  # noqa: E731
-            want = flash_ref.flash_attention_ref(flat(q), flat(k), flat(v), scale=scale,
-                                                 causal=causal)
-            err = close(out, want.reshape(b, h, s, hd).transpose(1, 2), 1e-3, BF16_STEP)
+            with torch.no_grad():   # under training, the check records no graph
+                want = flash_ref.flash_attention_ref(flat(q), flat(k), flat(v), scale=scale,
+                                                     causal=causal)
+                err = close(out, want.reshape(b, h, s, hd).transpose(1, 2), 1e-3, BF16_STEP)
             self.rows.append({"shape": [b, s, h, hd], "max_abs_err": err})
         return out
 
@@ -2718,7 +2763,7 @@ def lm_moe_routing(params, cfg, dev) -> dict:
     from repro_torch.models import lm
     from repro_torch.nn import moe
 
-    layer = lm._layer(params["body"], 0)["u0"]["ffn"]
+    layer = lm._unstack(params["body"], 1)[0]["u0"]["ffn"]
     k = cfg.moe.top_k
     gen = torch.Generator(dev).manual_seed(SEED + 4)
     x = torch.randn(LM_MOE_DISTINCT, cfg.d_model, device=dev, generator=gen).bfloat16()
@@ -3226,6 +3271,281 @@ def phase_lm(dev: str = "cuda") -> dict[str, int]:
     return counts
 
 
+# -- phase 10b: LM training -------------------------------------------------------
+
+# llama3.2-3b's first step on the card against the CPU: its published width
+# cut to 2 layers, f32 compute (so the 3xTF32 flash kernel runs), tokens
+# (1, 128); the checks are TRAIN_FIRST_TOL's and the AdamW step's of phase 9b
+TRAIN_LM_FIRST_LAYERS, TRAIN_LM_FIRST_SEQ = 2, 128
+# then all 28 layers: f32 parameters, bf16 compute, f32 moments, remat off as
+# its config says, TRAIN_LM_STEPS steps on one repeated batch of (1, 2048)
+TRAIN_LM_STEPS, TRAIN_LM_SEQ = 6, 2048
+TRAIN_LM_OPT = dict(lr=1e-4, warmup_steps=1, total_steps=TRAIN_LM_STEPS)
+# the examples/train_lm_torch.py twin at full100m with the reference
+# example's defaults (200 steps of 8 x 256, lr 1e-3, warmup 20, a checkpoint
+# every 50 steps, remat on), then again failing at step 130 under
+# run_with_restarts, resumed from step 100's checkpoint
+TWIN_LM_WIDTH, TWIN_LM_STEPS, TWIN_LM_BATCH, TWIN_LM_SEQ, TWIN_LM_LR = \
+    "full100m", 200, 8, 256, 1e-3
+TWIN_LM_FAIL_AT = 130
+
+
+def train_step_profile(step) -> dict:
+    """One synchronised call of ``step`` under ``torch.profiler``: its host
+    time, the CUDA kernels' busy time and share of it, their count, and the
+    25 kernel names that take the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:25]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / wall_ms, "kernels": sum(e.count for e in kernels),
+            "top": [{"name": e.key[:90], "device_ms": e.self_device_time_total / 1e3,
+                     "count": e.count} for e in top]}
+
+
+def train_lm_config():
+    """llama3.2-3b at its published width (28 layers, remat off)."""
+    from repro_torch.configs import get_arch
+
+    return get_arch(LM_ARCH).make_full()
+
+
+def train_lm_batch(cfg, seq: int, dev):
+    """One ``SyntheticTokens`` batch of (1, seq) with a leading microbatch
+    axis of 1, as ``train_step`` takes it."""
+    import torch
+
+    from repro_torch.data.tokens import SyntheticTokens, TokenPipelineConfig
+
+    toks, tgts = SyntheticTokens(TokenPipelineConfig(
+        vocab_size=cfg.vocab, seq_len=seq, global_batch=1, seed=SEED)).batch(0)
+    return {"tokens": torch.from_numpy(toks)[None].to(dev),
+            "targets": torch.from_numpy(tgts)[None].to(dev)}
+
+
+def attention_backward_row(dev) -> dict:
+    """flash_attention's backward at llama3.2-3b's training shape (1, 2048,
+    24, 128) bf16: ``_FlashMHA``'s backward (the plain chain, recomputed)
+    beside the kernel forward, PyTorch's scaled_dot_product_attention
+    forward plus backward, and the backward's bound (2.5 x the causal
+    forward's operations over the bf16 peak; its bytes, q, k, v, o and the
+    output grad read and dq, dk, dv written once, take less)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+
+    b, s, h, hd = 1, TRAIN_LM_SEQ, 24, 128
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q, k, v, g = (torch.randn(b, s, h, hd, device=dev, generator=gen).bfloat16()
+                  for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_ops.flash_mha(*leaves, hd ** -0.5, True)
+    backward_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True),
+                          reps=3, samples=7)
+    forward_ms = cuda_ms(lambda: flash_ops.flash_mha(q, k, v, hd ** -0.5, True),
+                         reps=3, samples=7)
+    sdpa = [t.transpose(1, 2).detach().clone().requires_grad_() for t in (q, k, v)]
+    gt = g.transpose(1, 2)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(*sdpa, is_causal=True, scale=hd ** -0.5)
+        torch.autograd.grad(o, sdpa, gt)
+
+    sdpa_ms = cuda_ms(sdpa_fwd_bwd, reps=3, samples=7)
+    ops = 2.5 * flash_flops(b, s, s, h, hd, True)
+    t_ops, t_bytes = ops / BF16_FLOPS, 8 * b * s * h * hd * 2 / HBM_BYTES_PER_S
+    return {"phase": "train_lm", "row": "attention_backward", "shape": [b, s, h, hd],
+            "dtype": "bfloat16", "backward_ms": backward_ms, "forward_kernel_ms": forward_ms,
+            "sdpa_fwd_bwd_ms": sdpa_ms, "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "backward_scores_bytes": b * h * s * s * 4, "card": CARD}
+
+
+def train_lm_twin(dev) -> dict:
+    """The example twin at ``TWIN_LM_WIDTH``: the uninterrupted run, its
+    flash_attn calls held against the plain version (``FlashHeld``), then a
+    run failing at ``TWIN_LM_FAIL_AT`` under ``run_with_restarts``; the
+    resumed run's losses of steps 100-199 and its final parameters and
+    moments must equal the uninterrupted run's bit for bit.  On the card,
+    one more step of the resumed run under the profiler."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.backend import registry
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.train import trainer
+    from repro_torch.train.trainer import FailureInjector, run_with_restarts
+
+    twin = example_module("train_lm_torch")
+    args = (TWIN_LM_WIDTH, TWIN_LM_STEPS, TWIN_LM_BATCH, TWIN_LM_SEQ, TWIN_LM_LR)
+    with tempfile.TemporaryDirectory() as tmp:
+        before = registry.LAUNCHES["flash_attn"]
+        ref, n_params = twin.make_trainer(*args, f"{tmp}/ref", dev)
+        t0 = time.perf_counter()
+        with FlashHeld() as held:
+            hist = ref.run()
+        run_s = time.perf_counter() - t0
+        per_step = (registry.LAUNCHES["flash_attn"] - before) / TWIN_LM_STEPS
+        shutil.rmtree(f"{tmp}/ref")
+        calls = {"n": 0}
+
+        def make():
+            calls["n"] += 1
+            inj = FailureInjector(fail_at_step=TWIN_LM_FAIL_AT) if calls["n"] == 1 else None
+            return twin.make_trainer(*args, f"{tmp}/ft", dev, injector=inj)[0]
+
+        t0 = time.perf_counter()
+        ft = run_with_restarts(make, TWIN_LM_STEPS)
+        restart_s = time.perf_counter() - t0
+    resumed_from = TWIN_LM_STEPS - len(ft.metrics_history)
+    losses = [h["loss"] for h in hist]
+    same_losses = [h["loss"] for h in ft.metrics_history] == losses[resumed_from:]
+    same_state = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(ref.state_tree()), tree_leaves(ft.state_tree()), strict=True))
+    first, last = sum(losses[:20]) / 20, sum(losses[-20:]) / 20
+    times = sorted(h["step_time_s"] for h in hist)
+    profile = None
+    if dev == "cuda":   # one more step of the resumed run, after the comparison
+        batch = ft._batch(ft.step)
+        profile = train_step_profile(lambda: trainer.train_step(
+            ft.loss_fn, ft.params, ft.opt_state, batch, ft.ocfg))
+    row = {"phase": "train_lm", "row": "twin", "width": TWIN_LM_WIDTH, "params": n_params,
+           "steps": TWIN_LM_STEPS, "batch": [TWIN_LM_BATCH, TWIN_LM_SEQ], "lr": TWIN_LM_LR,
+           "loss_every_20": losses[::20], "loss_mean_first_20": first,
+           "loss_mean_last_20": last, "ms_per_step_median": times[len(times) // 2] * 1e3,
+           "run_s": run_s, "flash_attn_launches_per_step": per_step,
+           "restart_run_s": restart_s, "incarnations": calls["n"],
+           "fail_at": TWIN_LM_FAIL_AT, "resumed_from": resumed_from,
+           "resumed_losses_bit_exact": same_losses, "resumed_state_bit_exact": same_state,
+           "flash_attn_held": held.rows, "profiled_step": profile, "card": CARD}
+    emit(row)
+    w = twin.WIDTHS[TWIN_LM_WIDTH]
+    shape = (TWIN_LM_BATCH, TWIN_LM_SEQ, w["n_heads"], w["head_dim"])
+    check(shape in held.shapes(), f"twin: flash_attn at {shape} was not held, only at "
+          f"{sorted(held.shapes())}")
+    check(all(math.isfinite(x) for x in losses) and last < first,
+          f"twin: loss {first} -> {last}")
+    check(per_step == 2 * twin.WIDTHS[TWIN_LM_WIDTH]["n_layers"],
+          f"twin: {per_step} flash_attn launches a step, want a forward and a recompute "
+          "a layer")
+    every = ft.tcfg.ckpt_every
+    check(calls["n"] == 2 and resumed_from == TWIN_LM_FAIL_AT // every * every,
+          f"twin: {calls['n']} incarnations, resumed from step {resumed_from}")
+    check(same_losses and same_state, "twin: the resumed run is not the uninterrupted one")
+    return row
+
+
+def phase_train_lm(dev: str = "cuda") -> dict[str, int]:
+    """LM training on the card; returns the path's launch counts.
+    a. llama3.2-3b's first step at 2 layers and f32 compute, card against
+    CPU (``train_first_step``); b. all 28 layers at bf16 compute:
+    ``TRAIN_LM_STEPS`` steps of ``trainer.train_step`` (AdamW with f32
+    moments, donated) on one (1, 2048) batch, 28 flash_attn launches a
+    step, ms a step on the host clock and in CUDA events, the peak bytes,
+    the loss at each step (finite, the last below step 0's), then one
+    more step under ``torch.profiler`` (``train_step_profile``); c. the
+    ``train_lm_torch`` twin and its bit-exact resume (``train_lm_twin``),
+    then one profiled step of it.
+    Then, outside the path's counts, the attention backward's row."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.backend import registry
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.models import lm
+    from repro_torch.nn import init as nninit
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    on_card = dev == "cuda"
+    t_phase = time.perf_counter()
+    registry.reset_launches()
+    cfg = train_lm_config()
+    ocfg = opt.AdamWConfig(**TRAIN_LM_OPT)
+
+    # a. the first step at 2 layers and f32 compute, card against CPU
+    small = dataclasses.replace(cfg, n_layers=TRAIN_LM_FIRST_LAYERS,
+                                compute_dtype=torch.float32)
+    params = nninit.materialize(lm.lm_spec(small), torch.Generator(dev).manual_seed(SEED))
+    batch = {k: v[0] for k, v in train_lm_batch(small, TRAIN_LM_FIRST_SEQ, dev).items()}
+    train_first_step("llama3.2-3b@2 layers f32", lm.loss_fn, False, params, (small, batch),
+                     ocfg, phase="train_lm", kernel="flash_attn")
+    del params
+
+    # b. llama3.2-3b at its published width
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    params = nninit.materialize(lm.lm_spec(cfg), torch.Generator(dev).manual_seed(SEED))
+    state = opt.init_state(params, ocfg)
+    batches = train_lm_batch(cfg, TRAIN_LM_SEQ, dev)
+    loss_fn = lambda p, b: lm.loss_fn(p, cfg, b)   # noqa: E731
+    losses, host_ms, event_ms, launches = [], [], [], []
+    with FlashHeld() as held:
+        for _ in range(TRAIN_LM_STEPS):
+            before = registry.LAUNCHES["flash_attn"]
+            if on_card:
+                torch.cuda.synchronize()
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+                start.record()
+            t0 = time.perf_counter()
+            params, state, metrics = trainer.train_step(loss_fn, params, state, batches, ocfg)
+            if on_card:
+                end.record()
+            losses.append(float(metrics["loss"]))
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            if on_card:
+                end.synchronize()
+                event_ms.append(start.elapsed_time(end))
+            launches.append(registry.LAUNCHES["flash_attn"] - before)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    # one more step, under the profiler (its launches are the path's too)
+    profile = train_step_profile(lambda: trainer.train_step(
+        loss_fn, params, state, batches, ocfg)) if on_card else None
+    emit({"phase": "train_lm", "row": "llama3.2-3b", "n_layers": cfg.n_layers,
+          "params": n_params, "param_dtype": "float32", "compute_dtype": "bfloat16",
+          "moments": "float32", "remat": cfg.remat, "tokens": [1, TRAIN_LM_SEQ],
+          "opt": TRAIN_LM_OPT, "losses": losses, "ms_per_step_host": host_ms,
+          "ms_per_step_cuda_events": event_ms, "flash_attn_launches_per_step": launches,
+          "max_memory_allocated": peak, "flash_attn_held": held.rows,
+          "profiled_step": profile, "card": CARD})
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"llama3.2-3b training: losses {losses}")
+    check(all(n == cfg.n_layers for n in launches),
+          f"llama3.2-3b training: flash_attn launches a step {launches}, "
+          f"want {cfg.n_layers}")
+    del params, state, metrics, batches
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # c. the example twin and its restart
+    train_lm_twin(dev)
+    counts = dict(registry.LAUNCHES)
+    check(counts["flash_attn"] > 0, "kernel flash_attn was not launched on the train_lm path")
+    if on_card:
+        emit(attention_backward_row(dev))
+    emit({"phase": "train_lm", "row": "phase", "seconds": time.perf_counter() - t_phase,
+          "launches": {k: v for k, v in counts.items() if v}, "card": CARD})
+    return counts
+
+
 # -- phase 11: LM traffic behind the front door -----------------------------------
 
 DOOR_LM_REQUESTS, DOOR_LM_PROMPTS = 16, (16, 64)
@@ -3478,6 +3798,7 @@ def main() -> int:
     paths["ops"] = phase_ops()
     paths["train"] = phase_train()
     paths["lm"] = phase_lm()
+    paths["train_lm"] = phase_train_lm()
     paths["door_lm"] = phase_door_lm()
     emit({"phase": "launches_by_path", **paths})
     kernels = []

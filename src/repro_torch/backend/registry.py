@@ -181,7 +181,9 @@ def refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:
     """Raise where autograd would need a backward that ``kernel`` does not
     have (as its Pallas twin has no VJP): grad mode on and an input that
     requires grad.  Called by a forward-only wrapper before its launch, so
-    that a CUDA output never silently lacks a ``grad_fn``."""
+    that a CUDA output never silently lacks a ``grad_fn``.  ``circ_dict``
+    is the one such wrapper (``circ_bind_dict``): ``flash_mha`` has a
+    backward through its plain chain, as ``fused_unbind_classify`` has."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{kernel} has no backward on the card (nor has the reference's "

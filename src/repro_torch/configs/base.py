@@ -3,7 +3,8 @@ constructors.
 
 The port of ``repro.configs.base``.  ``ArchSpec`` is the uniform adapter of
 the LM architectures (``configs/registry.py:ARCHS``): ``model_spec``,
-``prefill_fn`` (the full-context forward, last-token logits),
+``loss_fn`` (the training loss), ``prefill_fn`` (the full-context
+forward, last-token logits),
 ``decode_fn``, ``serve_fns`` (the ``Engine``'s decode step and cache
 allocator) and ``lm_engine``.  The port has the kinds ``lm`` (the dense GQA
 decoders and the MoE / MLA ones), ``rwkv`` and ``griffin`` (the recurrent
@@ -61,8 +62,8 @@ from repro_torch.serve.schedule import StageSpec, TensorSpec
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     """The reference's ``ArchSpec``.  ``fsdp`` and ``opt_8bit`` (the
-    sharding and optimizer switches) are recorded for Queue 1 #5 and #6;
-    nothing reads them yet."""
+    sharding and optimizer switches) are recorded for the launcher of
+    Queue 1 #6 (``launch/train.py``); nothing reads them yet."""
 
     id: str
     family: str                   # moe | dense | ssm | hybrid | vlm | audio
@@ -93,6 +94,13 @@ def _mod(kind: str):
 
 def model_spec(arch: ArchSpec, cfg):
     return getattr(_mod(arch.kind), _SPECS[arch.kind])(cfg)
+
+
+def loss_fn(arch: ArchSpec, cfg):
+    """``loss(params, batch)``, the kind's training loss: ``batch`` holds
+    ``tokens`` and ``targets`` (B, S), and ``patch_embeds`` for ``vlm``."""
+    m = _mod(arch.kind)
+    return lambda params, batch: m.loss_fn(params, cfg, batch)
 
 
 def forward_fn(arch: ArchSpec, cfg):

@@ -37,7 +37,7 @@ def smoke() -> LMConfig:
         first_k_dense=1, dense_d_ff=128,
         moe=MoEConfig(d_model=64, d_ff=32, n_experts=4, top_k=2, n_shared=1,
                       shared_d_ff=32, capacity_factor=2.0),
-        mtp=True, tie_embeddings=False,
+        mtp=True, tie_embeddings=False, remat=False,
     )
 
 

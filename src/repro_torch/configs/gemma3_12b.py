@@ -23,7 +23,7 @@ def smoke() -> LMConfig:
         head_dim=16, d_ff=128, vocab=256,
         pattern=("local", "local", "local", "local", "local", "global"),
         window=16, qk_norm=True, norm_offset=1.0, embed_scale=True,
-        act="geglu",
+        act="geglu", remat=False,
     )
 
 

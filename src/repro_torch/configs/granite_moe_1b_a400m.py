@@ -22,7 +22,7 @@ def smoke() -> LMConfig:
         n_kv_heads=2, head_dim=16, d_ff=32, vocab=256,
         moe=MoEConfig(d_model=64, d_ff=32, n_experts=4, top_k=2,
                       capacity_factor=2.0),
-        tie_embeddings=True,
+        tie_embeddings=True, remat=False,
     )
 
 

@@ -18,7 +18,7 @@ def smoke() -> VLMConfig:
     return VLMConfig(
         lm=LMConfig(name="internvl2-smoke", n_layers=2, d_model=64, n_heads=4,
                     n_kv_heads=2, head_dim=16, d_ff=128, vocab=256,
-                    tie_embeddings=False),
+                    tie_embeddings=False, remat=False),
         n_img_tokens=16,
     )
 

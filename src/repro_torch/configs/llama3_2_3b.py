@@ -8,13 +8,14 @@ def full() -> LMConfig:
         name="llama3.2-3b", n_layers=28, d_model=3072, n_heads=24,
         n_kv_heads=8, head_dim=128, d_ff=8192, vocab=128256,
         rope_base=500000.0, tie_embeddings=True,
+        remat=False,
     )
 
 
 def smoke() -> LMConfig:
     return LMConfig(
         name="llama3.2-smoke", n_layers=2, d_model=64, n_heads=4,
-        n_kv_heads=2, head_dim=16, d_ff=128, vocab=256,
+        n_kv_heads=2, head_dim=16, d_ff=128, vocab=256, remat=False,
     )
 
 

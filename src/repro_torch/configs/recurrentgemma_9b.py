@@ -12,7 +12,7 @@ def full() -> GriffinConfig:
 def smoke() -> GriffinConfig:
     return GriffinConfig(name="recurrentgemma-smoke", n_layers=3, d_model=64,
                          n_heads=4, n_kv_heads=1, d_ff=128, vocab=256,
-                         window=16, lru_width=64)
+                         window=16, lru_width=64, remat=False)
 
 
 ARCH = ArchSpec(

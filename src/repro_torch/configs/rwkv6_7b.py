@@ -10,7 +10,7 @@ def full() -> RWKVConfig:
 
 def smoke() -> RWKVConfig:
     return RWKVConfig(name="rwkv6-smoke", n_layers=2, d_model=64, d_ff=128,
-                      vocab=256, head_dim=16, chunk=8)
+                      vocab=256, head_dim=16, chunk=8, remat=False)
 
 
 ARCH = ArchSpec(

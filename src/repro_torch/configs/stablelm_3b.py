@@ -15,7 +15,7 @@ def smoke() -> LMConfig:
     return LMConfig(
         name="stablelm-smoke", n_layers=2, d_model=64, n_heads=4,
         n_kv_heads=4, head_dim=16, d_ff=96, vocab=256, rotary_pct=0.25,
-        tie_embeddings=False,
+        tie_embeddings=False, remat=False,
     )
 
 

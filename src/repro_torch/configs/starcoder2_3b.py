@@ -16,7 +16,7 @@ def smoke() -> LMConfig:
     return LMConfig(
         name="starcoder2-smoke", n_layers=2, d_model=64, n_heads=4,
         n_kv_heads=2, head_dim=16, d_ff=128, vocab=256,
-        pattern=("local",), window=16, act="gelu", qkv_bias=True,
+        pattern=("local",), window=16, act="gelu", qkv_bias=True, remat=False,
     )
 
 

@@ -6,8 +6,17 @@ is copied contiguous first): on a CUDA tensor it launches the Hopper
 kernel, which reads that layout in place on the tensor cores (f32 in
 3xTF32, bf16 with p split into hi + lo), or raises; on a CPU tensor it
 runs the plain version in ``ref`` on (B·H, S, hd), as the reference's
-``flash_mha`` transposes.  Forward only, as in the reference: on the card
-it raises when autograd would need a backward.
+``flash_mha`` transposes.
+
+Under grad (an input that requires it), the call goes through
+``_FlashMHA``: its forward is the same kernel launch (or, on the CPU, the
+plain version), and its backward recomputes the plain version under
+autograd and differentiates it.  The reference's Pallas kernel has no VJP;
+the reference trains through its plain attention, whose gradient is
+XLA's autodiff of plain ops, and this backward is that chain in PyTorch.
+It launches no kernel (``registry.count_launch`` counts forwards) and
+materialises the (B·H, Sq, Skv) f32 scores: 403 MB at llama3.2-3b's
+(1, 2048, 24 heads).
 """
 
 from __future__ import annotations
@@ -51,16 +60,8 @@ def _launch(q, k, v, scale: float, causal: bool) -> torch.Tensor:
     return out
 
 
-@registry.kernel_call("flash_attn")
-def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-              causal: bool = True) -> torch.Tensor:
-    """q: (B, Sq, H, hd); k, v: (B, Skv, H, hd) (GQA groups pre-repeated)
-    -> (B, Sq, H, hd) in q's dtype.  The causal mask is aligned at
-    position 0: query i sees keys 0..i, also when Sq != Skv."""
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if registry.on_card(q):
-        registry.refuse_grad("flash_attn", q, k, v)
-        return _launch(q, k, v, scale, causal)
+def _plain(q, k, v, scale: float, causal: bool) -> torch.Tensor:
+    """``ref.flash_attention_ref`` over the (B, S, H, hd) layout."""
     b, sq, h, hd = q.shape
     skv = k.shape[1]
     out = ref.flash_attention_ref(q.transpose(1, 2).reshape(b * h, sq, hd),
@@ -68,3 +69,38 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
                                   v.transpose(1, 2).reshape(b * h, skv, hd),
                                   scale=scale, causal=causal)
     return out.reshape(b, h, sq, hd).transpose(1, 2)
+
+
+class _FlashMHA(torch.autograd.Function):
+    """The kernel forward, the plain chain's backward (recomputed)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale, ctx.causal = scale, causal
+        if registry.on_card(q):
+            return _launch(q, k, v, scale, causal)
+        return _plain(q, k, v, scale, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            args = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
+            got = iter(torch.autograd.grad(_plain(*args, ctx.scale, ctx.causal),
+                                           [a for a in args if a.requires_grad], g))
+        return (*(next(got) if n else None for n in need), None, None)
+
+
+@registry.kernel_call("flash_attn")
+def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+              causal: bool = True) -> torch.Tensor:
+    """q: (B, Sq, H, hd); k, v: (B, Skv, H, hd) (GQA groups pre-repeated)
+    -> (B, Sq, H, hd) in q's dtype.  The causal mask is aligned at
+    position 0: query i sees keys 0..i, also when Sq != Skv."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashMHA.apply(q, k, v, scale, causal)
+    if registry.on_card(q):
+        return _launch(q, k, v, scale, causal)  # autograd records nothing
+    return _plain(q, k, v, scale, causal)

@@ -13,7 +13,8 @@ cache of ``nn/attention.py``.  ``decode_step`` writes every layer's state
 in place and returns the tree, as ``models.lm.decode_step`` does.  The
 attention layers are windowed, so the forward keeps the plain twins there
 (``nn/attention.py:attention``); the flash_attn kernel is not on this path.
-``loss_fn`` waits for training (ROADMAP Queue 1 #5).
+``loss_fn`` is the reference's: the cross entropy of the tied readout.  With
+``remat``, each unit of ``body`` is recomputed in the backward under grad.
 """
 
 from __future__ import annotations
@@ -22,18 +23,19 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.backend import registry
 from repro_torch.common.tree import tree_map
-from repro_torch.models.lm import _layer, _stack_spec
+from repro_torch.models.lm import _needs_grad, _stack_spec, _unstack, _xent
 from repro_torch.nn import attention as attn
 from repro_torch.nn import layers, ssm
 
 
 @dataclasses.dataclass(frozen=True)
 class GriffinConfig:
-    """The reference's ``GriffinConfig`` without ``remat`` and
-    ``scan_unroll`` (see ``models.rwkv6.RWKVConfig``)."""
+    """The reference's ``GriffinConfig`` without ``scan_unroll`` (see
+    ``models.rwkv6.RWKVConfig``)."""
 
     name: str
     n_layers: int
@@ -49,6 +51,7 @@ class GriffinConfig:
     rope_base: float = 10000.0
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.bfloat16
+    remat: bool = True
 
     @property
     def rnn_d(self) -> int:
@@ -113,9 +116,8 @@ def griffin_spec(cfg: GriffinConfig):
 def _layers(cfg: GriffinConfig, params, state=None):
     """(kind, layer params, layer state or None) of every layer, in order."""
     unit, reps, tail = cfg.plan()
-    for r in range(reps):
-        up = _layer(params["body"], r)
-        us = None if state is None else _layer(state["body"], r)
+    states = [None] * reps if state is None else _unstack(state["body"], reps)
+    for up, us in zip(_unstack(params["body"], reps), states):
         for i, k in enumerate(unit):
             yield k, up[f"u{i}"], None if us is None else us[f"u{i}"]
     for i, k in enumerate(tail):
@@ -149,18 +151,40 @@ def _attn_fwd(cfg: GriffinConfig, p, x, positions):
     return _mlp(cfg, p, x)
 
 
+def _fwd(cfg: GriffinConfig, kind: str, p, x, positions):
+    return _rec_fwd(cfg, p, x) if kind == "rec" else _attn_fwd(cfg, p, x, positions)
+
+
+def _unit_fwd(cfg: GriffinConfig, up, x, positions):
+    for i, kind in enumerate(cfg.plan()[0]):
+        x = _fwd(cfg, kind, up[f"u{i}"], x, positions)
+    return x
+
+
 def forward(params, cfg: GriffinConfig, tokens: torch.Tensor) -> torch.Tensor:
     """tokens: (B, S) -> hidden (B, S, D) after the final norm."""
+    unit, reps, tail = cfg.plan()
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = _embed(params, cfg, tokens)
-    for kind, p, _ in _layers(cfg, params):
-        x = _rec_fwd(cfg, p, x) if kind == "rec" else _attn_fwd(cfg, p, x, positions)
+    for up in _unstack(params["body"], reps):
+        if cfg.remat and _needs_grad(up, x):
+            x = checkpoint(_unit_fwd, cfg, up, x, positions, use_reentrant=False)
+        else:
+            x = _unit_fwd(cfg, up, x, positions)
+    for p, kind in zip(params["tail"], tail):
+        x = _fwd(cfg, kind, p, x, positions)
     return layers.rmsnorm(params["final_norm"], x)
 
 
 def logits(params, cfg: GriffinConfig, hidden: torch.Tensor) -> torch.Tensor:
     """The tied-embedding readout."""
     return layers.logits(params["embed"], hidden, cfg.compute_dtype)
+
+
+def loss_fn(params, cfg: GriffinConfig, batch) -> torch.Tensor:
+    """batch: {tokens (B, S), targets (B, S)} -> the cross entropy."""
+    return _xent(logits(params, cfg, forward(params, cfg, batch["tokens"])),
+                 batch["targets"])
 
 
 def _rec_state(cfg: GriffinConfig, batch: int):

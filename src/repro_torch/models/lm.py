@@ -13,19 +13,27 @@ stacked tensors, so the parameter trees are the reference's leaf for leaf.
 
 Entry points: ``forward`` (the full context, behind
 ``configs.base.prefill_fn``; its unwindowed layers run the ``flash_attn``
-kernel), ``lm_logits``, ``decode_step`` (per-slot positions, behind the
-serving ``Engine``) and ``prefill``.  Computation runs where the
-parameters and tokens lie.  The reference's ``remat`` and ``scan_unroll``
-tune its compiled scan; eager PyTorch has nothing for them to do, so the
-port's ``LMConfig`` leaves them out.
+kernel), ``loss_fn`` (training: the causal-LM cross entropy), ``lm_logits``,
+``decode_step`` (per-slot positions, behind the serving ``Engine``) and
+``prefill``.  Computation runs where the parameters and tokens lie.
+
+``remat`` is the reference's ``jax.checkpoint`` of each pattern unit of
+``body``: under grad, each unit runs through
+``torch.utils.checkpoint.checkpoint`` (non-reentrant), so the backward
+recomputes it, flash_attn launches included; without grad it does
+nothing.  The reference's ``scan_unroll`` tunes its compiled scan, and
+eager PyTorch has nothing for it to do.  The body's stacked leaves are
+unbound once per forward (``_unstack``), so their gradients are stacked
+once, not accumulated layer by layer into full-size zeros.
 
 MoE FFN layers (``nn/moe.py``) add their load-balance loss to the
-``aux`` that ``forward`` returns.  MLA layers (``attn_kind="mla"``) run
-``nn/attention.py``'s ``mla_attention`` / ``mla_decode_step`` over the
-compressed cache.  ``lm_spec`` holds the MTP head's parameters (``mtp``),
-so the trees match the reference's; the head runs only in the reference's
-``loss_fn``, which waits for training (Queue 1 #5), so serving never reads
-it.  Parameters are drawn in ``param_dtype`` (deepseek-v3's is bf16).
+``aux`` that ``forward`` returns, and ``loss_fn`` adds ``0.01 x aux``.
+MLA layers (``attn_kind="mla"``) run ``nn/attention.py``'s
+``mla_attention`` / ``mla_decode_step`` over the compressed cache.  The
+MTP head (``mtp``, deepseek-v3) runs only in ``loss_fn``: one more layer
+over ``proj([hidden, embed(targets)])`` predicting the token after next,
+weighted 0.3.  Parameters are drawn in ``param_dtype`` (deepseek-v3's is
+bf16).
 """
 
 from __future__ import annotations
@@ -34,9 +42,10 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.backend import registry
-from repro_torch.common.tree import tree_map
+from repro_torch.common.tree import tree_leaves, tree_map
 from repro_torch.nn import attention as attn
 from repro_torch.nn import layers
 from repro_torch.nn import moe as moe_mod
@@ -71,6 +80,7 @@ class LMConfig:
     mtp: bool = False                   # deepseek multi-token prediction head
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.bfloat16
+    remat: bool = True                  # recompute each body unit in the backward
     logit_softcap: float | None = None
     embed_scale: bool = False           # gemma: embeddings × sqrt(d_model)
 
@@ -179,9 +189,24 @@ def lm_spec(cfg: LMConfig):
     return spec
 
 
-def _layer(tree, r: int):
-    """Layer ``r`` of a stacked tree: views, no copy."""
-    return tree_map(lambda t: t[r], tree)
+def _unstack(tree, n: int) -> list:
+    """The ``n`` layers of a stacked tree (parameters, caches or state),
+    each leaf unbound once: views, no copy, whose gradients autograd
+    stacks in one step."""
+    if not n:
+        return []
+    cols = [t.unbind(0) for t in tree_leaves(tree)]
+
+    def layer(r: int):
+        it = iter([c[r] for c in cols])
+        return tree_map(lambda _: next(it), tree)
+
+    return [layer(r) for r in range(n)]
+
+
+def _needs_grad(*trees) -> bool:
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for tree in trees for t in tree_leaves(tree))
 
 
 def _layers(plan: StagePlan, params, caches=None):
@@ -192,9 +217,10 @@ def _layers(plan: StagePlan, params, caches=None):
 
     for i, (a, f) in enumerate(plan.prefix):
         yield a, f, params["prefix"][i], cache(cache(caches, "prefix"), i)
-    for r in range(plan.repeats):
-        unit = _layer(params["body"], r)
-        unit_cache = None if caches is None else _layer(caches["body"], r)
+    units = _unstack(params["body"], plan.repeats)
+    unit_caches = [None] * plan.repeats if caches is None \
+        else _unstack(caches["body"], plan.repeats)
+    for unit, unit_cache in zip(units, unit_caches):
         for i, (a, f) in enumerate(plan.unit):
             yield a, f, unit[f"u{i}"], cache(unit_cache, f"u{i}")
     for i, (a, f) in enumerate(plan.tail):
@@ -237,19 +263,44 @@ def _embed(params, cfg: LMConfig, tokens: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def _unit_fwd(cfg: LMConfig, unit_kinds, unit, x, positions):
+    aux_u = 0.0
+    for i, (a, f) in enumerate(unit_kinds):
+        x, aux = _layer_fwd(cfg, a, f, unit[f"u{i}"], x, positions)
+        aux_u = aux_u + aux
+    return x, aux_u
+
+
+def body(params, cfg: LMConfig, x: torch.Tensor):
+    """The layers and the final norm over embeddings x (B, S, D) ->
+    (hidden, aux_loss); shared by ``forward`` and the VLM's forward.  Under
+    grad with ``cfg.remat``, each pattern unit of ``body`` is recomputed in
+    the backward."""
+    plan = stage_plan(cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
+    aux_total = 0.0
+    for p, (a, f) in zip(params["prefix"], plan.prefix):
+        x, aux = _layer_fwd(cfg, a, f, p, x, positions)
+        aux_total = aux_total + aux
+    for unit in _unstack(params["body"], plan.repeats):
+        if cfg.remat and _needs_grad(unit, x):
+            x, aux = checkpoint(_unit_fwd, cfg, plan.unit, unit, x, positions,
+                                use_reentrant=False)
+        else:
+            x, aux = _unit_fwd(cfg, plan.unit, unit, x, positions)
+        aux_total = aux_total + aux
+    for p, (a, f) in zip(params["tail"], plan.tail):
+        x, aux = _layer_fwd(cfg, a, f, p, x, positions)
+        aux_total = aux_total + aux
+    x = layers.rmsnorm(params["final_norm"], x, offset=cfg.norm_offset)
+    return x, aux_total
+
+
 def forward(params, cfg: LMConfig, tokens: torch.Tensor):
     """tokens: (B, S) -> (hidden (B, S, D), aux_loss).  ``aux_loss`` sums the
     MoE layers' load-balance losses (0.0 without MoE layers)."""
     _check_kind(cfg)
-    plan = stage_plan(cfg)
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x = _embed(params, cfg, tokens)
-    aux_total = 0.0
-    for akind, fkind, p, _ in _layers(plan, params):
-        x, aux = _layer_fwd(cfg, akind, fkind, p, x, positions)
-        aux_total = aux_total + aux
-    x = layers.rmsnorm(params["final_norm"], x, offset=cfg.norm_offset)
-    return x, aux_total
+    return body(params, cfg, _embed(params, cfg, tokens))
 
 
 def lm_logits(params, cfg: LMConfig, hidden: torch.Tensor) -> torch.Tensor:
@@ -261,6 +312,32 @@ def lm_logits(params, cfg: LMConfig, hidden: torch.Tensor) -> torch.Tensor:
         c = cfg.logit_softcap
         out = torch.tanh(out.float() / c) * c
     return out
+
+
+def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy in f32; targets (B, S) ids."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.take_along_dim(logp, targets[..., None].long(), dim=-1).mean()
+
+
+def loss_fn(params, cfg: LMConfig, batch) -> torch.Tensor:
+    """batch: {tokens (B, S), targets (B, S)} -> the scalar training loss:
+    the cross entropy, deepseek's MTP term (0.3 x the cross entropy of the
+    token after next) and ``0.01 x`` the MoE load-balance loss."""
+    targets = batch["targets"]
+    hidden, aux = forward(params, cfg, batch["tokens"])
+    loss = _xent(lm_logits(params, cfg, hidden), targets)
+    if cfg.mtp:
+        # one extra depth predicting token t+2 from (hidden_t, embed(target_t))
+        emb_next = layers.embedding(params["embed"], targets, cfg.compute_dtype)
+        h2 = layers.dense(params["mtp"]["proj"], torch.cat([hidden, emb_next], dim=-1),
+                          cfg.compute_dtype)
+        h2, _ = _layer_fwd(cfg, cfg.pattern[0], "moe" if cfg.moe else "dense",
+                           params["mtp"]["layer"], h2,
+                           torch.arange(hidden.shape[1], device=hidden.device))
+        h2 = layers.rmsnorm(params["mtp"]["norm"], h2, offset=cfg.norm_offset)
+        loss = loss + 0.3 * _xent(lm_logits(params, cfg, h2[:, :-1]), targets[:, 1:])
+    return loss + 0.01 * aux
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,9 @@ The layers are stacked under ``body`` (a leading layer axis on every leaf,
 the reference's ``lax.scan`` layout); the port loops over that axis.
 ``decode_step`` writes each layer's new state into the state tree in place
 and returns it, as ``models.lm.decode_step`` does with its KV caches.
-``loss_fn`` waits for training (ROADMAP Queue 1 #5).
+``loss_fn`` is the reference's: the cross entropy of the head's logits.
+With ``remat``, each layer is recomputed in the backward under grad, as
+the reference's ``jax.checkpoint`` of its scanned layer.
 """
 
 from __future__ import annotations
@@ -19,18 +21,18 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.backend import registry
 from repro_torch.common.tree import tree_map
-from repro_torch.models.lm import _layer, _stack_spec
+from repro_torch.models.lm import _needs_grad, _stack_spec, _unstack, _xent
 from repro_torch.nn import layers, ssm
 
 
 @dataclasses.dataclass(frozen=True)
 class RWKVConfig:
-    """The reference's ``RWKVConfig`` without ``remat`` and ``scan_unroll``,
-    which tune its compiled scan (eager PyTorch has nothing for them to
-    do, as in ``models.lm.LMConfig``)."""
+    """The reference's ``RWKVConfig`` without ``scan_unroll``, which tunes
+    its compiled scan (eager PyTorch has nothing for it to do)."""
 
     name: str
     n_layers: int
@@ -42,6 +44,7 @@ class RWKVConfig:
     impl: str = "chunked"
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.bfloat16
+    remat: bool = True
 
     def tm(self) -> ssm.RWKV6Config:
         return ssm.RWKV6Config(self.d_model, self.head_dim, chunk=self.chunk,
@@ -68,22 +71,33 @@ def rwkv_spec(cfg: RWKVConfig):
     }
 
 
+def _layer_fwd(cfg: RWKVConfig, p, x):
+    h = layers.layernorm(p["ln1"], x)
+    x = x + ssm.timemix(p["tm"], cfg.tm(), h, cfg.compute_dtype)
+    h = layers.layernorm(p["ln2"], x)
+    return x + ssm.channelmix(p["cm"], h, compute_dtype=cfg.compute_dtype)
+
+
 def forward(params, cfg: RWKVConfig, tokens: torch.Tensor) -> torch.Tensor:
     """tokens: (B, S) -> hidden (B, S, D) after the final norm."""
     x = layers.embedding(params["embed"], tokens, cfg.compute_dtype)
     x = layers.layernorm(params["ln_in"], x)
-    tm = cfg.tm()
-    for i in range(cfg.n_layers):
-        p = _layer(params["body"], i)
-        h = layers.layernorm(p["ln1"], x)
-        x = x + ssm.timemix(p["tm"], tm, h, cfg.compute_dtype)
-        h = layers.layernorm(p["ln2"], x)
-        x = x + ssm.channelmix(p["cm"], h, compute_dtype=cfg.compute_dtype)
+    for p in _unstack(params["body"], cfg.n_layers):
+        if cfg.remat and _needs_grad(p, x):
+            x = checkpoint(_layer_fwd, cfg, p, x, use_reentrant=False)
+        else:
+            x = _layer_fwd(cfg, p, x)
     return layers.layernorm(params["final_norm"], x)
 
 
 def logits(params, cfg: RWKVConfig, hidden: torch.Tensor) -> torch.Tensor:
     return layers.dense(params["head"], hidden, cfg.compute_dtype)
+
+
+def loss_fn(params, cfg: RWKVConfig, batch) -> torch.Tensor:
+    """batch: {tokens (B, S), targets (B, S)} -> the cross entropy."""
+    return _xent(logits(params, cfg, forward(params, cfg, batch["tokens"])),
+                 batch["targets"])
 
 
 def state_shapes(cfg: RWKVConfig, batch: int):
@@ -111,19 +125,17 @@ def decode_step(params, cfg: RWKVConfig, state, token: torch.Tensor, pos):
     tm = cfg.tm()
     x = layers.embedding(params["embed"], token, cfg.compute_dtype)
     x = layers.layernorm(params["ln_in"], x)
-    for i in range(cfg.n_layers):
-        p = _layer(params["body"], i)
+    for p, st in zip(_unstack(params["body"], cfg.n_layers), _unstack(state, cfg.n_layers)):
         h = layers.layernorm(p["ln1"], x)
         tm_state, y = ssm.timemix_step(
-            p["tm"], tm, {"wkv": state["wkv"][i], "x_prev": state["tm_x"][i]}, h,
-            cfg.compute_dtype)
+            p["tm"], tm, {"wkv": st["wkv"], "x_prev": st["tm_x"]}, h, cfg.compute_dtype)
         x = x + y
         h = layers.layernorm(p["ln2"], x)
-        y = ssm.channelmix(p["cm"], h[:, None, :], state["cm_x"][i],
+        y = ssm.channelmix(p["cm"], h[:, None, :], st["cm_x"],
                            compute_dtype=cfg.compute_dtype)[:, 0]
         x = x + y
-        state["wkv"][i].copy_(tm_state["wkv"])
-        state["tm_x"][i].copy_(tm_state["x_prev"])
-        state["cm_x"][i].copy_(h)
+        st["wkv"].copy_(tm_state["wkv"])
+        st["tm_x"].copy_(tm_state["x_prev"])
+        st["cm_x"].copy_(h)
     x = layers.layernorm(params["final_norm"], x)
     return state, logits(params, cfg, x)

@@ -5,10 +5,11 @@ The port of ``repro.models.vlm``.  As in the reference the vision frontend
 is a stub: the caller supplies precomputed patch embeddings (B, n_img,
 d_model), as if InternViT and the MLP projector had run; the backbone
 (InternLM2-20B class) is ``models.lm``'s body, reused layer by layer on the
-concatenated embeddings.  Every unwindowed layer so calls ``flash_mha``
-(``nn/attention.py:attention``).  Decode is the text LM's, over a cache
-whose prefix would hold the image tokens.  ``loss_fn`` waits for training
-(ROADMAP Queue 1 #5).
+concatenated embeddings (``lm.body``, remat included).  Every unwindowed
+layer so calls ``flash_mha`` (``nn/attention.py:attention``), under grad
+through its kernel forward and plain-chain backward.  ``loss_fn`` covers the
+text span only, plus the MoE aux.  Decode is the text LM's, over a cache
+whose prefix would hold the image tokens.
 """
 
 from __future__ import annotations
@@ -36,14 +37,15 @@ def forward(params, cfg: VLMConfig, patch_embeds: torch.Tensor, tokens: torch.Te
     (B, S).  Returns (hidden (B, N_img + S, D), aux_loss)."""
     c = cfg.lm
     x_txt = layers.embedding(params["embed"], tokens, c.compute_dtype)
-    x = torch.cat([patch_embeds.to(c.compute_dtype), x_txt], dim=1)
-    positions = torch.arange(x.shape[1], device=x.device)
-    aux_total = 0.0
-    for akind, fkind, p, _ in lm._layers(lm.stage_plan(c), params):
-        x, aux = lm._layer_fwd(c, akind, fkind, p, x, positions)
-        aux_total = aux_total + aux
-    x = layers.rmsnorm(params["final_norm"], x, offset=c.norm_offset)
-    return x, aux_total
+    return lm.body(params, c, torch.cat([patch_embeds.to(c.compute_dtype), x_txt], dim=1))
+
+
+def loss_fn(params, cfg: VLMConfig, batch) -> torch.Tensor:
+    """batch: {patch_embeds, tokens, targets}: the cross entropy on the text
+    span only, plus ``0.01 x`` the MoE aux."""
+    hidden, aux = forward(params, cfg, batch["patch_embeds"], batch["tokens"])
+    logits = lm.lm_logits(params, cfg.lm, hidden[:, cfg.n_img_tokens:, :])
+    return lm._xent(logits, batch["targets"]) + 0.01 * aux
 
 
 def cache_shapes(cfg: VLMConfig, batch: int, max_len: int):

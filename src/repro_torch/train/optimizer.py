@@ -99,12 +99,19 @@ def global_norm(tree) -> torch.Tensor:
                           for x in tree_leaves(tree) if x is not None))
 
 
-def apply_updates(params, grads, state, cfg: AdamWConfig):
+def apply_updates(params, grads, state, cfg: AdamWConfig, donate: bool = False):
     """One AdamW step.  Returns (new_params, new_state, metrics).
 
     The lr comes from the step before the increment, the bias corrections
     from the step after; the global-norm clip and the weight decay cover
-    every leaf."""
+    every leaf.
+
+    ``donate`` writes the new values into the tensors of ``params`` and
+    ``state["mu"]`` in place (the reference's jitted step donates them) and
+    returns those trees: the step then holds one leaf's temporaries in
+    place of a second copy of the parameters and moments.  The values are
+    the same bit for bit: each leaf is updated as in the functional step,
+    then copied back."""
     with torch.no_grad():
         step = state["step"] + 1
         gnorm = global_norm(grads)
@@ -135,8 +142,15 @@ def apply_updates(params, grads, state, cfg: AdamWConfig):
                 return new_p, {"m_q": mq, "m_s": ms, "v_q": vq, "v_s": vs}
             return new_p, {"m": m, "v": v}
 
+        def upd_in_place(p, g, mu):
+            new_p, new_mu = upd(p, g, mu)
+            p.copy_(new_p)
+            for k, t in new_mu.items():
+                mu[k].copy_(t)
+            return p, mu
+
         # at each parameter leaf: its grad (or None) and its moment dict
-        out = tree_map(upd, params, grads, state["mu"])
+        out = tree_map(upd_in_place if donate else upd, params, grads, state["mu"])
     new_params = tree_map(lambda _, o: o[0], params, out)
     new_mu = tree_map(lambda _, o: o[1], params, out)
     return new_params, {"mu": new_mu, "step": step}, {"grad_norm": gnorm, "lr": lr}

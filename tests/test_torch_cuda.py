@@ -410,20 +410,97 @@ def test_unbind_classify_gradient_on_the_card(gen):
 
 
 def test_forward_only_kernels_refuse_grad_on_the_card(gen):
-    """flash_mha and circ_bind_dict have no backward (nor have their
-    Pallas twins): on the card they raise where autograd would need one,
-    and run under no_grad or on inputs that need none."""
+    """circ_bind_dict has no backward (nor has its Pallas twin): on the card
+    it raises where autograd would need one, and runs under no_grad or on
+    inputs that need none.  flash_mha has one: under grad its kernel
+    forward returns a result with a ``grad_fn``, whose gradient (the plain
+    chain's, recomputed) lies within 1e-4 of each input's max |grad| of
+    autograd through the plain version."""
     q = torch.randn(1, 16, 2, 64, device="cuda", generator=gen)
     x = torch.randn(4, 2, 64, device="cuda", generator=gen)
     qg, xg = q.clone().requires_grad_(), x.clone().requires_grad_()
-    with pytest.raises(RuntimeError, match="no backward"):
-        flash_ops.flash_mha(qg, q, q, 0.125)
+    out = flash_ops.flash_mha(qg, q, q, 0.125)
+    assert out.grad_fn is not None
+    (got,) = torch.autograd.grad(out.sum(), [qg])
+    (want,) = torch.autograd.grad(flash_ops._plain(qg, q, q, 0.125, True).sum(), [qg])
+    torch.testing.assert_close(got, want, atol=1e-4 * float(want.abs().max()), rtol=0)
     with pytest.raises(RuntimeError, match="no backward"):
         circ_ops.circ_bind_dict(xg, x)
     with torch.no_grad():
         assert torch.equal(flash_ops.flash_mha(qg, q, q, 0.125),
                            flash_ops.flash_mha(q, q, q, 0.125))
         assert torch.equal(circ_ops.circ_bind_dict(xg, x), circ_ops.circ_bind_dict(x, x))
+
+
+@pytest.mark.parametrize("shape, skv", [((1, 256, 4, 128), 256), ((2, 100, 3, 64), 300)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_mha_gradients_on_the_card(gen, shape, skv, dtype):
+    """``_FlashMHA`` on the card: one kernel launch a forward and none in
+    the backward; the output within the forward's limits (2e-5 at f32, 1e-3
+    + one bf16 step at bf16) and the gradients of q, k and v within 1e-4 of
+    each one's max |grad| of autograd through the plain version on the same
+    inputs (the backward is that chain, recomputed)."""
+    b, sq, h, hd = shape
+    q = torch.randn(b, sq, h, hd, device="cuda", generator=gen).to(dtype)
+    k, v = (torch.randn(b, skv, h, hd, device="cuda", generator=gen).to(dtype) for _ in "kv")
+    g = torch.randn(b, sq, h, hd, device="cuda", generator=gen).to(dtype)
+    grads = {}
+    for name, fn in (("kernel", flash_ops.flash_mha), ("plain", flash_ops._plain)):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = registry.LAUNCHES["flash_attn"]
+        out = fn(*leaves, hd ** -0.5, True)
+        grads[name] = (out, torch.autograd.grad(out, leaves, g))
+        torch.cuda.synchronize()
+        assert registry.LAUNCHES["flash_attn"] == before + (name == "kernel")
+    (out_k, g_k), (out_p, g_p) = grads["kernel"], grads["plain"]
+    atol, rtol = (2e-5, 0) if dtype == torch.float32 else (1e-3, 2 ** -7)
+    torch.testing.assert_close(out_k.float(), out_p.float(), atol=atol, rtol=rtol)
+    for a, w in zip(g_k, g_p):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), w.float(), rtol=0,
+                                   atol=1e-4 * float(w.float().abs().max()))
+
+
+def test_lm_loss_and_grads_on_the_card():
+    """llama3.2-3b's smoke width at f32 compute, remat on: the loss and
+    grads of ``configs.base.loss_fn`` on the card against the CPU (loss
+    within 1e-5 relative, each grad leaf within 1e-4 of its max |grad|),
+    with two flash_attn launches a layer (the forward and remat's
+    recompute)."""
+    import dataclasses
+
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs import base as cbase
+    from repro_torch.nn import init as nninit
+    from repro_torch.train import optimizer as opt
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    arch = ARCHS["llama3.2-3b"]
+    cfg = dataclasses.replace(arch.make_smoke(), compute_dtype=torch.float32, remat=True)
+    params = nninit.materialize(cbase.model_spec(arch, cfg), torch.Generator().manual_seed(3))
+    cpu_gen = torch.Generator().manual_seed(4)
+    batch = {k: torch.randint(0, cfg.vocab, (2, 64), generator=cpu_gen) for k in
+             ("tokens", "targets")}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        before = registry.LAUNCHES["flash_attn"]
+        out[dev] = opt.value_and_grad(cbase.loss_fn(arch, cfg))(_to(params, dev),
+                                                                 _to(batch, dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert registry.LAUNCHES["flash_attn"] == before + 2 * cfg.n_layers
+    (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
+    assert abs(float(lg) - float(lc)) <= 1e-5 * abs(float(lc))
+    for a, w in zip(tree_leaves(gg), tree_leaves(gc), strict=True):
+        torch.testing.assert_close(a.cpu(), w, rtol=0, atol=1e-4 * float(w.abs().max()))
+
+
+def _to(tree, dev):
+    from repro_torch.common.tree import tree_map
+
+    return tree_map(lambda t: t.to(dev), tree)
 
 
 # -- circ_dict -----------------------------------------------------------------
@@ -779,7 +856,7 @@ def test_moe_forward_on_the_card(gen, arch_id):
     want = cb.prefill_fn(arch, cfg)(cpu, toks)
     scale = max(1.0, float(want.float().abs().max()))
     torch.testing.assert_close(got.float().cpu(), want.float(), atol=3e-2 * scale, rtol=0)
-    layer = lm._layer(cpu["body"], 0)["u0"]["ffn"]
+    layer = lm._unstack(cpu["body"], 1)[0]["u0"]["ffn"]
     x = torch.randn(80, cfg.d_model, generator=torch.Generator().manual_seed(2))
     _, idx, _ = moe.route(layer, cfg.moe, x)
     _, idx_card, _ = moe.route(interop.to_device(layer, "cuda"), cfg.moe, x.cuda())

@@ -172,7 +172,7 @@ def _imports(path: pathlib.Path):
 
 def test_port_imports_no_jax_and_no_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "examples" / "train_nvsa_raven_torch.py"]
+    files += [ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("*_torch.py"))
     assert len(files) > 10
     bad = [(f.relative_to(ROOT), name) for f in files for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "repro")]
