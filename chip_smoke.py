@@ -152,8 +152,9 @@ and prints no result line):
    gemma3's global layer at head dim 256 below) is held against
    ``flash_attention_ref`` on its own inputs and output, and the same
    shapes on random inputs with k / v drawn as 8 heads and repeated, both
-   within 1e-3 + one bf16 step.  Its slot-pool ``Engine``
-   (``serve_fns``, ``ServeConfig(max_slots=8, max_len=512,
+   within 1e-3 + one bf16 step.  Its slot-pool ``Engine`` on its first 14
+   layers (``LM_ENGINE_LAYERS``: each engine row of an arch run at full
+   depth serves a cut depth, for the script's time) (``serve_fns``, ``ServeConfig(max_slots=8, max_len=512,
    max_new_tokens=32, decode_block=8, prefill_bucket=16)``) serving 16
    ``SyntheticTokens`` prompts of 16-64 tokens: greedy twice (the second
    run measured), online ``submit`` / ``drain_ready`` equal to ``run()``,
@@ -184,7 +185,8 @@ and prints no result line):
    none on MLA; the first MoE layer's routing of 2048 tokens on the card
    against the CPU (experts outside router near ties, queue positions and
    kept pairs exact) and its gather path against the one-hot oracle; then
-   the slot-pool engine (granite 8 slots of 512, greedy and sampled;
+   the slot-pool engine (granite at 12 of its 24 layers, 8 slots of 512,
+   greedy and sampled;
    deepseek 4 of 256) on a dropless capacity (``dropless``), its greedy
    tokens the argmax of ``decode_step`` scanned as the engine runs it
    outside near ties, and that scan, each MoE layer's experts forced to
@@ -202,7 +204,8 @@ and prints no result line):
    reported at 4, 8, 16 and 32 (at this width the reference's own bf16
    paths part by more than the tolerance from 4 layers on), the forward
    at 2 (rwkv) or 3 (griffin: one unit) layers against the CPU, then the
-   engine at bf16 with exact-length prefill: 8 slots of 512, 8 prompts of
+   engine at bf16 with exact-length prefill, at 16 (rwkv) or 18 (griffin)
+   layers: 8 slots of 512, 8 prompts of
    16, 32 and 48 tokens, 16 new, one prefill scan per distinct length,
    the decode step's profile, and the decode held against the forward
    at f32 compute and f32 decode state (the bf16 gap reported: rounding
@@ -245,6 +248,29 @@ and prints no result line):
    path's counts, flash_attention's backward at (1, 2048, 24, 128) bf16
    (the plain chain, recomputed) beside the kernel forward, SDPA's forward
    plus backward and the backward's bound.
+10c. Enc-dec: seamless-m4t-large-v2 on the card (its launches under
+   ``launches_by_path["encdec"]``).  Its first step at its published width
+   cut to 2 + 2 layers, f32 compute (the 3xTF32 flash kernel, non-causal)
+   and (1, 128) frames and targets, card against CPU with phase 9b's
+   checks; then all 24 + 24 layers (1.37B f32 parameters, bf16 compute,
+   AdamW with f32 moments, remat on as its config says) for 6 steps of
+   ``trainer.train_step`` on one batch of (1, 2048) frames and (1, 2048)
+   targets: 144 flash_attn launches a step (24 encoder, 24 decoder self-
+   and 24 cross-attention calls, each again in remat's recompute), ms a
+   step on the host clock and in CUDA events, ``max_memory_allocated``,
+   the loss at each step (finite, the last below step 0's).  Then the
+   ``examples/serve_lm_torch.py`` twin's enc-dec serving at full width: 3
+   batches of (2, 2048) frames, 32 greedy tokens each, encode(i+1) issued
+   on a side stream before decode(i): ms an encode and a decode step, the
+   cross-cache bytes, 24 flash_attn launches an encode and a decode step;
+   the decode logits at every generated position within 3e-2 of the
+   logits' scale of ``decode_train`` over the same tokens, and the same
+   decode with its cross caches zeroed beyond it.  Then ``prefill_fn`` at
+   (1, 32768) frames (the encoder output's mean), timed.  Each flash_attn
+   shape on the path is held against its plain version (``FlashHeld``; at
+   32768 queries a sample of 256 rows over all keys), and, outside the
+   path's counts, the kernel at the four non-causal shapes
+   (``ENCDEC_FLASH``) is timed beside SDPA and its bound.
 11. Door LM: LM traffic behind the front door.  A door built by hand over
    llama3.2-3b at its published width and an nvsa cnn fp32 engine at
    d = 256, 16 LM requests (16-64-token prompts, 16 new tokens, greedy)
@@ -271,8 +297,10 @@ and prints no result line):
    ``circ_dict`` corr and bf16 at (256, 16, 4, 256), ``unbind_classify``
    (8, 2, 4, 256, 5) under ``d256``, ``simd_fused`` bf16, (67, 5, 4, 128)
    under ``d128`` and (64, 1024, 4, 256) under ``m1024``, ``flash_attn``
-   bf16 at the same shape, bf16 at (1, 2048, 16, 64) under ``hd64`` and
-   bf16 at (1, 2048, 48, 128) under ``internvl2``
+   bf16 at the same shape, bf16 at (1, 2048, 16, 64) under ``hd64``,
+   bf16 at (1, 2048, 48, 128) under ``internvl2`` and the four non-causal
+   shapes of phase 10c under ``encoder``, ``cross``, ``decode_cross`` and
+   ``encoder_32k``
    (ms, device_ms, library_ms, bound_ms, bound_units, max_abs_err).
 13. The last line: ``{"ok": true, "device": {...}}``.
 
@@ -838,12 +866,82 @@ def single_tf32_attention(q, k, v, scale: float, causal: bool):
     return (out / p.double().sum(dim=-1, keepdim=True)).float()
 
 
-def flash_kernel_rows(gen) -> dict:
+FLASH_HELD_SCORES = 8192 * 8192   # past this many scores a head, hold a row sample
+
+
+def flash_held_rows(sq: int, skv: int, causal: bool, device):
+    """The query rows of a flash_attn call at (Sq, Skv) that are held
+    against the plain version: all of them up to ``FLASH_HELD_SCORES``
+    scores a head, past it (where the plain version's scores would not
+    fit) 256 evenly spaced rows over all keys, which only a call without
+    the mask may take."""
+    import torch
+
+    if sq * skv <= FLASH_HELD_SCORES:
+        return slice(None)
+    check(not causal, "a row sample of flash_attn is held without the mask only")
+    return torch.linspace(0, sq - 1, 256, device=device).long()
+
+
+def flash_row(gen, b: int, sq: int, skv: int, h: int, hd: int, causal: bool, dtype,
+              reps: int = 10, samples: int = 21) -> dict:
+    """``flash_mha`` on random q, k, v at (B, Sq, Skv, H, hd): held against
+    ``flash_attention_ref`` (within 2e-5 at f32, 1e-3 + one bf16 step at
+    bf16) on ``flash_held_rows`` and timed eager and on the device beside
+    the plain version, SDPA and the bound.  Where a row sample is held, the
+    plain version's time is left out."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend
 
     from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.kernels.flash_attn import ref as flash_ref
+
+    scale = hd ** -0.5
+    q = torch.randn(b, sq, h, hd, device="cuda", generator=gen).to(dtype)
+    k = torch.randn(b, skv, h, hd, device="cuda", generator=gen).to(dtype)
+    v = torch.randn(b, skv, h, hd, device="cuda", generator=gen).to(dtype)
+    flat = lambda t: t.transpose(1, 2).reshape(b * h, t.shape[1], hd)  # noqa: E731
+    got = flash_ops.flash_mha(q, k, v, scale, causal)
+    rows = flash_held_rows(sq, skv, causal, q.device)
+    plain = isinstance(rows, slice)
+    want = flash_ref.flash_attention_ref(flat(q[:, rows]), flat(k), flat(v), scale=scale,
+                                         causal=causal)
+    want = want.reshape(b, h, -1, hd).transpose(1, 2)
+    torch.cuda.synchronize()
+    f32 = dtype == torch.float32
+    err = close(got[:, rows], want, FLASH_F32_ATOL if f32 else 1e-3, 0.0 if f32 else BF16_STEP)
+    # SDPA's is_causal is aligned at position 0 too (tril of ones(Sq, Skv))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa(qt=qt, kt=kt, vt=vt, causal=causal, scale=scale):
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, scale=scale)
+
+    lib_err = float((sdpa().transpose(1, 2)[:, rows].float() - want.float()).abs().max())
+    check(lib_err <= (1e-3 if dtype == torch.float32 else 3e-2),
+          f"flash library call err {lib_err}")
+    backend = SDPBackend(torch._fused_sdp_choice(qt, kt, vt, is_causal=causal,
+                                                 scale=scale)).name
+    bound, by, units = flash_bound(b, sq, skv, h, hd, causal, q.element_size())
+    call = lambda: flash_ops.flash_mha(q, k, v, scale, causal)  # noqa: E731
+    return {"kernel": "flash_attn", "dtype": str(dtype).split(".")[1],
+            "shape": [b, sq, skv, h, hd], "causal": causal, "max_abs_err": err,
+            "held_rows": "all" if plain else 256,
+            "kernel_ms": cuda_ms(call, reps, samples),
+            "kernel_device_ms": graph_ms(call, reps, samples),
+            "plain_ms": cuda_ms(lambda: flash_ref.flash_attention_ref(
+                flat(q), flat(k), flat(v), scale=scale, causal=causal), reps, samples)
+            if plain else None,
+            "library_ms": cuda_ms(sdpa, reps, samples),
+            "library": "scaled_dot_product_attention, is_causal aligned at 0 "
+                       "like the kernel (1 call)",
+            "library_backend": backend,
+            "bound_ms": bound, "bound_by": by, "bound_units": units, "card": CARD}
+
+
+def flash_kernel_rows(gen) -> dict:
+    import torch
+
     from repro_torch.kernels.flash_attn import ref as flash_ref
 
     main = {}
@@ -858,46 +956,14 @@ def flash_kernel_rows(gen) -> dict:
                                           (1000, 1000, True, torch.bfloat16, 24, 128),
                                           (2048, 2048, True, torch.bfloat16, 16, 64),
                                           (2048, 2048, True, torch.bfloat16, 48, 128)):
-        scale = hd ** -0.5
-        q = torch.randn(b, sq, h, hd, device="cuda", generator=gen).to(dtype)
-        k = torch.randn(b, skv, h, hd, device="cuda", generator=gen).to(dtype)
-        v = torch.randn(b, skv, h, hd, device="cuda", generator=gen).to(dtype)
-        flat = lambda t: t.transpose(1, 2).reshape(b * h, t.shape[1], hd)  # noqa: E731
-        got = flash_ops.flash_mha(q, k, v, scale, causal)
-        want = flash_ref.flash_attention_ref(flat(q), flat(k), flat(v), scale=scale,
-                                             causal=causal)
-        want = want.reshape(b, h, sq, hd).transpose(1, 2)
-        torch.cuda.synchronize()
+        row = flash_row(gen, b, sq, skv, h, hd, causal, dtype)
         f32 = dtype == torch.float32
-        err = close(got, want, FLASH_F32_ATOL if f32 else 1e-3, 0.0 if f32 else BF16_STEP)
-        # SDPA's is_causal is aligned at position 0 too (tril of ones(Sq, Skv))
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-
-        def sdpa(qt=qt, kt=kt, vt=vt, causal=causal, scale=scale):
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                                  scale=scale)
-
-        lib_err = float((sdpa().transpose(1, 2).float() - want.float()).abs().max())
-        check(lib_err <= (1e-3 if dtype == torch.float32 else 3e-2),
-              f"flash library call err {lib_err}")
-        backend = SDPBackend(torch._fused_sdp_choice(qt, kt, vt, is_causal=causal,
-                                                     scale=scale)).name
-        bound, by, units = flash_bound(b, sq, skv, h, hd, causal, q.element_size())
-        row = {"kernel": "flash_attn", "dtype": str(dtype).split(".")[1],
-               "shape": [b, sq, skv, h, hd], "causal": causal, "max_abs_err": err,
-               "kernel_ms": cuda_ms(lambda: flash_ops.flash_mha(q, k, v, scale, causal)),
-               "kernel_device_ms": graph_ms(
-                   lambda: flash_ops.flash_mha(q, k, v, scale, causal)),
-               "plain_ms": cuda_ms(lambda: flash_ref.flash_attention_ref(
-                   flat(q), flat(k), flat(v), scale=scale, causal=causal)),
-               "library_ms": cuda_ms(sdpa),
-               "library": "scaled_dot_product_attention, is_causal aligned at 0 "
-                          "like the kernel (1 call)",
-               "library_backend": backend,
-               "bound_ms": bound, "bound_by": by, "bound_units": units}
         if f32 and sq == 2048:
-            single = single_tf32_attention(flat(q), flat(k), flat(v), scale, causal)
-            single = single.reshape(b, h, sq, hd).transpose(1, 2)
+            g = torch.Generator(device="cuda").manual_seed(SEED)
+            q, k, v = (torch.randn(b * h, n, hd, device="cuda", generator=g)
+                       for n in (sq, skv, skv))
+            want = flash_ref.flash_attention_ref(q, k, v, scale=hd ** -0.5, causal=causal)
+            single = single_tf32_attention(q, k, v, hd ** -0.5, causal)
             row["single_tf32_max_abs_err"] = float((single - want).abs().max())
             check(row["single_tf32_max_abs_err"] > FLASH_F32_ATOL,
                   f"one tf32 product per f32 product: err "
@@ -909,7 +975,7 @@ def flash_kernel_rows(gen) -> dict:
         elif sq == 2048 and h == 48:
             main["flash_attn_internvl2"] = row
         elif sq == 2048:
-            main["flash_attn" if dtype == torch.float32 else "flash_attn_bf16"] = row
+            main["flash_attn" if f32 else "flash_attn_bf16"] = row
     return main
 
 
@@ -2261,6 +2327,11 @@ LM_REC_RING_REQUESTS, LM_REC_RING_PROMPTS = 2, (2056, 2100)   # past the window
 # internvl2-26b: 48 layers of 390M parameters and a 1.14B untied embed and
 # head, 79.4 GB of f32; cut by memory to 38 layers (63.8 GB)
 VLM_ARCH, VLM_LAYERS = "internvl2-26b", 38
+# the engine rows of the archs at full depth serve the first layers only,
+# cut for the script's time (each row is host-bound, its time about
+# proportional to the depth); their forwards run at full depth
+LM_ENGINE_LAYERS = {LM_ARCH: 14, "granite-moe-1b-a400m": 12, LM_RWKV_ARCH: 16,
+                    LM_GRIFFIN_ARCH: 18}   # griffin: 6 (rec, rec, attn) units
 VLM_IMAGE_TOKENS = VLM_TEXT_TOKENS = 1024
 VLM_CPU_LAYERS, VLM_CPU_TOKENS = 2, 128
 
@@ -2312,11 +2383,12 @@ def lm_prompts(vocab: int, n: int, lens: tuple[int, int], seed: int):
 
 
 class FlashHeld:
-    """While open, the first ``flash_mha`` call at each shape is held against
-    ``flash_attention_ref`` on its own inputs and output, within 1e-3 + one
-    bf16 step (the path computes in bf16), as ``flash_kernel_rows`` holds
-    the kernel; the check itself launches nothing.  ``rows`` keeps one row
-    per shape held."""
+    """While open, the first ``flash_mha`` call at each (q shape, k shape,
+    causal) is held against ``flash_attention_ref`` on its own inputs and
+    output, within 1e-3 + one bf16 step (the path computes in bf16), as
+    ``flash_kernel_rows`` holds the kernel; the check itself launches
+    nothing, on the query rows ``flash_held_rows`` picks.  ``rows`` keeps
+    one row per call held."""
 
     def __init__(self):
         self.rows: list[dict] = []
@@ -2338,15 +2410,21 @@ class FlashHeld:
         import torch
 
         out = self._launch(q, k, v, scale, causal)
-        if tuple(q.shape) not in self._seen:
-            self._seen.add(tuple(q.shape))
+        key = (tuple(q.shape), tuple(k.shape), bool(causal))
+        if key not in self._seen:
+            self._seen.add(key)
             b, s, h, hd = q.shape
+            rows = flash_held_rows(s, k.shape[1], causal, q.device)
+            sampled = not isinstance(rows, slice)
             flat = lambda t: t.transpose(1, 2).reshape(b * h, t.shape[1], hd)  # noqa: E731
             with torch.no_grad():   # under training, the check records no graph
-                want = flash_ref.flash_attention_ref(flat(q), flat(k), flat(v), scale=scale,
-                                                     causal=causal)
-                err = close(out, want.reshape(b, h, s, hd).transpose(1, 2), 1e-3, BF16_STEP)
-            self.rows.append({"shape": [b, s, h, hd], "max_abs_err": err})
+                want = flash_ref.flash_attention_ref(flat(q[:, rows]), flat(k), flat(v),
+                                                     scale=scale, causal=causal)
+                err = close(out[:, rows], want.reshape(b, h, -1, hd).transpose(1, 2), 1e-3,
+                            BF16_STEP)
+            self.rows.append({"shape": [b, s, h, hd], "skv": k.shape[1], "causal": causal,
+                              "held_rows": 256 if sampled else "all",
+                              "max_abs_err": err})
         return out
 
     def shapes(self) -> set:
@@ -2838,12 +2916,14 @@ def lm_moe_arch(arch_id: str, dev: str, held: "FlashHeld") -> list[tuple]:
               "tokens_per_s": b * s / ms * 1e3,
               "max_memory_allocated": torch.cuda.max_memory_allocated()})
     emit({"phase": "lm", "arch": arch_id, "moe_routing": lm_moe_routing(params, cfg, dev)})
-    serve_cfg = dropless(cfg)
+    serve_cfg, params_e, label = dropless(cfg), params, arch_id
+    if arch_id in LM_ENGINE_LAYERS:
+        params_e, serve_cfg, label = lm_engine_depth(params, arch_id, serve_cfg)
     serve = LM_MOE_SERVE[arch_id]
     n, lens = LM_MOE_REQUESTS[arch_id]
     prompts = lm_prompts(cfg.vocab, n, lens, SEED + 5)
     peak = torch.cuda.max_memory_allocated()
-    row = lm_engine_row(arch, params, serve_cfg, serve, prompts, arch_id, dev,
+    row = lm_engine_row(arch, params_e, serve_cfg, serve, prompts, label, dev,
                         full=arch_id == LM_MOE_ARCHS[0], held=held)
     row.update(params=nninit.param_count(spec), param_bytes=nninit.param_bytes(spec),
                capacity_factor=serve_cfg.moe.capacity_factor,
@@ -2851,7 +2931,7 @@ def lm_moe_arch(arch_id: str, dev: str, held: "FlashHeld") -> list[tuple]:
     emit(row)
     check(row["max_memory_allocated"] <= LM_PEAK_LIMIT,
           f"{arch_id}: {row['max_memory_allocated']} bytes at the peak")
-    del params
+    del params, params_e
     torch.cuda.empty_cache()
     return [(b, s, cfg.n_heads, cfg.hd, cfg.n_kv_heads)
             for b, s in LM_MOE_FORWARDS[arch_id]] if gqa_layers else []
@@ -2874,6 +2954,14 @@ def lm_sliced(params, arch_id: str, cfg, n_layers: int):
                 dataclasses.replace(cfg, lm=dataclasses.replace(cfg.lm, n_layers=n_layers)))
     return ({**params, "body": tree_map(lambda t: t[:n_layers], params["body"])},
             dataclasses.replace(cfg, n_layers=n_layers))
+
+
+def lm_engine_depth(params, arch_id: str, cfg):
+    """(params, cfg, label) of ``arch_id``'s engine rows: its first
+    ``LM_ENGINE_LAYERS[arch_id]`` layers (``lm_sliced``)."""
+    n = LM_ENGINE_LAYERS[arch_id]
+    params, cfg = lm_sliced(params, arch_id, cfg, n)
+    return params, cfg, f"{arch_id}[{n} layers]"
 
 
 def lm_vs_cpu(forward_of, params, cfg, inputs, label: str) -> dict:
@@ -3044,17 +3132,19 @@ def lm_recurrent_arch(arch_id: str, dev: str) -> None:
           **lm_vs_cpu(lambda c: cb.prefill_fn(arch, c), params_c, cfg_c, toks, arch_id)})
     del params_c
 
-    f32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    params_e, cfg_e, label = lm_engine_depth(params, arch_id, cfg)
+    f32 = dataclasses.replace(cfg_e, compute_dtype=torch.float32)
     lengths = np.random.default_rng(SEED + 6).permutation(
         [LM_REC_LENGTHS[i % len(LM_REC_LENGTHS)] for i in range(LM_REC_REQUESTS)])
     prompts = lm_fixed_prompts(cfg.vocab, lengths, SEED + 6)
     peak = torch.cuda.max_memory_allocated()
-    row = lm_engine_row(arch, params, cfg, LM_REC_SERVE, prompts, arch_id, dev,
+    row = lm_engine_row(arch, params_e, cfg_e, LM_REC_SERVE, prompts, label, dev,
                         full=False, held=FlashHeld(), profile=True, held_cfg=f32)
     check(row["stateful_prefill"], f"{arch_id}: the engine did not take serve_fns' "
                                    "stateful_prefill tag")
     row["decode_vs_forward"]["early_positions"] = lm_rec_early_rows(
-        params, arch, cfg, prompts, LM_REC_SERVE, dev)
+        params_e, arch, cfg_e, prompts, LM_REC_SERVE, dev)
+    del params_e
     # two greedy runs, each one admission group of three distinct lengths
     check(row["prefills"] == 2 * len(LM_REC_LENGTHS),
           f"{arch_id}: {row['prefills']} prefill scans, want one per distinct length")
@@ -3218,9 +3308,10 @@ def phase_lm(dev: str = "cuda") -> dict[str, int]:
     del params2, card, cpu
 
     prompts = lm_prompts(cfg.vocab, LM_REQUESTS, LM_PROMPTS, SEED)
-    emit(lm_engine_row(arch, params, cfg, LM_SERVE, prompts, LM_ARCH, dev,
+    params_e, cfg_e, label = lm_engine_depth(params, LM_ARCH, cfg)
+    emit(lm_engine_row(arch, params_e, cfg_e, LM_SERVE, prompts, label, dev,
                        full=True, held=held))
-    del params
+    del params, params_e
     torch.cuda.empty_cache()
 
     # the ring-buffer path: gemma3-12b's width, one pattern unit of depth
@@ -3546,6 +3637,308 @@ def phase_train_lm(dev: str = "cuda") -> dict[str, int]:
     return counts
 
 
+# -- phase 10c: the enc-dec kind ---------------------------------------------------
+
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+# the first step on the card against the CPU: the published width cut to 2 + 2
+# layers, f32 compute (the 3xTF32 flash kernel, non-causal), frames (1, 128,
+# 1024) and targets (1, 128); the checks are TRAIN_FIRST_TOL's
+ENCDEC_FIRST_LAYERS, ENCDEC_FIRST_SEQ = 2, 128
+# then all 24 + 24 layers: f32 parameters, bf16 compute, f32 moments, remat on
+# as its config says, ENCDEC_STEPS steps on one repeated batch of the
+# reference's train_4k split per example (2048 source frames, 2048 target
+# tokens), its batch cut from 256 to 1
+ENCDEC_STEPS, ENCDEC_SRC, ENCDEC_TGT = 6, 2048, 2048
+ENCDEC_OPT = dict(lr=1e-4, warmup_steps=1, total_steps=ENCDEC_STEPS)
+# serving: examples/serve_lm_torch.py's schedule at full width and depth
+ENCDEC_SERVE = dict(n_batches=3, batch=2, src_len=2048, new_tokens=32, max_len=64)
+# prefill_fn at the reference's prefill_32k per-example shape, batch cut 32 -> 1
+ENCDEC_LONG = 32768
+# the flash_attn shapes new on this path, non-causal bf16: (B, Sq, Skv, H, hd)
+ENCDEC_FLASH = {"encoder": (1, 2048, 2048, 16, 64), "cross": (2, 64, 2048, 16, 64),
+                "decode_cross": (2, 1, 2048, 16, 64),
+                "encoder_32k": (1, 32768, 32768, 16, 64)}
+
+
+def encdec_config():
+    """seamless-m4t-large-v2 at its published width and depth."""
+    from repro_torch.configs import get_arch
+
+    return get_arch(ENCDEC_ARCH).make_full()
+
+
+def encdec_batch(cfg, src: int, tgt: int, gen, dev) -> dict:
+    """bf16 standard-normal frames (1, src, D) from ``gen`` (the stub
+    frontend's output) and one ``SyntheticTokens`` target row of ``tgt``."""
+    import torch
+
+    from repro_torch.data.tokens import SyntheticTokens, TokenPipelineConfig
+
+    toks, tgts = SyntheticTokens(TokenPipelineConfig(
+        vocab_size=cfg.vocab, seq_len=tgt, global_batch=1, seed=SEED)).batch(0)
+    return {"frames": torch.randn(1, src, cfg.d_model, device=dev, generator=gen).bfloat16(),
+            "tgt_tokens": torch.from_numpy(toks).to(dev),
+            "tgt_targets": torch.from_numpy(tgts).to(dev)}
+
+
+def encdec_decode_check(params, cfg, served: list, dev) -> dict:
+    """Each served batch's decode logits against ``decode_train`` over the
+    same teacher-forced tokens (the decode's inputs: 0, then the greedy
+    tokens), at every generated position, relative to the forward's logits'
+    scale without the input token's column (the tied embedding may echo
+    it); then the same decode with the cross caches zeroed, which must lie
+    beyond the tolerance somewhere."""
+    import torch
+
+    from repro_torch.models import encdec
+    from repro_torch.nn import layers
+
+    worst, control = 0.0, 0.0
+    for r in served:
+        inputs = torch.cat([torch.zeros_like(r["tokens"][:, :1]), r["tokens"][:, :-1]], 1)
+        with torch.no_grad():
+            hidden = encdec.decode_train(params, cfg, r["enc_out"], inputs)
+            want = layers.logits(params["embed"], hidden, cfg.compute_dtype).float()
+            caches = encdec.init_caches(params, cfg, r["enc_out"], ENCDEC_SERVE["max_len"],
+                                        device=dev)
+            for t in caches["cross"].values():
+                t.zero_()
+            zeroed = []
+            for t in range(inputs.shape[1]):
+                caches, logits = encdec.decode_step(params, cfg, caches, inputs[:, t], t)
+                zeroed.append(logits.float())
+        zeroed = torch.stack(zeroed, 1)
+        scale = torch.stack([logit_scale(want[:, t], inputs[:, t])
+                             for t in range(inputs.shape[1])], 1)
+        worst = max(worst, float(((r["logits"] - want).abs().amax(-1) / scale).max()))
+        control = max(control, float(((zeroed - want).abs().amax(-1) / scale).max()))
+    return {"decode_vs_forward": worst, "zeroed_cross_vs_forward": control,
+            "tolerance": LM_LOGIT_TOL}
+
+
+def encdec_serial(twin, params, cfg, dev, srv) -> list:
+    """The plain schedule of the twin's enc-dec serving on the same
+    batches: each batch encoded, then decoded, on one stream; the greedy
+    tokens per batch."""
+    import torch
+
+    from repro_torch.models import encdec
+
+    out = []
+    for f in twin.encdec_frames(cfg.d_model, srv["n_batches"], srv["batch"], srv["src_len"]):
+        enc = encdec.encode(params, cfg, f.to(dev))
+        out.append(twin.greedy_decode(params, cfg, enc, srv["new_tokens"], srv["max_len"],
+                                      torch.device(dev))[0])
+    return out
+
+
+def phase_encdec(dev: str = "cuda") -> tuple[dict[str, int], dict]:
+    """The enc-dec kind on the card; returns the path's launch counts and
+    the ``kernels`` line's rows of its new flash_attn shapes.
+    a. seamless-m4t-large-v2's first step at 2 + 2 layers and f32 compute,
+    card against CPU (``train_first_step``); b. all 24 + 24 layers at bf16
+    compute: ``ENCDEC_STEPS`` steps of ``trainer.train_step``, 144
+    flash_attn launches a step (72 forward, 72 recomputed by remat), ms a
+    step on the host clock and in CUDA events, the peak bytes, the loss at
+    each step (finite, the last below step 0's); c. the example twin's
+    enc-dec serving at full width (``ENCDEC_SERVE``, encode(i+1) issued
+    before decode(i)), ms an encode and a decode step, the cross-cache
+    bytes, the decode against ``decode_train`` within 3e-2 of the logits'
+    scale and the zeroed-cross control beyond it; then, outside
+    ``FlashHeld``, the twin's schedule timed against the plain
+    encode-then-decode loop (``encdec_serial``) on the same batches, in the
+    order serial, overlap, overlap, serial, with equal tokens; d. ``prefill_fn`` at
+    (1, ``ENCDEC_LONG``), its first layer's flash_attn held on a 256-row
+    sample.  Every new flash_attn shape on the path is held against its
+    plain version (``FlashHeld``).  Then, outside the path's counts, the
+    rows of ``ENCDEC_FLASH``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.backend import registry
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.configs import base as cb
+    from repro_torch.configs import get_arch
+    from repro_torch.models import encdec
+    from repro_torch.nn import init as nninit
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    on_card = dev == "cuda"
+    t_phase = time.perf_counter()
+    registry.reset_launches()
+    arch, cfg = get_arch(ENCDEC_ARCH), encdec_config()
+    ocfg = opt.AdamWConfig(**ENCDEC_OPT)
+    gen = torch.Generator(dev).manual_seed(SEED)
+
+    # a. the first step at 2 + 2 layers and f32 compute, card against CPU
+    small = dataclasses.replace(cfg, n_enc_layers=ENCDEC_FIRST_LAYERS,
+                                n_dec_layers=ENCDEC_FIRST_LAYERS, compute_dtype=torch.float32)
+    params = nninit.materialize(encdec.encdec_spec(small), gen)
+    batch = encdec_batch(small, ENCDEC_FIRST_SEQ, ENCDEC_FIRST_SEQ, gen, dev)
+    if on_card:
+        train_first_step("seamless-m4t-large-v2@2+2 layers f32", encdec.loss_fn, False,
+                         params, (small, batch), ocfg, phase="encdec", kernel="flash_attn")
+    del params
+
+    # b. training at the published width and depth
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    params = nninit.materialize(encdec.encdec_spec(cfg), gen)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    state = opt.init_state(params, ocfg)
+    batches = {k: v[None] for k, v in encdec_batch(cfg, ENCDEC_SRC, ENCDEC_TGT, gen,
+                                                   dev).items()}
+    loss_fn = cb.loss_fn(arch, cfg)
+    losses, host_ms, event_ms, launches = [], [], [], []
+    with FlashHeld() as held_train:
+        for _ in range(ENCDEC_STEPS):
+            before = registry.LAUNCHES["flash_attn"]
+            if on_card:
+                torch.cuda.synchronize()
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+                start.record()
+            t0 = time.perf_counter()
+            params, state, metrics = trainer.train_step(loss_fn, params, state, batches, ocfg)
+            if on_card:
+                end.record()
+            losses.append(float(metrics["loss"]))
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            if on_card:
+                end.synchronize()
+                event_ms.append(start.elapsed_time(end))
+            launches.append(registry.LAUNCHES["flash_attn"] - before)
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    per_step = (1 + cfg.remat) * (cfg.n_enc_layers + 2 * cfg.n_dec_layers)
+    emit({"phase": "encdec", "row": "train", "model": ENCDEC_ARCH,
+          "layers": [cfg.n_enc_layers, cfg.n_dec_layers], "params": n_params,
+          "param_dtype": "float32", "compute_dtype": "bfloat16", "moments": "float32",
+          "remat": cfg.remat, "frames": [1, ENCDEC_SRC, cfg.d_model],
+          "targets": [1, ENCDEC_TGT], "opt": ENCDEC_OPT, "losses": losses,
+          "ms_per_step_host": host_ms, "ms_per_step_cuda_events": event_ms,
+          "flash_attn_launches_per_step": launches, "max_memory_allocated": peak,
+          "flash_attn_held": held_train.rows, "card": CARD})
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"{ENCDEC_ARCH} training: losses {losses}")
+    check(all(n == per_step for n in launches),
+          f"{ENCDEC_ARCH} training: flash_attn launches a step {launches}, want {per_step}")
+    del state, metrics, batches
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # c. serving at full width: the example twin's schedule
+    twin = example_module("serve_lm_torch")
+    srv = ENCDEC_SERVE
+    before = registry.LAUNCHES["flash_attn"]
+    t0 = time.perf_counter()
+    with torch.no_grad(), FlashHeld() as held_serve:
+        served = twin.serve_encdec_overlap(dev, cfg=cfg, params=params,
+                                           keep_logits=True, **srv)
+        serve_s = time.perf_counter() - t0
+        serve_launches = registry.LAUNCHES["flash_attn"] - before
+        check_row = encdec_decode_check(params, cfg, served, dev)
+        frames0, enc0 = served[0]["frames"], served[0]["enc_out"]
+        encode_ms = cuda_ms(lambda: encdec.encode(params, cfg, frames0), reps=1,
+                            samples=5) if on_card else None
+        if on_card:
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+            start.record()
+        t0 = time.perf_counter()
+        twin.greedy_decode(params, cfg, enc0, srv["new_tokens"], srv["max_len"],
+                           torch.device(dev))
+        if on_card:
+            end.record()
+            end.synchronize()
+        decode_host_ms = (time.perf_counter() - t0) * 1e3 / srv["new_tokens"]
+        decode_event_ms = start.elapsed_time(end) / srv["new_tokens"] if on_card else None
+    cross_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(encdec.cache_shapes(
+        cfg, srv["batch"], srv["max_len"], srv["src_len"])["cross"]))
+    want_serve = srv["n_batches"] * (cfg.n_enc_layers + srv["new_tokens"] * cfg.n_dec_layers)
+    emit({"phase": "encdec", "row": "serve", "model": ENCDEC_ARCH, **srv,
+          "tokens": [r["tokens"].tolist() for r in served], "seconds": serve_s,
+          "ms_per_encode": encode_ms, "ms_per_decode_step_host": decode_host_ms,
+          "ms_per_decode_step_cuda_events": decode_event_ms,
+          "cross_cache_bytes": cross_bytes, "flash_attn_launches": serve_launches,
+          **check_row, "flash_attn_held": held_serve.rows, "card": CARD})
+    check(serve_launches == want_serve,
+          f"{ENCDEC_ARCH} serving: {serve_launches} flash_attn launches, want {want_serve}")
+    check(check_row["decode_vs_forward"] <= LM_LOGIT_TOL,
+          f"{ENCDEC_ARCH}: decode {check_row['decode_vs_forward']} of the logits' scale "
+          "from decode_train")
+    check(check_row["zeroed_cross_vs_forward"] > LM_LOGIT_TOL,
+          f"{ENCDEC_ARCH}: the decode with zeroed cross caches lies within the tolerance "
+          f"({check_row['zeroed_cross_vs_forward']}), so the check does not read the encoder")
+
+    # the overlapped schedule against the plain loop, outside FlashHeld
+    sched: dict[str, list] = {"serial": [], "overlap": []}
+    issue_ms = []
+    with torch.no_grad():
+        for _ in range(3):   # the host's time to issue one encode
+            if on_card:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            encdec.encode(params, cfg, frames0)
+            issue_ms.append((time.perf_counter() - t0) * 1e3)
+        for mode in ("serial", "overlap", "overlap", "serial"):
+            if on_card:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if mode == "overlap":
+                toks = [r["tokens"] for r in twin.serve_encdec_overlap(
+                    dev, cfg=cfg, params=params, **srv)]
+            else:
+                toks = encdec_serial(twin, params, cfg, dev, srv)
+            if on_card:
+                torch.cuda.synchronize()
+            sched[mode].append(time.perf_counter() - t0)
+            check(all(torch.equal(a, r["tokens"]) for a, r in zip(toks, served)),
+                  f"{ENCDEC_ARCH}: the {mode} schedule's tokens differ from the served ones")
+    emit({"phase": "encdec", "row": "overlap", "model": ENCDEC_ARCH, **srv,
+          "seconds_serial": sched["serial"], "seconds_overlap": sched["overlap"],
+          "ms_per_encode": encode_ms, "ms_encode_issue_host": issue_ms, "card": CARD})
+    del served, frames0, enc0
+
+    # d. the long-context encode through prefill_fn
+    frames = torch.randn(1, ENCDEC_LONG, cfg.d_model, device=dev, generator=gen).bfloat16()
+    prefill = cb.prefill_fn(arch, cfg)
+    with torch.no_grad(), FlashHeld() as held_long:
+        summary = prefill(params, frames)
+        long_ms = cuda_ms(lambda: prefill(params, frames), reps=1, samples=3) \
+            if on_card else None
+    emit({"phase": "encdec", "row": "prefill_long", "model": ENCDEC_ARCH,
+          "frames": [1, ENCDEC_LONG, cfg.d_model], "ms": long_ms,
+          "flash_attn_held": held_long.rows, "card": CARD})
+    check(tuple(summary.shape) == (1, cfg.d_model) and bool(torch.isfinite(summary).all()),
+          f"{ENCDEC_ARCH}: prefill_fn gave {tuple(summary.shape)}")
+    held = {(r["shape"][0], r["shape"][1], r["skv"], r["causal"])
+            for h in (held_train, held_serve, held_long) for r in h.rows}
+    b = srv["batch"]
+    for want in ((1, ENCDEC_SRC, ENCDEC_SRC, False), (1, ENCDEC_TGT, ENCDEC_TGT, True),
+                 (b, srv["src_len"], srv["src_len"], False), (b, 1, srv["src_len"], False),
+                 (1, ENCDEC_LONG, ENCDEC_LONG, False)):
+        check(want in held, f"{ENCDEC_ARCH}: flash_attn at (B, Sq, Skv, causal) = {want} "
+              f"was not held, only at {sorted(held)}")
+    del params, summary, frames
+    counts = dict(registry.LAUNCHES)
+    check(counts["flash_attn"] > 0, "kernel flash_attn was not launched on the encdec path")
+    rows = {}
+    if on_card:
+        torch.cuda.empty_cache()
+        for name, (b, sq, skv, h, hd) in ENCDEC_FLASH.items():
+            reps, samples = (2, 5) if name == "encoder_32k" else (10, 21)
+            rows[f"flash_attn_{name}"] = row = flash_row(
+                gen, b, sq, skv, h, hd, False, torch.bfloat16, reps=reps, samples=samples)
+            emit({**row, "phase": "encdec", "row": name})
+    emit({"phase": "encdec", "row": "phase", "seconds": time.perf_counter() - t_phase,
+          "launches": {k: v for k, v in counts.items() if v}, "card": CARD})
+    return counts, rows
+
+
 # -- phase 11: LM traffic behind the front door -----------------------------------
 
 DOOR_LM_REQUESTS, DOOR_LM_PROMPTS = 16, (16, 64)
@@ -3762,7 +4155,8 @@ def phase_door_lm(dev: str = "cuda") -> dict[str, int]:
 # these keys: circ_conv at NVSA's served bucket and at MIMONet's training
 # shape (conv and corr), circ_dict corr and bf16,
 # unbind_classify at d = 256, simd_fused bf16, at d = 128 and at M = 1024,
-# flash_attn bf16, bf16 at head dim 64 and bf16 at internvl2-26b's 48 heads
+# flash_attn bf16, bf16 at head dim 64, bf16 at internvl2-26b's 48 heads and
+# the four non-causal bf16 shapes of the encdec phase (ENCDEC_FLASH)
 SUB_ROWS = {"circ_conv": (("served", "circ_conv_served"), ("train", "circ_conv_train_conv"),
                           ("train_corr", "circ_conv_train_corr")),
             "circ_dict": (("corr", "circ_dict_corr"), ("bf16", "circ_dict_bf16")),
@@ -3770,7 +4164,10 @@ SUB_ROWS = {"circ_conv": (("served", "circ_conv_served"), ("train", "circ_conv_t
             "simd_fused": (("bf16", "simd_fused_bf16"), ("d128", "simd_fused_d128"),
                            ("m1024", "simd_fused_m1024")),
             "flash_attn": (("bf16", "flash_attn_bf16"), ("hd64", "flash_attn_hd64"),
-                           ("internvl2", "flash_attn_internvl2"))}
+                           ("internvl2", "flash_attn_internvl2"),
+                           ("encoder", "flash_attn_encoder"), ("cross", "flash_attn_cross"),
+                           ("decode_cross", "flash_attn_decode_cross"),
+                           ("encoder_32k", "flash_attn_encoder_32k"))}
 
 
 def main() -> int:
@@ -3799,6 +4196,8 @@ def main() -> int:
     paths["train"] = phase_train()
     paths["lm"] = phase_lm()
     paths["train_lm"] = phase_train_lm()
+    paths["encdec"], encdec_rows = phase_encdec()
+    main_rows.update(encdec_rows)
     paths["door_lm"] = phase_door_lm()
     emit({"phase": "launches_by_path", **paths})
     kernels = []

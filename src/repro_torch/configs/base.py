@@ -6,12 +6,14 @@ the LM architectures (``configs/registry.py:ARCHS``): ``model_spec``,
 ``loss_fn`` (the training loss), ``prefill_fn`` (the full-context
 forward, last-token logits),
 ``decode_fn``, ``serve_fns`` (the ``Engine``'s decode step and cache
-allocator) and ``lm_engine``.  The port has the kinds ``lm`` (the dense GQA
-decoders and the MoE / MLA ones), ``rwkv`` and ``griffin`` (the recurrent
-decoders, served with exact-length prefill scans: ``serve_fns`` tags their
-cache allocator ``stateful_prefill``) and ``vlm`` (patch embeddings before
-the ``lm`` body; not servable, as in the reference).  The enc-dec kind
-raises, naming ROADMAP Queue 1 #4 item 3.
+allocator) and ``lm_engine``.  The port has every kind of the reference:
+``lm`` (the dense GQA decoders and the MoE / MLA ones), ``rwkv`` and
+``griffin`` (the recurrent decoders, served with exact-length prefill
+scans: ``serve_fns`` tags their cache allocator ``stateful_prefill``),
+``vlm`` (patch embeddings before the ``lm`` body) and ``encdec`` (an
+encoder over frame embeddings and a decoder with cross-attention).  The
+last two are not servable through the ``Engine``, as in the reference:
+they take non-token inputs.
 
 For NSAI reasoning, each
 :class:`ReasonWorkload` entry declares how a workload serves: its stage
@@ -40,6 +42,7 @@ from repro_torch import interop
 from repro_torch.backend import registry
 from repro_torch.core import workloads
 from repro_torch.data import raven
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import griffin as griffin_mod
 from repro_torch.models import lm as lm_mod
 from repro_torch.models import lvrf as lv
@@ -77,18 +80,15 @@ class ArchSpec:
     source: str = ""
 
 
-_MODS = {"lm": lm_mod, "rwkv": rwkv_mod, "griffin": griffin_mod, "vlm": vlm_mod}
+_MODS = {"lm": lm_mod, "rwkv": rwkv_mod, "griffin": griffin_mod, "vlm": vlm_mod,
+         "encdec": encdec_mod}
 _SPECS = {"lm": "lm_spec", "rwkv": "rwkv_spec", "griffin": "griffin_spec",
-          "vlm": "vlm_spec"}
+          "vlm": "vlm_spec", "encdec": "encdec_spec"}
 
 
 def _mod(kind: str):
     if kind in _MODS:
         return _MODS[kind]
-    if kind == "encdec":
-        raise NotImplementedError(
-            f"arch kind {kind!r} is not ported yet (ROADMAP Queue 1 #4 item 3: "
-            "models/encdec.py, with cross_attention and encode_kv)")
     raise ValueError(kind)
 
 
@@ -98,7 +98,9 @@ def model_spec(arch: ArchSpec, cfg):
 
 def loss_fn(arch: ArchSpec, cfg):
     """``loss(params, batch)``, the kind's training loss: ``batch`` holds
-    ``tokens`` and ``targets`` (B, S), and ``patch_embeds`` for ``vlm``."""
+    ``tokens`` and ``targets`` (B, S), and ``patch_embeds`` for ``vlm``;
+    for ``encdec`` it holds ``frames`` (B, S_src, D), ``tgt_tokens`` and
+    ``tgt_targets`` (B, S_tgt)."""
     m = _mod(arch.kind)
     return lambda params, batch: m.loss_fn(params, cfg, batch)
 
@@ -122,9 +124,14 @@ def forward_fn(arch: ArchSpec, cfg):
 def prefill_fn(arch: ArchSpec, cfg):
     """Full-context forward returning last-token logits (inference
     prefill).  Every unwindowed attention layer runs the ``flash_attn``
-    kernel (``lm``, ``vlm``); ``rwkv`` runs the chunked WKV, ``griffin``
-    the RG-LRU scan and windowed plain attention.  The ``vlm`` function
-    takes ``{"patch_embeds", "tokens"}`` in place of the tokens."""
+    kernel (``lm``, ``vlm``, ``encdec``); ``rwkv`` runs the chunked WKV,
+    ``griffin`` the RG-LRU scan and windowed plain attention.  The ``vlm``
+    function takes ``{"patch_embeds", "tokens"}`` in place of the tokens;
+    the ``encdec`` function takes frames (B, S_src, D) and returns the
+    encoder output's mean over positions, as the reference's does (the
+    decoder starts empty)."""
+    if arch.kind == "encdec":
+        return lambda params, frames: encdec_mod.encode(params, cfg, frames).mean(dim=1)
     if arch.kind == "vlm":
         def f(params, batch):
             hidden, _ = vlm_mod.forward(params, cfg, batch["patch_embeds"],
@@ -157,7 +164,8 @@ def serve_fns(arch: ArchSpec, cfg, max_len: int):
     prefill's pad steps would corrupt, so ``init_caches`` is tagged
     ``stateful_prefill = True`` and the Engine runs exact-length prefill
     scans.  ``vlm`` and ``encdec`` raise, as in the reference: serving
-    needs their non-token inputs."""
+    needs their non-token inputs (their model modules' ``decode_step``
+    runs them)."""
     m = _mod(arch.kind)
     step = decode_fn(arch, cfg)
     if arch.kind == "lm":

@@ -23,11 +23,10 @@ import dataclasses
 from typing import Any
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.backend import registry
 from repro_torch.common.tree import tree_map
-from repro_torch.models.lm import _needs_grad, _stack_spec, _unstack, _xent
+from repro_torch.models.lm import _run_layers, _stack_spec, _unstack, _xent
 from repro_torch.nn import attention as attn
 from repro_torch.nn import layers, ssm
 
@@ -166,11 +165,7 @@ def forward(params, cfg: GriffinConfig, tokens: torch.Tensor) -> torch.Tensor:
     unit, reps, tail = cfg.plan()
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = _embed(params, cfg, tokens)
-    for up in _unstack(params["body"], reps):
-        if cfg.remat and _needs_grad(up, x):
-            x = checkpoint(_unit_fwd, cfg, up, x, positions, use_reentrant=False)
-        else:
-            x = _unit_fwd(cfg, up, x, positions)
+    x = _run_layers(cfg, _unit_fwd, params["body"], reps, x, positions)
     for p, kind in zip(params["tail"], tail):
         x = _fwd(cfg, kind, p, x, positions)
     return layers.rmsnorm(params["final_norm"], x)

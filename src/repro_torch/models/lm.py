@@ -209,6 +209,22 @@ def _needs_grad(*trees) -> bool:
         t.requires_grad for tree in trees for t in tree_leaves(tree))
 
 
+def _remat(cfg, fn, p, x, *args):
+    """``fn(cfg, p, x, *args)``; under grad with ``cfg.remat``, through
+    ``checkpoint`` (non-reentrant), so the backward recomputes it."""
+    if cfg.remat and _needs_grad(p, x):
+        return checkpoint(fn, cfg, p, x, *args, use_reentrant=False)
+    return fn(cfg, p, x, *args)
+
+
+def _run_layers(cfg, fn, stacked, n: int, x, *args):
+    """``x = fn(cfg, p, x, *args)`` over the ``n`` layers (or units) ``p``
+    of ``stacked``, each through ``_remat``."""
+    for p in _unstack(stacked, n):
+        x = _remat(cfg, fn, p, x, *args)
+    return x
+
+
 def _layers(plan: StagePlan, params, caches=None):
     """(attention kind, ffn kind, layer params, layer cache or None) of
     every layer, in order."""
@@ -263,7 +279,7 @@ def _embed(params, cfg: LMConfig, tokens: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _unit_fwd(cfg: LMConfig, unit_kinds, unit, x, positions):
+def _unit_fwd(cfg: LMConfig, unit, x, positions, unit_kinds):
     aux_u = 0.0
     for i, (a, f) in enumerate(unit_kinds):
         x, aux = _layer_fwd(cfg, a, f, unit[f"u{i}"], x, positions)
@@ -283,11 +299,7 @@ def body(params, cfg: LMConfig, x: torch.Tensor):
         x, aux = _layer_fwd(cfg, a, f, p, x, positions)
         aux_total = aux_total + aux
     for unit in _unstack(params["body"], plan.repeats):
-        if cfg.remat and _needs_grad(unit, x):
-            x, aux = checkpoint(_unit_fwd, cfg, plan.unit, unit, x, positions,
-                                use_reentrant=False)
-        else:
-            x, aux = _unit_fwd(cfg, plan.unit, unit, x, positions)
+        x, aux = _remat(cfg, _unit_fwd, unit, x, positions, plan.unit)
         aux_total = aux_total + aux
     for p, (a, f) in zip(params["tail"], plan.tail):
         x, aux = _layer_fwd(cfg, a, f, p, x, positions)

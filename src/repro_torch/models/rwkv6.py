@@ -21,11 +21,10 @@ import dataclasses
 from typing import Any
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.backend import registry
 from repro_torch.common.tree import tree_map
-from repro_torch.models.lm import _needs_grad, _stack_spec, _unstack, _xent
+from repro_torch.models.lm import _run_layers, _stack_spec, _unstack, _xent
 from repro_torch.nn import layers, ssm
 
 
@@ -82,11 +81,7 @@ def forward(params, cfg: RWKVConfig, tokens: torch.Tensor) -> torch.Tensor:
     """tokens: (B, S) -> hidden (B, S, D) after the final norm."""
     x = layers.embedding(params["embed"], tokens, cfg.compute_dtype)
     x = layers.layernorm(params["ln_in"], x)
-    for p in _unstack(params["body"], cfg.n_layers):
-        if cfg.remat and _needs_grad(p, x):
-            x = checkpoint(_layer_fwd, cfg, p, x, use_reentrant=False)
-        else:
-            x = _layer_fwd(cfg, p, x)
+    x = _run_layers(cfg, _layer_fwd, params["body"], cfg.n_layers, x)
     return layers.layernorm(params["final_norm"], x)
 
 

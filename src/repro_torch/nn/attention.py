@@ -1,7 +1,7 @@
-"""Attention: GQA / MQA, full and sliding-window, and MLA, prefill and
-decode.
+"""Attention: GQA / MQA, full and sliding-window, MLA and cross-attention,
+prefill and decode.
 
-The port of ``repro.nn.attention`` without cross-attention.  Layouts are the
+The port of ``repro.nn.attention``.  Layouts are the
 reference's: q (B, S, H, hd), k / v (B, S, KV, hd), ``wq`` (D, H, hd),
 ``wo`` (H, hd, D), and the finite ``NEG_INF`` mask value.
 
@@ -30,8 +30,16 @@ v, so MLA keeps the plain twins, as windowed layers do); decode keeps the
 compressed ``ckv`` ‖ ``kpe`` cache and attends in the rank-``kv_lora_rank``
 space with ``W_kb`` absorbed into the query.
 
-Cross-attention (``cross_attention``, ``encode_kv``) waits for the
-enc-dec kind (ROADMAP Queue 1 #4 item 3).
+Cross-attention (the enc-dec kind's decoder) attends from the decoder's
+queries, without RoPE, to K/V that ``encode_kv`` projects once from the
+encoder output.  Every key is visible to every query, which is what
+``flash_attention`` computes without its causal mask, so
+``cross_attention`` calls ``flash_mha(..., causal=False)`` for any Sq:
+the target length in training, 1 at each decode step.  The encoder's own
+bidirectional self-attention (``models/encdec.py:encode``) calls it the
+same way.  So the calls that reach the kernel are ``attention`` without a
+window, ``cross_attention`` and the encoder's layers; windowed layers, the
+decode step's self-attention and MLA keep their plain twins.
 """
 
 from __future__ import annotations
@@ -399,3 +407,31 @@ def mla_decode_step(params, cfg: MLAConfig, cache, x_t: torch.Tensor, pos,
     out_c = torch.einsum("bhs,bsr->bhr", probs, c)
     out = torch.einsum("bhr,rhe->bhe", out_c, params["wv_b"].to(compute_dtype))
     return cache, out_project(out, params["wo"].to(compute_dtype))
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (enc-dec, seamless-m4t)
+# ---------------------------------------------------------------------------
+
+
+def cross_attention(params, cfg: AttnConfig, x: torch.Tensor, enc_kv,
+                    compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """x: (B, Sq, D); enc_kv: precomputed {k, v}: (B, Skv, KV, hd).  The
+    reference's unmasked softmax is the ``flash_attn`` kernel without its
+    causal mask (``flash_mha``)."""
+    x = x.to(compute_dtype)
+    q = _heads(x, params["wq"].to(compute_dtype))
+    groups = cfg.n_heads // cfg.n_kv_heads
+    k = _repeat_kv(enc_kv["k"].to(compute_dtype), groups)
+    v = _repeat_kv(enc_kv["v"].to(compute_dtype), groups)
+    out = flash_ops.flash_mha(q, k, v, cfg.scale, causal=False)
+    return out_project(out, params["wo"].to(compute_dtype))
+
+
+def encode_kv(params, cfg: AttnConfig, enc_out: torch.Tensor,
+              compute_dtype=torch.bfloat16):
+    """The encoder output's cross-attention K/V, (B, S, KV, hd) each, no
+    RoPE."""
+    enc_out = enc_out.to(compute_dtype)
+    return {"k": _heads(enc_out, params["wk"].to(compute_dtype)),
+            "v": _heads(enc_out, params["wv"].to(compute_dtype))}

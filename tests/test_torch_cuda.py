@@ -503,6 +503,80 @@ def _to(tree, dev):
     return tree_map(lambda t: t.to(dev), tree)
 
 
+KIND_ARCHS = ("granite-moe-1b-a400m", "deepseek-v3-671b", "rwkv6-7b", "recurrentgemma-9b",
+              "internvl2-26b", "seamless-m4t-large-v2")
+
+
+def _kind_cfg_and_batch(arch, gen):
+    """The arch's smoke config at f32 compute and f32 parameters, remat on,
+    and one batch of its kind: tokens (2, 32) (after 16 patch embeddings
+    for the VLM), or (2, 48) frames and (2, 32) targets for the enc-dec
+    kind."""
+    import dataclasses
+
+    cfg = arch.make_smoke()
+    f32 = dict(compute_dtype=torch.float32, param_dtype=torch.float32, remat=True)
+    if arch.kind == "vlm":
+        cfg = dataclasses.replace(cfg, lm=dataclasses.replace(cfg.lm, **f32))
+        vocab, d = cfg.lm.vocab, cfg.lm.d_model
+    else:
+        cfg = dataclasses.replace(cfg, **f32)
+        vocab, d = cfg.vocab, cfg.d_model
+    ids = lambda: torch.randint(0, vocab, (2, 32), generator=gen)  # noqa: E731
+    if arch.kind == "encdec":
+        return cfg, {"frames": torch.randn(2, 48, d, generator=gen), "tgt_tokens": ids(),
+                     "tgt_targets": ids()}
+    batch = {"tokens": ids(), "targets": ids()}
+    if arch.kind == "vlm":
+        batch["patch_embeds"] = torch.randn(2, cfg.n_img_tokens, d, generator=gen)
+    return cfg, batch
+
+
+@pytest.mark.parametrize("arch_id", KIND_ARCHS)
+def test_kind_loss_and_grads_on_the_card(arch_id):
+    """Every other kind's ``configs.base.loss_fn`` at its smoke width, f32
+    compute and remat on, with the bounds of
+    ``test_lm_loss_and_grads_on_the_card``: the MoE aux (granite-moe), MLA
+    and the MTP head (deepseek-v3, its bf16 parameters drawn in f32: a bf16
+    leaf's gradient rounds an f32 sum, and a last-bit difference between
+    the devices moves it a bf16 step, past 1e-4 of the leaf's max), the
+    recurrent kinds, the VLM and the enc-dec kind.  The card launches
+    flash_attn once for each ``flash_mha`` call the same loss makes on the
+    CPU (the forward and remat's recompute; MLA, windowed and recurrent
+    layers make none)."""
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs import base as cbase
+    from repro_torch.nn import init as nninit
+    from repro_torch.train import optimizer as opt
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    arch = ARCHS[arch_id]
+    cpu_gen = torch.Generator().manual_seed(5 + KIND_ARCHS.index(arch_id))
+    cfg, batch = _kind_cfg_and_batch(arch, cpu_gen)
+    params = nninit.materialize(cbase.model_spec(arch, cfg), cpu_gen)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        before = registry.LAUNCHES["flash_attn"]
+        with registry.record_kernels() as calls:
+            out[dev] = opt.value_and_grad(cbase.loss_fn(arch, cfg))(_to(params, dev),
+                                                                     _to(batch, dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert registry.LAUNCHES["flash_attn"] - before == want_launches
+        else:
+            want_launches = sum(1 for k, _ in calls if k == "flash_attn")
+    if arch.kind in ("lm", "vlm", "encdec") and arch_id != "deepseek-v3-671b":
+        assert want_launches > 0
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    assert abs(float(lg) - float(lc)) <= 1e-5 * abs(float(lc))
+    for a, w in zip(tree_leaves(gg), tree_leaves(gc), strict=True):
+        assert (a is None) == (w is None)
+        if w is not None:
+            torch.testing.assert_close(a.cpu(), w, rtol=0, atol=1e-4 * float(w.abs().max()))
+
+
 # -- circ_dict -----------------------------------------------------------------
 
 

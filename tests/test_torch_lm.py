@@ -81,12 +81,12 @@ def _tokens(vocab: int, b: int, s: int, seed: int) -> np.ndarray:
 
 
 def test_registry_and_unported_archs():
-    """The ``lm`` archs field for field; the recurrent and vlm archs are
-    registered (held in ``test_torch_{rwkv,griffin,vlm}.py``); the enc-dec
-    arch alone still raises, naming Queue 1 #4 item 3."""
-    assert sorted(ARCHS) == sorted(DENSE_ARCHS + MOE_ARCHS + (
-        "rwkv6-7b", "recurrentgemma-9b", "internvl2-26b"))
-    assert set(JARCHS) - set(ARCHS) == {"seamless-m4t-large-v2"}
+    """Every reference arch is registered: the ``lm`` archs held field for
+    field here, the recurrent and vlm archs in
+    ``test_torch_{rwkv,griffin,vlm}.py``, and the enc-dec arch field for
+    field (its model in ``test_torch_encdec.py``).  An unknown id raises."""
+    assert sorted(ARCHS) == sorted(JARCHS) == sorted(DENSE_ARCHS + MOE_ARCHS + (
+        "rwkv6-7b", "recurrentgemma-9b", "internvl2-26b", "seamless-m4t-large-v2"))
     for arch_id in DENSE_ARCHS + MOE_ARCHS:
         arch, jarch = get_arch(arch_id), JARCHS[arch_id]
         assert (arch.family, arch.kind, arch.source, arch.note) == \
@@ -102,31 +102,42 @@ def test_registry_and_unported_archs():
                 if mine is not None:
                     assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
             assert str(c.param_dtype).split(".")[-1] == jnp.dtype(jc.param_dtype).name
-    for arch_id in sorted(set(JARCHS) - set(ARCHS)):
-        with pytest.raises(KeyError, match="Queue 1 #4"):
-            get_arch(arch_id)
+    arch, jarch = get_arch("seamless-m4t-large-v2"), JARCHS["seamless-m4t-large-v2"]
+    assert (arch.family, arch.kind, arch.source, arch.note) == \
+        (jarch.family, jarch.kind, jarch.source, jarch.note)
+    for make in ("make_full", "make_smoke"):
+        jc, c = getattr(jarch, make)(), getattr(arch, make)()
+        for f in dataclasses.fields(c):   # the reference's without scan_unroll
+            mine, theirs = getattr(c, f.name), getattr(jc, f.name)
+            if f.name.endswith("dtype"):
+                assert str(mine).split(".")[-1] == jnp.dtype(theirs).name
+            else:
+                assert mine == theirs, f.name
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("gpt-2")
 
 
 def test_unported_kinds_and_options_raise():
-    """The enc-dec kind still raises, naming Queue 1 #4 item 3; the
-    recurrent and vlm kinds are ported, and ``serve_fns`` refuses the vlm
-    kind as the reference's does (it needs patch embeddings); an unknown
-    attention kind is refused."""
+    """Every kind resolves: ``model_spec`` takes the enc-dec kind, and
+    ``serve_fns`` / ``lm_engine`` refuse the vlm and enc-dec kinds as the
+    reference's do (they need patch embeddings / encoder frames); the
+    recurrent kinds serve with stateful prefill; an unknown attention kind
+    and an unknown model kind are refused."""
     arch = ARCHS["llama3.2-3b"]
     cfg = arch.make_smoke()
-    with pytest.raises(NotImplementedError, match="Queue 1 #4 item 3"):
-        cbase.model_spec(dataclasses.replace(arch, kind="encdec"), cfg)
+    seamless = ARCHS["seamless-m4t-large-v2"]
+    spec = cbase.model_spec(seamless, seamless.make_smoke())
+    assert set(spec) == {"embed", "enc", "dec", "enc_norm", "dec_norm"}
+    with pytest.raises(ValueError, match="linear"):
+        cbase.model_spec(dataclasses.replace(arch, kind="linear"), cfg)
     with pytest.raises(ValueError, match="unknown attn_kind"):
         lm.lm_spec(dataclasses.replace(cfg, attn_kind="linear"))
-    with pytest.raises(KeyError, match="Queue 1 #4 item 3"):
-        cbase.lm_engine("seamless-m4t-large-v2", device="cpu")
-    vlm_arch = ARCHS["internvl2-26b"]
-    with pytest.raises(NotImplementedError, match="non-token inputs"):
-        cbase.serve_fns(vlm_arch, vlm_arch.make_smoke(), max_len=32)
-    with pytest.raises(NotImplementedError, match="non-token inputs"):
-        cbase.lm_engine("internvl2-26b", device="cpu")
+    for arch_id in ("internvl2-26b", "seamless-m4t-large-v2"):
+        other = ARCHS[arch_id]
+        with pytest.raises(NotImplementedError, match="non-token inputs"):
+            cbase.serve_fns(other, other.make_smoke(), max_len=32)
+        with pytest.raises(NotImplementedError, match="non-token inputs"):
+            cbase.lm_engine(arch_id, device="cpu")
     for arch_id in ("rwkv6-7b", "recurrentgemma-9b"):
         eng, _ = cbase.lm_engine(arch_id, device="cpu")
         assert eng.cfg.stateful_prefill

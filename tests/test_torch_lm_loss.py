@@ -93,15 +93,22 @@ def test_dense_loss_and_grads_match_reference(arch_id):
 
 
 def test_loss_fn_kinds_and_encdec():
-    """``loss_fn`` resolves every ported kind; the enc-dec kind raises,
-    naming its ROADMAP item."""
-    assert {a.kind for a in ARCHS.values()} == {"lm", "rwkv", "griffin", "vlm"}
+    """``loss_fn`` resolves every kind, the enc-dec one included (its
+    parity with the reference in ``test_torch_encdec_train.py``); an
+    unknown kind raises."""
+    assert {a.kind for a in ARCHS.values()} == {"lm", "rwkv", "griffin", "vlm", "encdec"}
     for arch in ARCHS.values():
         assert callable(cbase.loss_fn(arch, arch.make_smoke()))
-    encdec = cbase.ArchSpec(id="seamless-m4t-large-v2", family="audio", kind="encdec",
-                            make_full=None, make_smoke=None)
-    with pytest.raises(NotImplementedError, match=r"Queue 1 #4 item 3"):
-        cbase.loss_fn(encdec, None)
+    seamless = ARCHS["seamless-m4t-large-v2"]
+    cfg = seamless.make_smoke()
+    params = nninit.materialize(cbase.model_spec(seamless, cfg),
+                                torch.Generator().manual_seed(0))
+    batch = {"frames": torch.zeros(1, 6, cfg.d_model),
+             "tgt_tokens": torch.zeros(1, 4, dtype=torch.long),
+             "tgt_targets": torch.zeros(1, 4, dtype=torch.long)}
+    assert torch.isfinite(cbase.loss_fn(seamless, cfg)(params, batch))
+    with pytest.raises(ValueError, match="linear"):
+        cbase.loss_fn(dataclasses.replace(seamless, kind="linear"), cfg)
 
 
 # -- flash_mha under grad ---------------------------------------------------------
