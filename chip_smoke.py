@@ -119,6 +119,25 @@ and prints no result line):
    of the CPU; ``flash_mha``'s gradient (kernel forward, plain-chain
    backward) within 1e-4 of each input's max |grad| of the CPU's, and it
    taking a transposed view bit for bit as its contiguous copy.
+9a. Analyze: ``repro_torch.analyze``'s full tier on the card (its
+   launches under ``launches_by_path["analyze"]``).  Every
+   ``REASON_WORKLOADS`` model x variant at d = 256 (so circ_conv lies on
+   the nvsa, lvrf and mimonet schedules) over buckets 1, 2, 4 and 8, and
+   nvsa cnn at int8 ``nn_precision`` (qmatmul on its frontend), compiled
+   for the card and checked on ``meta``: precision flow, host syncs,
+   bucket closure and batch-axis invariance, double-trace determinism,
+   the registry's static checks, dispatch floors and the lint over
+   ``src/repro_torch``.  Then the kernel probes of all six kernels on the
+   card (``analyze.registry_check.run_probes``): each wrapper at d in (5,
+   12, 33, 8, 32, 128, 256) (flash_attn: head dims 64 / 128 / 256 at 77
+   tokens, causal and not, f32 and bf16) against its plain version and
+   its gather lowering within the registry's epsilon, and at one size its
+   wrapper refuses, which must raise naming it, with a direct launch of
+   the C entry point there that must not conform.  One
+   ``analyze_probe`` row per kernel (sizes probed and refused, max |err|
+   against the plain version and the gather lowering, the epsilon), then
+   the report's coverage, findings and seconds; ``report.ok`` must hold.
+   Phases 6 and 11 deploy through the default ``preflight="error"`` gate.
 9b. Train: NSAI training on the card at the published widths (after the
    ops phase; its launches under ``launches_by_path["train"]``).  First
    step, card against CPU from one seeded init and one batch:
@@ -1578,9 +1597,13 @@ def phase_deploy() -> tuple:
     registry.reset_launches()
     t0 = time.perf_counter()
     dep = deploy(list(DEPLOY_MODELS), Traffic(deadline_s=0.02),
-                 Budget(max_pes=4096, max_batch=8), options={"nvsa": {"d": 256}},
-                 preflight="off")
+                 Budget(max_pes=4096, max_batch=8), options={"nvsa": {"d": 256}})
     deploy_s = time.perf_counter() - t0
+    analysis = dep.report()["analysis"]
+    emit({"phase": "deploy_preflight", "ok": analysis["ok"],
+          "coverage": analysis["coverage"], "findings": analysis["findings"]})
+    check(analysis["ok"] and analysis["coverage"]["schedules"] == len(DEPLOY_MODELS),
+          f"deploy preflight: {analysis}")
     for m, eng in dep.engines.items():
         sched = eng.schedules[dep.variants[m]]
         design = dep.designs[m].summary()
@@ -2043,6 +2066,60 @@ def ops_gradients(gen, launched) -> None:
     emit({"phase": "ops", "entry": "flash_mha, (B, H, S, hd) transposed",
           "shape": [b, sq, sq, h, hd], "dtype": "float32", "launches": 2,
           "bit_identical_to_contiguous": True})
+
+
+# -- phase 9a: analyze ---------------------------------------------------------
+
+# block dim and buckets of the schedules the analyze phase compiles
+ANALYZE_D = 256
+ANALYZE_BUCKETS = (1, 2, 4, 8)
+
+
+def phase_analyze(dev: str = "cuda") -> dict[str, int]:
+    """``repro_torch.analyze``'s full tier on the card: every reasoner x
+    variant at ``ANALYZE_D`` over ``ANALYZE_BUCKETS`` and nvsa cnn at int8
+    (qmatmul on the frontend), double trace on, then the probes of all six
+    kernels on ``dev``.  Returns the path's launch counts (the probes')."""
+    from repro_torch.analyze import registry_check
+    from repro_torch.analyze.preflight import preflight, reason_subjects
+    from repro_torch.backend import registry
+    from repro_torch.configs import base as cb
+
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    subjects = reason_subjects(cb.REASON_WORKLOADS, ANALYZE_D, ANALYZE_BUCKETS, dev)
+    entry = cb.REASON_WORKLOADS["nvsa"]
+    cfg = entry.make_config(d=ANALYZE_D, nn_precision="int8")
+    subjects.append((cb.compile_reason_schedule("nvsa", cfg, "cnn",
+                                                batch_size=ANALYZE_BUCKETS, device=dev),
+                     cfg, entry, "cnn"))
+    t1 = time.perf_counter()
+    report = preflight(subjects, lint_root=str(ROOT / "src" / "repro_torch"),
+                       double_trace=True, device=dev)
+    t2 = time.perf_counter()
+    check(registry.LAUNCHES == dict.fromkeys(registry.KERNELS, 0),
+          f"the checks on meta launched kernels: {registry.LAUNCHES}")
+    probes, rows = registry_check.run_probes(dev)
+    report.merge(probes)
+    t3 = time.perf_counter()
+    counts = dict(registry.LAUNCHES)
+    for row in rows:
+        emit({"phase": "analyze_probe", **row.record(), "card": CARD})
+    emit({"phase": "analyze", "ok": report.ok, "errors": len(report.errors),
+          "warnings": len(report.warnings), "coverage": report.coverage,
+          "findings": [f.render() for f in report.findings],
+          "seconds": {"compile": t1 - t0, "checks": t2 - t1, "probes": t3 - t2,
+                      "total": t3 - t0},
+          "launches": counts, "card": CARD})
+    check(report.ok, "analyze: " + report.render())
+    check(report.coverage["schedules"] == len(subjects),
+          f"analyze: {report.coverage['schedules']} schedules of {len(subjects)}")
+    for row in rows:
+        check(row.probed > row.refused >= 1 and counts[row.kernel] > 0,
+              f"analyze: {row.record()} with {counts[row.kernel]} launches")
+        check(row.max_err_plain is not None and row.max_err_plain <= row.epsilon,
+              f"analyze: {row.record()}")
+    return counts
 
 
 # -- phase 9b: NSAI training ----------------------------------------------------
@@ -3991,8 +4068,9 @@ def door_deploy_trace(models) -> dict[str, int]:
     from repro_torch.serve.deploy import deploy
 
     t0 = time.perf_counter()
-    dep = deploy(list(models), preflight="off")
+    dep = deploy(list(models))
     deploy_s = time.perf_counter() - t0
+    check(dep.report()["analysis"]["ok"], f"deploy preflight: {dep.summary()}")
     dep.warmup()
     lms = [m for m in models if m != "nvsa"]
     check(dep.classes == {"nvsa": "reason", **{m: "lm" for m in lms}},
@@ -4193,6 +4271,7 @@ def main() -> int:
     paths["replica"] = phase_replica()
     paths["trace"] = phase_trace(dep)
     paths["ops"] = phase_ops()
+    paths["analyze"] = phase_analyze()
     paths["train"] = phase_train()
     paths["lm"] = phase_lm()
     paths["train_lm"] = phase_train_lm()

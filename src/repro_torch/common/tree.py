@@ -20,3 +20,21 @@ def tree_leaves(tree) -> list[Any]:
     out: list[Any] = []
     tree_map(out.append, tree)
     return out
+
+
+def tree_flatten_with_path(tree, path: tuple = ()) -> list[tuple[tuple, Any]]:
+    """``(path, leaf)`` pairs in tree order; a path holds the dict keys and
+    sequence indices from the root (``jax.tree_util.tree_flatten_with_path``
+    without the treedef)."""
+    if isinstance(tree, dict):
+        return [pl for k, v in tree.items()
+                for pl in tree_flatten_with_path(v, path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [pl for i, v in enumerate(tree)
+                for pl in tree_flatten_with_path(v, path + (i,))]
+    return [(path, tree)]
+
+
+def keystr(path: tuple) -> str:
+    """A path as ``jax.tree_util.keystr`` renders it: ``[0]['x']``."""
+    return "".join(f"[{k!r}]" for k in path)

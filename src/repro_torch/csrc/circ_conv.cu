@@ -316,7 +316,12 @@ cudaError_t launch(Args a, int corr, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
+    if (err != cudaSuccess) {
+      // a failed runtime call is also this runtime's last error: consume it, or
+      // the next launch's cudaGetLastError() would report it as its own
+      cudaGetLastError();
+      return err;
+    }
   }
   kernel<<<static_cast<unsigned int>(blocks), per_block * unit_threads, smem, stream>>>(a);
   return cudaGetLastError();

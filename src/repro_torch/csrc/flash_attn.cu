@@ -604,7 +604,12 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, int 
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
+    if (err != cudaSuccess) {
+      // a failed runtime call is also this runtime's last error: consume it, or
+      // the next launch's cudaGetLastError() would report it as its own
+      cudaGetLastError();
+      return err;
+    }
   }
   // one block per (query tile, b·H + h), the tile index major, so that the
   // longest causal tiles of every head are scheduled first

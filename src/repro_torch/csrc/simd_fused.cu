@@ -444,7 +444,12 @@ cudaError_t launch(const void* q, const void* dict, float* out, int n, int m, in
   cudaError_t err = cudaFuncSetAttribute(match_prob_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(g.smem));
-  if (err != cudaSuccess) return err;
+  // a failed runtime call is also this runtime's last error: consume it, or
+  // the next launch's cudaGetLastError() would report it as its own
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return err;
+  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned int>((n + TQ - 1) / TQ),
                      static_cast<unsigned int>(splits), 1);
@@ -459,7 +464,10 @@ cudaError_t launch(const void* q, const void* dict, float* out, int n, int m, in
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, match_prob_kernel<T>, a);
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return err;
+  }
   return cudaGetLastError();
 }
 

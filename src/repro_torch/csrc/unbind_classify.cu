@@ -304,7 +304,12 @@ extern "C" int unbind_classify_launch(const void* keys, const void* x, const voi
     cudaError_t err = cudaFuncSetAttribute(unbind_classify_kernel,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (err != cudaSuccess) {
+      // a failed runtime call is also this runtime's last error: consume it, or
+      // the next launch's cudaGetLastError() would report it as its own
+      cudaGetLastError();
+      return static_cast<int>(err);
+    }
   }
   const long long rows = n * n_keys;
   unbind_classify_kernel<<<static_cast<unsigned int>(rows), threads, smem,

@@ -82,7 +82,7 @@ def _launch(x_q, w_q, x_scale, w_scale, int4: bool) -> torch.Tensor:
     if not (x_q.is_contiguous() and w_q.is_contiguous() and x_scale.is_contiguous()
             and w_scale.is_contiguous()):
         raise ValueError("qmatmul needs contiguous operands")
-    if m >= 65535 * _BLOCK_M or n >= 2 ** 31 or k >= 2 ** 31:
+    if m > 65535 * _BLOCK_M or n >= 2 ** 31 or k >= 2 ** 31:
         raise ValueError(f"({m}, {k}, {n}) exceeds the kernel's grid")
     out = x_q.new_empty((m, n), dtype=torch.float32)
     if m == 0 or n == 0:

@@ -36,20 +36,26 @@ The result is a :class:`Deployment`: one
 budget sets ``slo_ms`` or ``queue_depth``.  ``Deployment.backend`` is
 ``registry.negotiate(device)``, the record of what the device selects per
 kernel; ``Deployment.report()`` keeps the reference's keys and records
-None where the port has no counterpart yet (the mesh point, the preflight
-analysis).  A ``Deployment`` whose engine is a
+None where the port has no counterpart yet (the mesh point).  A
+``Deployment`` whose engine is a
 :class:`~repro_torch.serve.replica.ReplicaPool` (built by hand with
 ``configs.base.reason_engine_pool``) reports and warms it as the
 reference does.
+
+``preflight`` gates the deployment as in the reference: ``"error"`` (the
+default) runs the cheap tier of ``repro_torch.analyze`` over the reason
+models' schedules (for a pool, its first replica's) and raises
+``PreflightError`` when an error-severity finding survives; ``"warn"``
+records the failing report and carries on; ``"off"`` skips it.  The
+report lands in ``Deployment.report()["analysis"]``.
 
 What the port does not have yet raises ``NotImplementedError`` naming its
 ROADMAP item, and is never ignored: a ``Budget`` with ``devices``,
 ``replicas`` or ``tp`` above 1 (deploy's replica count comes from the mesh
 co-search, Queue 1 #3d and #6; LM replica pools and tensor-parallel
-decode, #4 item 4), ``preflight=`` other than ``"off"`` (the analyzer,
-#7).  ``backend=`` other than None raises too, by design (#3e): the
-device selects each kernel, and no plan may send a CUDA tensor to a plain
-version.
+decode, #4 item 4).  ``backend=`` other than None raises too, by design
+(#3e): the device selects each kernel, and no plan may send a CUDA tensor
+to a plain version.
 """
 
 from __future__ import annotations
@@ -109,7 +115,7 @@ class Budget:
     shed_policy: str = "lowest-priority"
 
 
-def _refuse_unported(budget: Budget, backend, preflight: str) -> None:
+def _refuse_unported(budget: Budget, backend) -> None:
     """Raise for every option whose layer the port does not have yet."""
     if budget.replicas == "auto" or any(
             v is not None and v > 1
@@ -126,10 +132,6 @@ def _refuse_unported(budget: Budget, backend, preflight: str) -> None:
             f"backend={backend!r}: the port takes no lowering override "
             "(ROADMAP Queue 1 #3e, by design): the tensor's device selects "
             "each kernel; pass device='cpu' for the plain versions")
-    if preflight != "off":
-        raise NotImplementedError(
-            f"preflight={preflight!r}: the port has no analyzer yet "
-            "(ROADMAP Queue 1 #7); pass preflight='off'")
 
 
 @dataclasses.dataclass
@@ -141,9 +143,11 @@ class Deployment:
     serving plan of NSAI models (None for LM models), ``configs`` the
     model configs (an arch's smoke config for LM models), ``variants``
     the served variant, ``seed`` the seed the constants were drawn from, ``backend`` the
-    device's :class:`~repro_torch.backend.registry.LoweringPlan` and
+    device's :class:`~repro_torch.backend.registry.LoweringPlan`,
     ``options`` the per-model options ``deploy()`` was called with (a
-    golden trace re-deploys from them)."""
+    golden trace re-deploys from them) and ``analysis`` the preflight
+    :class:`~repro_torch.analyze.findings.AnalysisReport` (None when
+    ``preflight="off"`` or for a hand-built Deployment)."""
 
     engines: dict[str, Any]
     door: FrontDoor
@@ -158,6 +162,7 @@ class Deployment:
     controller: OverloadController | None = None
     backend: registry.LoweringPlan | None = None
     options: dict = dataclasses.field(default_factory=dict)
+    analysis: Any = None
 
     def _pool(self, m: str):
         """The model's ReplicaPool, or None when served by a bare engine."""
@@ -233,7 +238,8 @@ class Deployment:
                 "replicas": len(pool) if pool is not None else 1,
                 "per_replica": pool.per_replica() if pool is not None else None,
             }
-        out["analysis"] = None
+        out["analysis"] = (self.analysis.to_dict()
+                           if self.analysis is not None else None)
         ctl = self.controller
         out["control"] = None if ctl is None else {
             "slo_ms": {p: t.total_p99_ms for p, t in ctl.targets.items()},
@@ -268,6 +274,11 @@ class Deployment:
                     f"r{r['replica']}:{r['groups']}g/{r['requests']}req"
                     f"/{r['share']:.0%}" for r in rec["per_replica"])
                 lines.append(f"  {m} replicas: {split}")
+        if self.analysis is not None:
+            verdict = "PASS" if self.analysis.ok else "FAIL"
+            lines.append(f"preflight {verdict}: "
+                         f"{len(self.analysis.errors)} error(s), "
+                         f"{len(self.analysis.warnings)} warning(s)")
         if self.controller is not None:
             ctl = self.controller
             slos = " ".join(f"{p}<= {t.total_p99_ms:.0f}ms"
@@ -350,7 +361,7 @@ class Deployment:
 def deploy(workloads: Iterable[str], traffic: Traffic | None = None,
            budget: Budget | None = None, *, seed: int = 0,
            options: Mapping[str, Mapping[str, Any]] | None = None,
-           backend=None, preflight: str = "off", device=None,
+           backend=None, preflight: str = "error", device=None,
            clock: Callable[[], float] = time.perf_counter,
            sleep: Callable[[float], None] = time.sleep) -> Deployment:
     """Deploy a mixed set of workloads behind one front-door on one device.
@@ -363,7 +374,8 @@ def deploy(workloads: Iterable[str], traffic: Traffic | None = None,
     ``ServeConfig`` field overrides to an LM model.  The NSAI serving
     configuration is derived, not hand-set (see the module docstring).
     ``device``: None means ``"cuda"`` (raises without CUDA); ``"cpu"``
-    serves on the plain versions."""
+    serves on the plain versions.  ``preflight``: ``"error"`` (default),
+    ``"warn"`` or ``"off"`` (see the module docstring)."""
     from repro_torch.configs import base as cbase
     from repro_torch.core import dse
     from repro_torch.serve import runtime as rt
@@ -380,7 +392,7 @@ def deploy(workloads: Iterable[str], traffic: Traffic | None = None,
     if preflight not in ("error", "warn", "off"):
         raise ValueError(f"preflight must be 'error', 'warn' or 'off', "
                          f"got {preflight!r}")
-    _refuse_unported(budget, backend, preflight)
+    _refuse_unported(budget, backend)
     dev = registry.resolve_device(device)
     lowering_plan = registry.negotiate(dev)
 
@@ -451,10 +463,23 @@ def deploy(workloads: Iterable[str], traffic: Traffic | None = None,
                      FrontDoorConfig(deadline_s=traffic.deadline_s,
                                      poll_s=traffic.poll_s),
                      clock=clock, sleep=sleep, controller=controller)
-    return Deployment(engines=engines, door=door,
-                      classes=classes,
-                      designs=designs, plans=plans, configs=configs,
-                      variants=variants, traffic=traffic, budget=budget,
-                      seed=seed, controller=controller, backend=lowering_plan,
-                      options={m: dict(options.get(m, {})) for m in models
-                               if options.get(m)})
+    dep = Deployment(engines=engines, door=door, classes=classes,
+                     designs=designs, plans=plans, configs=configs,
+                     variants=variants, traffic=traffic, budget=budget,
+                     seed=seed, controller=controller, backend=lowering_plan,
+                     options={m: dict(options.get(m, {})) for m in models
+                              if options.get(m)})
+    # the preflight gate: the cheap tier over the schedules the engines
+    # serve (a pool's first replica's; on meta, so nothing launches), the
+    # memoized serving lint and the static registry checks
+    if preflight != "off":
+        from repro_torch.analyze.findings import PreflightError
+        from repro_torch.analyze.preflight import preflight as run_preflight
+
+        dep.analysis = run_preflight(
+            [(dep._base(m).schedules[variants[m]], configs[m],
+              cbase.REASON_WORKLOADS[m], variants[m])
+             for m in models if classes[m] == "reason"])
+        if preflight == "error" and not dep.analysis.ok:
+            raise PreflightError(dep.analysis)
+    return dep

@@ -316,8 +316,7 @@ class GoldenTrace:
         spec = self.header["deploy"]
         return deploy(spec["workloads"], Traffic(**spec["traffic"]),
                       _port_budget(spec["budget"]), seed=spec["seed"],
-                      options=spec["options"], preflight="off",
-                      device=device)
+                      options=spec["options"], device=device)
 
     def replay(self, backend: registry.LoweringPlan | None = None,
                deployment=None) -> ReplayReport:

@@ -942,3 +942,34 @@ def test_moe_forward_on_the_card(gen, arch_id):
     caches = lm.init_caches(cfg, 2, 8, device="cuda")
     _, logits = lm.decode_step(card, cfg, caches, toks[:, 0].cuda(), 0)
     assert bool(logits.isfinite().all())
+
+
+def test_analyzer_probes_on_the_card(gen):
+    """``repro_torch.analyze``'s probes of all six kernels on the card:
+    each within its registry epsilon of its plain version (and of the
+    gather lowering where one exists) at d in (5, 12, 33, 8, 32, 128, 256)
+    (flash_attn at head dims 64 / 128 / 256), each refused size raising
+    with its size named and refused by a direct launch too."""
+    from repro_torch.analyze import registry_check
+
+    report, rows = registry_check.run_probes("cuda")
+    assert report.ok and report.findings == [], report.render()
+    for row in rows:
+        assert row.probed > row.refused == 1, row.record()
+        assert row.max_err_plain <= row.epsilon, row.record()
+    assert report.coverage["kernel_probes_refused"] == len(registry.KERNELS)
+
+
+def test_deploy_through_the_preflight_gate_on_the_card(gen):
+    """``deploy(["nvsa"])`` on the card through the default
+    ``preflight="error"`` gate: the cheap tier runs on ``meta`` and
+    launches nothing, and the report is recorded as passing."""
+    from repro_torch.serve.deploy import Budget, deploy
+
+    registry.reset_launches()
+    dep = deploy(["nvsa"], options={"nvsa": {"d": 256}},
+                 budget=Budget(max_batch=2), device="cuda")
+    assert registry.LAUNCHES == dict.fromkeys(registry.KERNELS, 0)
+    rec = dep.report()["analysis"]
+    assert rec["ok"] and rec["coverage"]["schedules"] == 1, rec
+    assert "preflight PASS" in dep.summary()

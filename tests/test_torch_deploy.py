@@ -64,7 +64,7 @@ class VirtualClock:
 def _deploy(mod, call, **kw):
     traffic, budget, options = CALLS[call]
     return mod.deploy(MODELS, mod.Traffic(**traffic), mod.Budget(**budget),
-                      options=options, preflight="off", **kw)
+                      options=options, **kw)
 
 
 _PAIRS: dict = {}
@@ -132,9 +132,15 @@ def test_report_keeps_the_reference_keys(pair):
         assert set(got[m]["backend"]["lowerings"]) == set(p_registry.KERNELS)
         assert got[m]["mesh"] is None
         assert got[m]["replicas"] == 1 and got[m]["per_replica"] is None
-    assert got["analysis"] is None and got["control"] is None
+    # both packages ran their default preflight gate over the same models
+    assert set(got["analysis"]) == set(want["analysis"])
+    assert got["analysis"]["ok"] and want["analysis"]["ok"]
+    assert got["analysis"]["coverage"]["schedules"] == \
+        want["analysis"]["coverage"]["schedules"] == len(MODELS)
+    assert got["control"] is None
     assert "dse=8x32x" in port.summary()
     assert "backend=cpu/torch" in port.summary()
+    assert "preflight PASS: 0 error(s), 0 warning(s)" in port.summary()
 
 
 def test_synthetic_traffic_equals_the_reference(pair):
@@ -185,7 +191,7 @@ def test_controller_attaches_as_in_the_reference():
     budget = {"max_pes": 4096, "max_batch": 8, "slo_ms": 50.0,
               "queue_depth": 16}
     reps = [mod.deploy(["mimonet"], budget=mod.Budget(**budget),
-                       preflight="off", **kw).report()["control"]
+                       **kw).report()["control"]
             for mod, kw in ((r_deploy_mod, {}), (p_deploy_mod, {"device": "cpu"}))]
     assert reps[0] == reps[1] and reps[1]["queue_depth"] == 16
 
@@ -202,9 +208,10 @@ def test_unported_budgets_raise(budget, match):
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="#3e"):
         p_deploy_mod.deploy(["nvsa"], backend="xla", device="cpu")
+    # the analyzer is ported: both gates deploy and record a passing report
     for preflight in ("error", "warn"):
-        with pytest.raises(NotImplementedError, match="#7"):
-            p_deploy_mod.deploy(["nvsa"], preflight=preflight, device="cpu")
+        dep = p_deploy_mod.deploy(["nvsa"], preflight=preflight, device="cpu")
+        assert dep.report()["analysis"]["ok"]
     # the recurrent LMs deploy, with exact-length prefill (served beside
     # nvsa in tests/test_torch_engine.py); the vlm and enc-dec archs are not
     # servable, as in the reference

@@ -82,7 +82,7 @@ def f32_lm():
 def _deploy(mod, **kw):
     clock = VirtualClock()
     return mod.deploy(MODELS, mod.Traffic(**TRAFFIC), mod.Budget(**BUDGET),
-                      seed=3, options=OPTIONS, preflight="off", clock=clock,
+                      seed=3, options=OPTIONS, clock=clock,
                       sleep=clock.sleep, **kw)
 
 

@@ -367,7 +367,7 @@ def test_rwkv_beside_nvsa_through_deploy_and_trace(tmp_path, monkeypatch):
                           p_deploy.Traffic(rate_rps=50.0, deadline_s=0.01),
                           p_deploy.Budget(**budget), seed=3,
                           options={"nvsa": {"variant": "oracle", "d": 128}},
-                          preflight="off", clock=lambda: t[0], sleep=sleep,
+                          clock=lambda: t[0], sleep=sleep,
                           device="cpu")
     assert dep.classes == {"nvsa": "reason", arch_id: "lm"}
     assert dep.engines[arch_id].cfg.stateful_prefill
