@@ -171,7 +171,7 @@ and prints no result line):
    gemma3's global layer at head dim 256 below) is held against
    ``flash_attention_ref`` on its own inputs and output, and the same
    shapes on random inputs with k / v drawn as 8 heads and repeated, both
-   within 1e-3 + one bf16 step.  Its slot-pool ``Engine`` on its first 14
+   within 1e-3 + one bf16 step.  Its slot-pool ``Engine`` on its first 7
    layers (``LM_ENGINE_LAYERS``: each engine row of an arch run at full
    depth serves a cut depth, for the script's time) (``serve_fns``, ``ServeConfig(max_slots=8, max_len=512,
    max_new_tokens=32, decode_block=8, prefill_bucket=16)``) serving 16
@@ -204,7 +204,7 @@ and prints no result line):
    none on MLA; the first MoE layer's routing of 2048 tokens on the card
    against the CPU (experts outside router near ties, queue positions and
    kept pairs exact) and its gather path against the one-hot oracle; then
-   the slot-pool engine (granite at 12 of its 24 layers, 8 slots of 512,
+   the slot-pool engine (granite at 6 of its 24 layers, 8 slots of 512,
    greedy and sampled;
    deepseek 4 of 256) on a dropless capacity (``dropless``), its greedy
    tokens the argmax of ``decode_step`` scanned as the engine runs it
@@ -307,6 +307,29 @@ and prints no result line):
    only, since the LM engine admits prompts through ``decode_step`` token
    by token, as the reference's does (the decode check's forwards launch
    flash_attn, uncounted).
+11b. TP: distribution on the serving path (``launches_by_path["tp"]``,
+   summed over the ranks).  llama3.2-3b at its published width and depth
+   served tensor-parallel by a world of two ranks on the one card
+   (``devices=("cuda:0", "cuda:0")``, gloo, ``distributed.world``), each
+   drawing the seeded parameters and keeping its cut: a (1, 2048) bf16
+   forward, 28 flash_attn launches on each rank at (1, 2048, 12, 128), the
+   same logits on both ranks and within 3e-2 of the single-device
+   forward's scale (the single device run in rank 0's process, after the
+   world, counted apart); the engine serving 4 prompts of 16-32 tokens,
+   16 new tokens, 4 slots, twice, its tokens the single-device engine's
+   outside near ties of the forward.  granite-moe-1b-a400m at its
+   published width and depth, dropless, at tp 2: its vocab of 49155 does
+   not divide, so its embedding is cut along the embed dim; a (1, 2048)
+   forward with each MoE layer's experts forced to the single-device
+   forward's, within the same bound, 24 flash_attn launches on each rank
+   at (1, 2048, 8, 64).  Then ``deploy(["nvsa", "llama3.2-3b"],
+   Budget(devices=2, replicas="auto", tp=2))`` on the card: the mesh
+   co-search gives nvsa 2 replicas and the LM (smoke scale) a world of
+   two ranks, 8 requests a model served through the door, circ_conv
+   launched.  Rows: ms a forward and a decode step, tensor-parallel and
+   single-device; each collective's count and host ms (a timed forward,
+   the device synchronised around each collective); each rank's peak
+   bytes; the mesh records.
 12. The ``kernels`` JSON line: every ported kernel with its launches on the
    paths (each path's counts set to 0 just before it runs and read just
    after) and its times at its path's shape, its bound and the units the
@@ -319,7 +342,8 @@ and prints no result line):
    bf16 at the same shape, bf16 at (1, 2048, 16, 64) under ``hd64``,
    bf16 at (1, 2048, 48, 128) under ``internvl2`` and the four non-causal
    shapes of phase 10c under ``encoder``, ``cross``, ``decode_cross`` and
-   ``encoder_32k``
+   ``encoder_32k``, and phase 11b's per-rank shapes (1, 2048, 12, 128)
+   under ``tp`` and (1, 2048, 8, 64) under ``tp_moe``
    (ms, device_ms, library_ms, bound_ms, bound_units, max_abs_err).
 13. The last line: ``{"ok": true, "device": {...}}``.
 
@@ -965,8 +989,8 @@ def flash_kernel_rows(gen) -> dict:
 
     main = {}
     b = 1
-    # llama3.2-3b's 24 heads of 128, granite-moe's 16 heads of 64 and
-    # internvl2-26b's 48 heads of 128
+    # llama3.2-3b's 24 heads of 128, granite-moe's 16 heads of 64,
+    # internvl2-26b's 48 heads of 128, and half of llama's and granite's
     for sq, skv, causal, dtype, h, hd in ((2048, 2048, True, torch.float32, 24, 128),
                                           (2048, 2048, True, torch.bfloat16, 24, 128),
                                           (100, 300, True, torch.float32, 24, 128),
@@ -974,7 +998,10 @@ def flash_kernel_rows(gen) -> dict:
                                           (1000, 1000, True, torch.float32, 24, 128),
                                           (1000, 1000, True, torch.bfloat16, 24, 128),
                                           (2048, 2048, True, torch.bfloat16, 16, 64),
-                                          (2048, 2048, True, torch.bfloat16, 48, 128)):
+                                          (2048, 2048, True, torch.bfloat16, 48, 128),
+                                          # each rank's heads at tp 2 (phase 11b)
+                                          (2048, 2048, True, torch.bfloat16, 12, 128),
+                                          (2048, 2048, True, torch.bfloat16, 8, 64)):
         row = flash_row(gen, b, sq, skv, h, hd, causal, dtype)
         f32 = dtype == torch.float32
         if f32 and sq == 2048:
@@ -989,7 +1016,9 @@ def flash_kernel_rows(gen) -> dict:
                   f"{row['single_tf32_max_abs_err']} is within the f32 limit "
                   f"{FLASH_F32_ATOL}, which so would not show a lost split")
         emit(row)
-        if sq == 2048 and hd == 64:
+        if sq == 2048 and h in (12, 8):
+            main["flash_attn_tp" if h == 12 else "flash_attn_tp_moe"] = row
+        elif sq == 2048 and hd == 64:
             main["flash_attn_hd64"] = row
         elif sq == 2048 and h == 48:
             main["flash_attn_internvl2"] = row
@@ -2407,8 +2436,8 @@ VLM_ARCH, VLM_LAYERS = "internvl2-26b", 38
 # the engine rows of the archs at full depth serve the first layers only,
 # cut for the script's time (each row is host-bound, its time about
 # proportional to the depth); their forwards run at full depth
-LM_ENGINE_LAYERS = {LM_ARCH: 14, "granite-moe-1b-a400m": 12, LM_RWKV_ARCH: 16,
-                    LM_GRIFFIN_ARCH: 18}   # griffin: 6 (rec, rec, attn) units
+LM_ENGINE_LAYERS = {LM_ARCH: 7, "granite-moe-1b-a400m": 6, LM_RWKV_ARCH: 8,
+                    LM_GRIFFIN_ARCH: 9}   # griffin: 3 (rec, rec, attn) units
 VLM_IMAGE_TOKENS = VLM_TEXT_TOKENS = 1024
 VLM_CPU_LAYERS, VLM_CPU_TOKENS = 2, 128
 
@@ -4229,12 +4258,238 @@ def phase_door_lm(dev: str = "cuda") -> dict[str, int]:
     return counts
 
 
+# -- phase 11b ----------------------------------------------------------------
+
+TP_DEVICES = ("cuda:0", "cuda:0")   # two ranks over-subscribe the one card
+TP_FORWARD = (1, 2048)
+TP_SERVE = dict(max_slots=4, max_len=128, max_new_tokens=16, decode_block=8,
+                prefill_bucket=16)
+TP_REQUESTS, TP_PROMPTS = 4, (16, 32)
+TP_MOE_ARCH = "granite-moe-1b-a400m"
+TP_DEPLOY_REQUESTS = 8   # per model
+
+
+def tp_forced_forward(rank, toks, forced):
+    """On every rank of a world: the forward's logits of ``toks`` with each
+    MoE layer's experts forced to ``forced`` (``RoutesHeld``); rank 0
+    returns them, the others their ``world.digest``."""
+    from repro_torch.distributed import world
+
+    with RoutesHeld(forced):
+        y = world.forward_logits(rank, toks)
+    return y if rank.ctx.rank == 0 else world.digest(y)
+
+
+def tp_logit_err(got, want) -> float:
+    """max |got - want| over the logits' scale of each row (``logit_scale``)."""
+    got, want = got.float().flatten(0, -2), want.float().flatten(0, -2)
+    return float(((got - want).abs().amax(-1) / logit_scale(want)).max())
+
+
+def tp_ms(fn, reps: int = 3) -> float:
+    """Median host ms of ``fn`` (which runs on every rank), the card
+    synchronised around each call."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def tp_collectives(eng, fn) -> dict:
+    """Each collective of one ``fn()`` on rank 0: its count and, in a second
+    call with the card synchronised around each collective, its host ms."""
+    before = dict(eng.collectives)
+    fn()
+    mid = dict(eng.collectives)
+    eng.rank0.ctx.timed = True
+    try:
+        fn()
+    finally:
+        eng.rank0.ctx.timed = False
+    out = {}
+    for op, (n, _) in mid.items():
+        n0, s0 = before.get(op, (0, 0.0))
+        n1, s1 = eng.collectives[op]
+        out[op] = {"count": n - n0, "ms_each": (s1 - mid[op][1]) * 1e3 / max(1, n1 - n)}
+    return out
+
+
+def tp_embed_cut(rank):
+    """The dim the rank's embedding table was cut along (None: whole)."""
+    return getattr(rank.params["embed"]["table"], "tp_dim", None)
+
+def phase_tp(dev: str = "cuda") -> dict[str, int]:
+    """Distribution on the serving path (phase 11b of the module docstring).
+    Returns the launch counts of the tensor-parallel forwards and serves,
+    summed over the ranks, and of the deployment's serve."""
+    import numpy as np
+    import torch
+
+    from repro_torch.backend import registry
+    from repro_torch.configs import base as cb
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import world
+    from repro_torch.nn import init as nninit
+    from repro_torch.serve.deploy import Budget, Traffic, deploy
+    from repro_torch.serve.engine import Engine, Request, ServeConfig
+
+    t_phase = time.perf_counter()
+    counts = {k: 0 for k in registry.KERNELS}
+
+    def on_path(w, fn):
+        """``fn()`` with every rank's counts set to 0 before and added to the
+        path's after; returns its result and each rank's counts."""
+        w.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        per_rank = w.launches()
+        for c in per_rank:
+            for k in counts:
+                counts[k] += c[k]
+        return out, per_rank
+
+    # llama3.2-3b tensor-parallel, then the single device in this process
+    arch, cfg = get_arch(LM_ARCH), lm_config(LM_ARCH)
+    gen = torch.Generator("cpu").manual_seed(SEED + 11)
+    toks = torch.randint(0, cfg.vocab, TP_FORWARD, generator=gen).to(dev)
+    prompts = lm_prompts(cfg.vocab, TP_REQUESTS, TP_PROMPTS, SEED + 7)
+    reqs = [Request(uid=i, prompt=p) for i, p in enumerate(prompts)]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = world.tp_engine(LM_ARCH, cfg,
+                          world.SeededParams.of(torch.Generator(dev).manual_seed(SEED)),
+                          2, TP_DEVICES, ServeConfig(**TP_SERVE))
+    build_s = time.perf_counter() - t0
+    tp_logits, per_rank = on_path(eng.world, lambda: eng.forward(toks))
+    check([c["flash_attn"] for c in per_rank] == [cfg.n_layers] * 2,
+          f"tp forward: flash_attn launches per rank {[c['flash_attn'] for c in per_rank]}, "
+          f"want {cfg.n_layers} on each")
+    check(tuple(tp_logits.shape) == (*TP_FORWARD, cfg.vocab)
+          and bool(tp_logits.isfinite().all()), "tp forward: logits")
+    (served, _), (again, _) = (on_path(eng.world, lambda: eng.run(reqs)) for _ in "ab")
+    check(all(list(served[u].tokens) == list(again[u].tokens) for u in served),
+          "tp engine: a second greedy run differs")
+    stats = dict(eng.stats)
+    fwd_collectives = tp_collectives(eng, lambda: eng.forward(toks))
+    tp_forward_ms = tp_ms(lambda: eng.forward(toks))
+    peaks = [torch.cuda.max_memory_allocated(),
+             *eng.on_every_rank(world.peak_bytes)[1]]
+    decode_steps = stats["decode_blocks"] * TP_SERVE["decode_block"]
+    run_collectives = {op: n for op, (n, _) in eng.collectives.items()}
+    tp_row = {"phase": "tp", "arch": LM_ARCH, "tp": 2, "devices": list(TP_DEVICES),
+              "build_s": build_s, "forward": list(TP_FORWARD),
+              "flash_attn_launches_per_rank": [c["flash_attn"] for c in per_rank],
+              "ms_per_forward": tp_forward_ms,
+              "ms_per_decode_step": stats["decode_time_s"] * 1e3 / decode_steps,
+              "tokens_per_s": eng.tokens_per_s(),
+              "collectives_per_forward": fwd_collectives,
+              "collectives_all_calls": run_collectives,
+              "peak_bytes_per_rank": peaks, "card": CARD}
+    final = eng.close()
+    check(len(final) == 1, "tp: the world did not close with its worker's streams")
+    tp_row["ranks_streams_equal"] = True
+
+    torch.cuda.reset_peak_memory_stats()
+    params = nninit.materialize(cb.model_spec(arch, cfg), torch.Generator(dev).manual_seed(SEED))
+    forward, readout = cb.forward_fn(arch, cfg)
+    single = readout(params, forward(params, toks))
+    tp_row["logits_vs_single_device"] = tp_logit_err(tp_logits, single)
+    check(tp_row["logits_vs_single_device"] <= LM_LOGIT_TOL,
+          f"tp forward: {tp_row['logits_vs_single_device']} of the logits' scale from "
+          "the single device")
+    del tp_logits, single
+    tp_row["single_ms_per_forward"] = tp_ms(lambda: readout(params, forward(params, toks)))
+    step, init = cb.serve_fns(arch, cfg, TP_SERVE["max_len"])
+    one = Engine(step, init, ServeConfig(**TP_SERVE), params=params)
+    one.run(reqs)
+    single_streams = one.run(reqs)
+    tp_row["single_ms_per_decode_step"] = (one.stats["decode_time_s"] * 1e3
+                                           / (one.stats["decode_blocks"] * TP_SERVE["decode_block"]))
+    tp_row["single_peak_bytes"] = torch.cuda.max_memory_allocated()
+    decode = lm_check_decode(params, arch, cfg, prompts, single_streams, dev, "tp single")
+    tp_row["left_single_device_at_near_ties"] = lm_same_streams(
+        single_streams, served, decode["margins"], "tp engine")
+    emit(tp_row)
+    del params, one
+    torch.cuda.empty_cache()
+
+    # granite-moe-1b-a400m: its vocab does not divide, experts forced
+    arch_m, cfg_m = get_arch(TP_MOE_ARCH), dropless(lm_config(TP_MOE_ARCH))
+    toks_m = torch.randint(0, cfg_m.vocab, TP_FORWARD, generator=gen).to(dev)
+    eng_m = world.tp_engine(TP_MOE_ARCH, cfg_m,
+                            world.SeededParams.of(torch.Generator(dev).manual_seed(SEED)),
+                            2, TP_DEVICES, ServeConfig(**TP_SERVE))
+    embed_dims, _ = eng_m.on_every_rank(tp_embed_cut)
+    check(embed_dims == 1, f"granite at tp 2: embedding cut along dim {embed_dims}, "
+                           "want the embed dim (the fallback)")
+    params_m = nninit.materialize(cb.model_spec(arch_m, cfg_m),
+                                  torch.Generator(dev).manual_seed(SEED))
+    fwd_m, read_m = cb.forward_fn(arch_m, cfg_m)
+    with RoutesHeld() as routes:
+        single_m = read_m(params_m, fwd_m(params_m, toks_m))
+    ((y_m, theirs), per_rank_m) = on_path(
+        eng_m.world, lambda: eng_m.on_every_rank(tp_forced_forward, toks_m, routes.calls))
+    check(all(d == world.digest(y_m) for d in theirs),
+          "granite tp forward: the ranks' logits differ")
+    check([c["flash_attn"] for c in per_rank_m] == [cfg_m.n_layers] * 2,
+          f"granite tp forward: flash_attn per rank {[c['flash_attn'] for c in per_rank_m]}")
+    moe_row = {"phase": "tp", "arch": TP_MOE_ARCH, "tp": 2, "n_layers": cfg_m.n_layers,
+               "capacity_factor": cfg_m.moe.capacity_factor, "embed_cut_dim": embed_dims,
+               "flash_attn_launches_per_rank": [c["flash_attn"] for c in per_rank_m],
+               "logits_vs_single_device": tp_logit_err(y_m, single_m),
+               "ms_per_forward": tp_ms(lambda: eng_m.on_every_rank(
+                   tp_forced_forward, toks_m, routes.calls)),
+               "single_ms_per_forward": tp_ms(lambda: read_m(params_m, fwd_m(params_m, toks_m))),
+               "card": CARD}
+    check(moe_row["logits_vs_single_device"] <= LM_LOGIT_TOL,
+          f"granite tp forward: {moe_row['logits_vs_single_device']} of the logits' scale")
+    emit(moe_row)
+    eng_m.close()
+    del params_m, single_m, y_m
+    torch.cuda.empty_cache()
+
+    # deploy()'s replicas / tp arm on the card
+    t0 = time.perf_counter()
+    dep = deploy(["nvsa", LM_ARCH], Traffic(rate_rps=20.0),
+                 Budget(devices=2, replicas="auto", tp=2))
+    rec = dep.report()
+    check(rec["nvsa"]["replicas"] == 2 and rec["nvsa"]["mesh"]["model"] == 1,
+          f"deploy: nvsa mesh {rec['nvsa']['mesh']}, replicas {rec['nvsa']['replicas']}")
+    check(rec[LM_ARCH]["mesh"]["model"] == 2 and dep.engines[LM_ARCH].tp == 2,
+          f"deploy: {LM_ARCH} mesh {rec[LM_ARCH]['mesh']}")
+    emit({"phase": "tp", "deploy": {m: {"mesh": rec[m]["mesh"], "replicas": rec[m]["replicas"]}
+                                    for m in ("nvsa", LM_ARCH)},
+          "summary": dep.summary().splitlines(), "deploy_s": time.perf_counter() - t0})
+    arrivals, _ = dep.synthetic_traffic(TP_DEPLOY_REQUESTS)
+    report, per_rank_d = on_path(dep.engines[LM_ARCH].world, lambda: dep.serve(arrivals))
+    for m in ("nvsa", LM_ARCH):
+        check(sorted(report.results[m]) == list(range(TP_DEPLOY_REQUESTS)),
+              f"deploy tp: {m}: {len(report.results[m])} of {TP_DEPLOY_REQUESTS} answered")
+    check(per_rank_d[0]["circ_conv"] > 0, "deploy tp: circ_conv was not launched")
+    emit({"phase": "tp", "deploy_served": {m: len(report.results[m]) for m in report.results},
+          "nvsa_per_replica": dep.report()["nvsa"]["per_replica"],
+          "launches_per_rank": per_rank_d, "serve_wall_s": report.wall_time_s})
+    dep.close()
+    check(counts["flash_attn"] > 0 and counts["circ_conv"] > 0,
+          f"tp: the path's launches {counts}")
+    emit({"phase": "tp_done", "seconds": time.perf_counter() - t_phase, "launches": counts})
+    return counts
+
+
+
 # the other rows a kernel's entry of the ``kernels`` line carries, under
 # these keys: circ_conv at NVSA's served bucket and at MIMONet's training
 # shape (conv and corr), circ_dict corr and bf16,
 # unbind_classify at d = 256, simd_fused bf16, at d = 128 and at M = 1024,
-# flash_attn bf16, bf16 at head dim 64, bf16 at internvl2-26b's 48 heads and
-# the four non-causal bf16 shapes of the encdec phase (ENCDEC_FLASH)
+# flash_attn bf16, bf16 at head dim 64, bf16 at internvl2-26b's 48 heads, the
+# four non-causal bf16 shapes of the encdec phase (ENCDEC_FLASH) and each
+# rank's heads in the tp phase
 SUB_ROWS = {"circ_conv": (("served", "circ_conv_served"), ("train", "circ_conv_train_conv"),
                           ("train_corr", "circ_conv_train_corr")),
             "circ_dict": (("corr", "circ_dict_corr"), ("bf16", "circ_dict_bf16")),
@@ -4245,7 +4500,8 @@ SUB_ROWS = {"circ_conv": (("served", "circ_conv_served"), ("train", "circ_conv_t
                            ("internvl2", "flash_attn_internvl2"),
                            ("encoder", "flash_attn_encoder"), ("cross", "flash_attn_cross"),
                            ("decode_cross", "flash_attn_decode_cross"),
-                           ("encoder_32k", "flash_attn_encoder_32k"))}
+                           ("encoder_32k", "flash_attn_encoder_32k"),
+                           ("tp", "flash_attn_tp"), ("tp_moe", "flash_attn_tp_moe"))}
 
 
 def main() -> int:
@@ -4278,6 +4534,7 @@ def main() -> int:
     paths["encdec"], encdec_rows = phase_encdec()
     main_rows.update(encdec_rows)
     paths["door_lm"] = phase_door_lm()
+    paths["tp"] = phase_tp()
     emit({"phase": "launches_by_path", **paths})
     kernels = []
     for name, spec in registry.KERNELS.items():

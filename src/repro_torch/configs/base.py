@@ -64,9 +64,10 @@ from repro_torch.serve.schedule import StageSpec, TensorSpec
 
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
-    """The reference's ``ArchSpec``.  ``fsdp`` and ``opt_8bit`` (the
-    sharding and optimizer switches) are recorded for the launcher of
-    Queue 1 #6 (``launch/train.py``); nothing reads them yet."""
+    """The reference's ``ArchSpec``.  ``fsdp`` picks the sharding rules a
+    tensor-parallel world cuts by (``distributed.world``); ``opt_8bit``
+    (the optimizer switch) is recorded for the launcher of Queue 1 #6
+    (``launch/train.py``)."""
 
     id: str
     family: str                   # moe | dense | ssm | hybrid | vlm | audio
@@ -185,27 +186,97 @@ def serve_fns(arch: ArchSpec, cfg, max_len: int):
     return step, init
 
 
-def lm_engine(arch_id: str, serve_cfg=None, key=None, device=None):
+def device_pool(devices=None) -> tuple:
+    """The devices a tensor-parallel world or a replica pool may take: the
+    caller's ``devices``, else every visible CUDA device."""
+    if devices is not None:
+        return tuple(str(torch.device(d)) for d in devices)
+    return tuple(f"cuda:{i}" for i in range(torch.cuda.device_count()))
+
+
+def lm_engine(arch_id: str, serve_cfg=None, key=None, tp: int = 1, device=None,
+              devices=None):
     """Draw a smoke-scale arch and wrap it in the slot-pool LM ``Engine``
     with params bound, the LM counterpart of ``reason_engine``.  Returns
     ``(engine, model_cfg)`` (callers need ``model_cfg.vocab`` for token
     traffic).
 
-    ``key`` is a ``torch.Generator`` (None = seed 0 on ``device``); the
+    ``key`` is a ``torch.Generator`` (None = seed 0 on the device); the
     parameters are drawn on its device and moved to ``device`` (None =
-    ``"cuda"``; raises without CUDA unless ``"cpu"``).  The reference's
-    ``tp`` (tensor-parallel decode) waits for ROADMAP Queue 1 #6."""
+    ``"cuda"``; raises without CUDA unless ``"cpu"``).
+
+    ``tp > 1`` serves the engine tensor-parallel: a world of ``tp``
+    processes (``distributed.world.tp_engine``), rank r on the r-th device
+    of the pool (``devices``, else every visible CUDA device), each holding
+    its cut of the parameters by ``distributed.sharding_rules``
+    (``TP_RULES``, the ``FALLBACK_TP_AXES`` escape, no size floor, as the
+    reference binds them).  ``tp`` beyond the pool raises: on one card
+    ``devices=("cuda:0",) * tp`` over-subscribes it, on the CPU
+    ``devices=("cpu",) * tp``.  ``tp`` with ``device=`` raises, as in the
+    reference.  The engine's ``close()`` ends the world."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.serve.engine import Engine, ServeConfig
 
-    dev = registry.resolve_device(device)
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1, got {tp}")
+    if tp > 1 and device is not None:
+        raise ValueError("pass tp= (tensor-parallel, over devices=) or device= "
+                         "(one device), not both")
     arch = get_arch(arch_id)
     cfg = arch.make_smoke()
     serve_cfg = serve_cfg or ServeConfig()
+    if tp > 1:
+        from repro_torch.distributed import world
+
+        world.refuse_uncovered(arch, cfg, tp)
+        pool = device_pool(devices)
+        if tp > len(pool):
+            raise ValueError(
+                f"tp={tp} exceeds the device pool of {len(pool)} {pool}: pass "
+                f"devices= with {tp} entries (devices=('cuda:0',) * {tp} "
+                f"over-subscribes one card, ('cpu',) * {tp} runs on the CPU)")
+        devs = [registry.resolve_device(d) for d in pool[:tp]]
+        gen = key if key is not None else torch.Generator(devs[0]).manual_seed(0)
+        return world.tp_engine(arch.id, cfg, world.SeededParams.of(gen), tp, devs,
+                               serve_cfg), cfg
+    dev = registry.resolve_device(device)
     gen = key if key is not None else torch.Generator(dev).manual_seed(0)
     params = interop.to_device(nninit.materialize(model_spec(arch, cfg), gen), dev)
     step, init_caches = serve_fns(arch, cfg, max_len=serve_cfg.max_len)
     return Engine(step, init_caches, serve_cfg, params=params), cfg
+
+
+def lm_engine_pool(arch_id: str, serve_cfg=None, key=None, replicas: int = 1,
+                   tp: int = 1, device=None, devices=None):
+    """``replicas`` data-parallel LM engines behind one ``ReplicaPool``
+    (replica i's params on ``devices[i % len(devices)]``, by default the
+    visible CUDA devices, or ``device`` alone; the same generator state,
+    so token streams are replica-invariant), or a single (optionally
+    tensor-parallel) engine when ``replicas == 1``.  Returns ``(engine,
+    model_cfg)`` like :func:`lm_engine`."""
+    from repro_torch.serve.replica import ReplicaPool
+
+    if replicas < 1:
+        raise ValueError(f"replicas must be >= 1, got {replicas}")
+    if replicas > 1 and tp > 1:
+        raise ValueError(
+            f"replicas={replicas} with tp={tp}: combined data x tensor "
+            "parallel LM serving is not wired up — pick one axis")
+    if replicas == 1:
+        return lm_engine(arch_id, serve_cfg, key=key, tp=tp,
+                         device=device if tp == 1 else None, devices=devices)
+    dev = registry.resolve_device(device)
+    pool = device_pool(devices) if devices is not None or dev.type == "cuda" \
+        else (str(dev),)
+    engines, cfg = [], None
+    for i in range(replicas):
+        gen = None
+        if key is not None:
+            gen = torch.Generator(key.device)
+            gen.set_state(key.get_state())
+        eng, cfg = lm_engine(arch_id, serve_cfg, key=gen, device=pool[i % len(pool)])
+        engines.append(eng)
+    return ReplicaPool(engines), cfg
 
 
 def param_count(arch: ArchSpec, cfg) -> int:

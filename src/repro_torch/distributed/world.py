@@ -1,0 +1,580 @@
+"""A tensor-parallel world driven from one process: the port's
+counterpart of the reference's GSPMD serving (``lm_engine(tp=)``).
+
+The reference binds an LM's parameters to a ``(data=1, model=tp)`` mesh
+and lets XLA partition the engine's jitted calls.  Here the world is
+``tp`` processes: rank 0 is the caller's process, ranks 1..tp-1 are
+``torch.multiprocessing`` workers started with ``spawn`` (never ``fork``
+after CUDA is up).  They share one gloo process group, rendezvoused over a
+``FileStore`` in a temporary directory (no ports), whose collectives the
+layers call (``distributed.constraints``).  Gloo is the backend because
+NCCL refuses two ranks on one card, which is how a one-card host runs a
+world (``devices=("cuda:0", "cuda:0")``).
+
+Each rank holds only its cut of the parameters (``sharding_rules.
+cut_leaf``: every rank draws or reads each whole leaf in turn and keeps
+its slice) and of the KV cache, and runs the unchanged
+``serve.engine.Engine`` over them.  ``TPEngine`` is rank 0's engine: each
+protocol call (``submit``, ``drain_ready``, ``drain_all``, ``run``,
+``generate``, ``reset_stats``) is sent to the workers over a pipe and run
+by every rank on its own engine.  Every rank sees the same reduced
+activations and gathered logits, so every rank makes the same decisions
+and the calls meet in the same collectives; each call's results are
+compared across ranks, and again on ``close``.
+
+Nothing hangs and nothing degrades quietly:
+
+- every collective carries the group's timeout (``WORLD_TIMEOUT_S``), and
+  a dead peer fails the next collective at once;
+- a worker that raises where rank 0 did not, dies, or does not answer
+  within the timeout breaks the world: rank 0 closes it and raises; so
+  does a call that raised on any rank after a collective had started
+  (the ranks' engines may then differ);
+- a worker whose leader dies exits (it polls its parent while idle);
+- ``close()`` ends the workers and returns their kernel launch counts;
+- what the layers do not cover (``refuse_uncovered``: kinds other than
+  the dense and MoE GQA ``lm`` kind) raises before any rank computes.
+
+Kernels are built in rank 0 before the workers start
+(``kernels/_build.py``), so no two ranks run ``nvcc`` into one directory.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import itertools
+import os
+import shutil
+import tempfile
+import time
+import traceback
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.common.tree import tree_map
+from repro_torch.distributed import constraints as tpc
+from repro_torch.distributed import sharding_rules as sr
+
+WORLD_TIMEOUT_S = 60.0
+_POLL_S = 0.2
+
+
+def _make_group(store_path: str, rank: int, size: int, timeout_s: float):
+    import torch.distributed as dist
+
+    opts = dist.ProcessGroupGloo._Options()
+    opts._timeout = datetime.timedelta(seconds=timeout_s)
+    opts._devices = [dist.ProcessGroupGloo.create_device(hostname="127.0.0.1")]
+    store = dist.FileStore(store_path, size)
+    store.set_timeout(datetime.timedelta(seconds=timeout_s))
+    return dist.ProcessGroupGloo(store, rank, size, opts)
+
+
+# ---------------------------------------------------------------------------
+# what every rank builds: the engine over its cut of the parameters
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SeededParams:
+    """Parameters drawn as ``nninit.materialize`` draws them, leaf by leaf
+    in tree order from one generator: the generator's ``state``
+    (``torch.Generator.get_state()``) on a device of type ``kind``.  A CUDA
+    state draws on the rank's own card; a CPU one draws on the host, each
+    leaf moved to the rank's device before it is cut."""
+
+    state: torch.Tensor
+    kind: str = "cpu"
+
+    @classmethod
+    def of(cls, gen: torch.Generator) -> "SeededParams":
+        return cls(gen.get_state(), gen.device.type)
+
+    def __call__(self, spec, cut: Callable, device: torch.device):
+        from repro_torch.nn import init as nninit
+
+        gen = torch.Generator(device if self.kind == "cuda" else "cpu")
+        gen.set_state(self.state)
+        return tree_map(lambda p: cut(p, nninit._materialize_one(p, gen).to(device)),
+                        spec)
+
+
+@dataclasses.dataclass(frozen=True)
+class GivenParams:
+    """Whole parameters given as a tree of CPU tensors or arrays (e.g. the
+    reference's, carried across by ``interop.from_reference``)."""
+
+    tree: Any
+
+    def __call__(self, spec, cut: Callable, device: torch.device):
+        return tree_map(lambda p, a: cut(p, torch.as_tensor(np.asarray(a) if not
+                                                            isinstance(a, torch.Tensor)
+                                                            else a).to(device)),
+                        spec, self.tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineSpec:
+    """What each rank builds: the arch, its config, the whole parameters'
+    source and the engine's ``ServeConfig``."""
+
+    arch_id: str
+    cfg: Any
+    params_fn: Callable
+    serve_cfg: Any
+
+
+@dataclasses.dataclass
+class RankEngine:
+    """One rank's engine, its tensor-parallel context and its local
+    parameters."""
+
+    spec: EngineSpec
+    ctx: tpc.TPContext
+    engine: Any
+    params: Any
+    device: torch.device
+
+    def run(self, fn: Callable, *args, **kwargs):
+        with tpc.tp_group(self.ctx):
+            return fn(*args, **kwargs)
+
+
+def refuse_uncovered(arch, cfg, tp: int) -> None:
+    """Raise for what tensor parallelism does not cover yet: every kind
+    but ``lm``, MLA attention, and experts that do not divide ``tp`` (the
+    layers would cut them along another dim)."""
+    moe_cfg = getattr(cfg, "moe", None)
+    mla = getattr(cfg, "attn_kind", "gqa") == "mla"
+    if arch.kind != "lm" or mla or (moe_cfg is not None and moe_cfg.n_experts % tp):
+        raise NotImplementedError(
+            f"{arch.id}: tensor parallelism covers the dense and MoE GQA lm "
+            f"kind with experts dividing tp; {arch.kind}{' (MLA)' if mla else ''} "
+            f"at tp={tp} waits for ROADMAP Queue 1 #9")
+
+
+def build_rank(spec: EngineSpec, group, rank: int, size: int, device) -> RankEngine:
+    """Rank ``rank``'s engine over its cut of ``spec``'s parameters."""
+    from repro_torch.configs import base as cb
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.serve.engine import Engine
+
+    arch = get_arch(spec.arch_id)
+    refuse_uncovered(arch, spec.cfg, size)
+    device = torch.device(device)
+    ctx = tpc.TPContext(group, rank, size)
+    mesh = ctx.mesh
+    with tpc.tp_group(ctx):
+        params = spec.params_fn(cb.model_spec(arch, spec.cfg),
+                                lambda p, t: sr.cut_leaf(p, t, rank, mesh), device)
+        step, init = cb.serve_fns(arch, spec.cfg, spec.serve_cfg.max_len)
+        engine = Engine(step, init, dataclasses.replace(spec.serve_cfg), params=params)
+    return RankEngine(spec, ctx, engine, params, device)
+
+
+def forward_logits(rank: RankEngine, tokens) -> torch.Tensor:
+    """The full-context forward's logits (B, S, V) of ``tokens`` on this
+    rank, whole (every rank gets the same); unwindowed attention layers
+    launch ``flash_attn`` on the rank's heads."""
+    from repro_torch.configs import base as cb
+    from repro_torch.configs.registry import get_arch
+
+    forward, readout = cb.forward_fn(get_arch(rank.spec.arch_id), rank.spec.cfg)
+    toks = torch.as_tensor(tokens).to(rank.device)
+    return rank.run(lambda: readout(rank.params, forward(rank.params, toks)))
+
+
+def digest(y: torch.Tensor) -> tuple:
+    """(shape, sum, sum of |y|): equal bits on every rank give equal
+    digests, and a digest crosses the pipe where ``y`` would not."""
+    yd = y.double()
+    return tuple(y.shape), float(yd.sum()), float(yd.abs().sum())
+
+
+def logits_digest(rank: RankEngine, tokens) -> tuple:
+    """The ``digest`` of ``forward_logits``."""
+    return digest(forward_logits(rank, tokens))
+
+
+def peak_bytes(rank: RankEngine) -> int:
+    """The rank's process's peak allocated bytes on its card (0 on the
+    CPU)."""
+    if rank.device.type != "cuda":
+        return 0
+    return int(torch.cuda.max_memory_allocated(rank.device))
+
+
+def _streams(out) -> dict | None:
+    """The token streams of a call's results ({uid: tokens}), None for a
+    call that returns none."""
+    if isinstance(out, dict) and all(hasattr(r, "tokens") for r in out.values()):
+        return {uid: [int(t) for t in r.tokens] for uid, r in out.items()}
+    if isinstance(out, np.ndarray):
+        return {"generate": out.tolist()}
+    return None
+
+
+# ---------------------------------------------------------------------------
+# the worker process
+# ---------------------------------------------------------------------------
+
+
+def _worker(rank: int, size: int, store_path: str, device: str, timeout_s: float,
+            threads: int, conn) -> None:
+    import multiprocessing
+
+    torch.set_num_threads(threads)
+    from repro_torch.backend import registry
+
+    conn.send(("ok", None))     # started: rank 0 may wait in the rendezvous now
+    try:
+        group = _make_group(store_path, rank, size, timeout_s)
+    except BaseException:
+        conn.send(("error", traceback.format_exc()))
+        return
+    conn.send(("ok", None))
+    parent = multiprocessing.parent_process()
+    ranks: dict[int, RankEngine] = {}
+    streams: dict[int, list] = {}
+    while True:
+        if not conn.poll(_POLL_S):
+            if parent is not None and not parent.is_alive():
+                os._exit(1)
+            continue
+        try:
+            op, args = conn.recv()
+        except EOFError:
+            os._exit(1)
+        entered = tpc.entered()
+        if op == "close":
+            conn.send(("ok", {"launches": dict(registry.LAUNCHES), "streams": streams}))
+            break
+        try:
+            if op == "build":
+                handle, spec = args
+                ranks[handle] = build_rank(spec, group, rank, size, device)
+                streams[handle] = []
+                out = None
+            elif op == "call":
+                handle, method, a, kw = args
+                r = ranks[handle]
+                res = _streams(r.run(getattr(r.engine, method), *a, **kw))
+                if res is not None:
+                    streams[handle].append(res)
+                out = res
+            elif op == "fn":
+                handle, fn, a = args
+                out = fn(ranks[handle], *a)
+            elif op == "drop":
+                ranks.pop(args[0], None)
+                out = None
+            elif op == "launches":
+                out = dict(registry.LAUNCHES)
+            elif op == "reset_launches":
+                registry.reset_launches()
+                out = None
+            else:
+                raise ValueError(f"unknown world op {op!r}")
+            conn.send(("ok", out))
+        except BaseException as e:  # the leader decides whether the world survives
+            conn.send(("raised", (type(e).__name__, str(e), traceback.format_exc(),
+                                  tpc.entered() - entered)))
+
+
+# ---------------------------------------------------------------------------
+# rank 0's side
+# ---------------------------------------------------------------------------
+
+
+class WorldError(RuntimeError):
+    """A tensor-parallel world broke: a worker died, raised where rank 0
+    did not, disagreed with it or did not answer in time."""
+
+
+class World:
+    """``len(devices)`` ranks: rank 0 this process on ``devices[0]``, rank
+    r a spawned worker on ``devices[r]``.  Each worker takes this process's
+    ``torch.get_num_threads()``, split over the ranks when they all
+    compute on the CPU, which they share."""
+
+    def __init__(self, devices, timeout_s: float = WORLD_TIMEOUT_S):
+        import torch.multiprocessing as mp
+
+        self.devices = tuple(torch.device(d) for d in devices)
+        self.size = len(self.devices)
+        if self.size < 1:
+            raise ValueError("a world needs at least one device")
+        self.timeout_s = timeout_s
+        self.closed = False
+        self.final: list[dict] = []
+        self._handles = itertools.count()
+        if any(d.type == "cuda" for d in self.devices):
+            from repro_torch.kernels import _build
+
+            _build.build_all()
+        self._dir = tempfile.mkdtemp(prefix="repro_tp_")
+        store = os.path.join(self._dir, "store")
+        ctx = mp.get_context("spawn")
+        self._procs, self._conns = [], []
+        threads = torch.get_num_threads()
+        if all(d.type == "cpu" for d in self.devices):
+            threads = max(1, threads // self.size)
+        try:
+            for r in range(1, self.size):
+                ours, theirs = ctx.Pipe()
+                proc = ctx.Process(target=_worker, daemon=True, args=(
+                    r, self.size, store, str(self.devices[r]), timeout_s, threads, theirs))
+                proc.start()
+                theirs.close()
+                self._procs.append(proc)
+                self._conns.append(ours)
+            # each worker reports once it runs (a worker that dies while it
+            # starts fails here, not in the rendezvous), then once it joined
+            self._replies("start")
+            self.group = _make_group(store, 0, self.size, timeout_s) if self.size > 1 else None
+            self._replies("start")
+        except BaseException:
+            self._end()
+            raise
+
+    # -- messages -------------------------------------------------------
+
+    def send(self, op: str, *args) -> None:
+        if self.closed:
+            raise WorldError("the tensor-parallel world is closed")
+        for r, conn in enumerate(self._conns, 1):
+            try:
+                conn.send((op, args))
+            except (BrokenPipeError, EOFError, OSError) as e:
+                self.fail(f"rank {r} is gone ({e})")
+
+    def _replies(self, what: str) -> list:
+        """Every worker's reply: ``("ok", payload)`` or ``("raised",
+        (type, message, traceback, collectives entered))``; a dead or
+        silent worker breaks the world."""
+        out = []
+        deadline = time.monotonic() + self.timeout_s
+        for r, (conn, proc) in enumerate(zip(self._conns, self._procs), 1):
+            while not conn.poll(_POLL_S):
+                if not proc.is_alive() and not conn.poll(0):
+                    self.fail(f"rank {r} died (exit code {proc.exitcode}) during {what}")
+                if time.monotonic() > deadline:
+                    self.fail(f"rank {r} did not answer {what} within "
+                              f"{self.timeout_s:.0f} s")
+            try:
+                msg = conn.recv()
+            except (EOFError, OSError):
+                proc.join(timeout=1.0)
+                self.fail(f"rank {r} died (exit code {proc.exitcode}) during {what}")
+            if msg[0] == "error":
+                self.fail(f"rank {r} failed to start:\n{msg[1]}")
+            out.append(msg)
+        return out
+
+    def call(self, op: str, args: tuple, local: Callable, what: str):
+        """Send ``op`` to the workers, run ``local`` here meanwhile, and
+        return (its result, the workers' payloads).  If ``local`` raises,
+        the world survives only where every worker raised the same type and
+        no rank entered a collective during the call (a request refused
+        before any work, which leaves every engine as it was); otherwise it
+        is closed and ``WorldError`` raised."""
+        self.send(op, *args)
+        entered = tpc.entered()
+        try:
+            out = local()
+        except BaseException as e:
+            if isinstance(e, WorldError):
+                raise
+            mine = tpc.entered() - entered
+            try:
+                replies = self._replies(what)
+            except WorldError as broken:
+                raise broken from e
+            if not all(m[0] == "raised" and m[1][0] == type(e).__name__ for m in replies):
+                self.fail(f"rank 0 raised {type(e).__name__} during {what} and the "
+                          "workers did not", cause=e)
+            if mine or any(m[1][3] for m in replies):
+                self.fail(f"every rank raised {type(e).__name__} during {what}, after "
+                          "a collective had started", cause=e)
+            raise
+        replies = self._replies(what)
+        for r, m in enumerate(replies, 1):
+            if m[0] != "ok":
+                self.fail(f"rank {r} raised during {what}: {m[1][0]}: {m[1][1]}\n{m[1][2]}")
+        return out, [m[1] for m in replies]
+
+    def fail(self, msg: str, cause: BaseException | None = None):
+        self._end()
+        raise WorldError(f"tensor-parallel world of {self.size}: {msg}") from cause
+
+    # -- queries ----------------------------------------------------------
+
+    def launches(self) -> list[dict]:
+        """Each rank's kernel launch counts (rank 0's is this process's)."""
+        from repro_torch.backend import registry
+
+        _, theirs = self.call("launches", (), lambda: None, "launches")
+        return [dict(registry.LAUNCHES), *theirs]
+
+    def reset_launches(self) -> None:
+        from repro_torch.backend import registry
+
+        self.call("reset_launches", (), registry.reset_launches, "reset_launches")
+
+    # -- the end ------------------------------------------------------------
+
+    def close(self) -> list[dict]:
+        """End the workers; returns each worker's last payload (its launch
+        counts and the token streams of every call)."""
+        if self.closed:
+            return self.final
+        try:
+            self.send("close")
+            self.final = [m[1] for m in self._replies("close")]
+        finally:
+            self._end()
+        return self.final
+
+    def _end(self) -> None:
+        self.closed = True
+        for proc in self._procs:
+            proc.join(timeout=5.0)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(timeout=5.0)
+        for conn in self._conns:
+            conn.close()
+        self.group = None
+        shutil.rmtree(self._dir, ignore_errors=True)
+
+    def __del__(self):
+        if not getattr(self, "closed", True):
+            self._end()
+
+
+_MIRRORED = ("submit", "drain_ready", "drain_all", "run", "generate", "reset_stats")
+
+
+class TPEngine:
+    """Rank 0's ``Engine`` of a tensor-parallel world: the runtime protocol
+    (and ``run`` / ``generate``), each call run by every rank.  Reads
+    (``cfg``, ``stats``, ``tokens_per_s()``, ...) are rank 0's engine's.
+    ``owns_world``: ``close()`` closes the world too."""
+
+    def __init__(self, world: World, spec: EngineSpec, owns_world: bool = True):
+        self.world, self.spec, self.owns_world = world, spec, owns_world
+        self.handle = next(world._handles)
+        self.streams: list = []
+        self.rank0, _ = world.call(
+            "build", (self.handle, spec),
+            lambda: build_rank(spec, world.group, 0, world.size, world.devices[0]),
+            "build")
+        self.engine = self.rank0.engine
+
+    @property
+    def tp(self) -> int:
+        return self.world.size
+
+    @property
+    def devices(self) -> tuple:
+        return self.world.devices
+
+    @property
+    def collectives(self) -> dict:
+        """Rank 0's collectives so far: op -> (count, host seconds when
+        timed)."""
+        return self.rank0.ctx.stats
+
+    def _mirror(self, method: str, *args, **kwargs):
+        out, theirs = self.world.call(
+            "call", (self.handle, method, args, kwargs),
+            lambda: self.rank0.run(getattr(self.engine, method), *args, **kwargs),
+            method)
+        mine = _streams(out)
+        if mine is not None:
+            self.streams.append(mine)
+            for r, s in enumerate(theirs, 1):
+                if s != mine:
+                    self.world.fail(f"rank {r}'s token streams differ from rank 0's "
+                                    f"in {method}")
+        return out
+
+    def submit(self, group):
+        return self._mirror("submit", list(group))
+
+    def drain_ready(self):
+        return self._mirror("drain_ready")
+
+    def drain_all(self):
+        return self._mirror("drain_all")
+
+    def run(self, requests):
+        return self._mirror("run", list(requests))
+
+    def generate(self, prompts, max_new_tokens: int | None = None):
+        return self._mirror("generate", [np.asarray(p) for p in prompts], max_new_tokens)
+
+    def reset_stats(self):
+        return self._mirror("reset_stats")
+
+    def on_every_rank(self, fn: Callable, *args):
+        """``fn(rank_engine, *args)`` on every rank (``fn`` importable by
+        name, as the workers unpickle it); returns rank 0's result and the
+        workers' results."""
+        return self.world.call("fn", (self.handle, fn, args),
+                               lambda: fn(self.rank0, *args), getattr(fn, "__name__", "fn"))
+
+    def forward(self, tokens) -> torch.Tensor:
+        """Rank 0's ``forward_logits`` of ``tokens``, run on every rank;
+        raises unless every rank's logits have rank 0's digest."""
+        def local():
+            y = forward_logits(self.rank0, tokens)
+            return y, digest(y)
+
+        (y, mine), theirs = self.world.call("fn", (self.handle, logits_digest, (tokens,)),
+                                            local, "forward")
+        for r, d in enumerate(theirs, 1):
+            if d != mine:
+                self.world.fail(f"rank {r}'s forward logits differ from rank 0's")
+        return y
+
+    def __getattr__(self, name: str):
+        if name in _MIRRORED or name.startswith("__"):
+            raise AttributeError(name)
+        return getattr(self.__dict__["engine"], name)
+
+    def close(self) -> list[dict]:
+        """Compare every rank's token streams once more, end this engine
+        on every rank (and the world, if owned); returns the workers' last
+        payloads when the world was closed."""
+        if self.world.closed:
+            return self.world.final
+        if not self.owns_world:
+            self.world.call("drop", (self.handle,), lambda: None, "drop")
+            return []
+        final = self.world.close()
+        for r, payload in enumerate(final, 1):
+            if payload["streams"].get(self.handle, []) != self.streams:
+                raise WorldError(f"rank {r}'s token streams differ from rank 0's")
+        return final
+
+
+def tp_engine(arch_id: str, cfg, params_fn: Callable, tp: int, devices, serve_cfg,
+              timeout_s: float = WORLD_TIMEOUT_S) -> TPEngine:
+    """An LM ``Engine`` served tensor-parallel by a world of ``tp``
+    processes on ``devices[:tp]`` (rank r on ``devices[r]``), over whole
+    parameters from ``params_fn`` (``SeededParams`` / ``GivenParams``),
+    each rank keeping its cut.  ``close()`` ends the world."""
+    devices = tuple(devices)
+    if tp < 1 or tp > len(devices):
+        raise ValueError(f"tp={tp} needs {tp} devices, got {len(devices)}")
+    world = World(devices[:tp], timeout_s=timeout_s)
+    try:
+        return TPEngine(world, EngineSpec(arch_id, cfg, params_fn, serve_cfg))
+    except BaseException:
+        if not world.closed:
+            world._end()
+        raise

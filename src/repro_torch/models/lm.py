@@ -195,13 +195,28 @@ def _unstack(tree, n: int) -> list:
     stacks in one step."""
     if not n:
         return []
-    cols = [t.unbind(0) for t in tree_leaves(tree)]
+    cols = [_unbind(t) for t in tree_leaves(tree)]
 
     def layer(r: int):
         it = iter([c[r] for c in cols])
         return tree_map(lambda _: next(it), tree)
 
     return [layer(r) for r in range(n)]
+
+
+def _unbind(t: torch.Tensor) -> tuple:
+    """``t.unbind(0)``; a leaf cut for tensor parallelism hands where it
+    was cut (``tp_dim``, ``distributed.sharding_rules.cut_leaf``) and the
+    whole it keeps (``tp_whole``) on to each layer's view."""
+    views = t.unbind(0)
+    dim = getattr(t, "tp_dim", None)
+    if dim is not None:
+        wholes = t.tp_whole.unbind(0) if hasattr(t, "tp_whole") else (None,) * len(views)
+        for v, w in zip(views, wholes):
+            v.tp_dim = dim - 1
+            if w is not None:
+                v.tp_whole = w
+    return views
 
 
 def _needs_grad(*trees) -> bool:

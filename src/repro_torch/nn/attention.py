@@ -50,6 +50,8 @@ import math
 import torch
 
 from repro_torch.backend import registry
+from repro_torch.distributed import constraints as tp
+from repro_torch.distributed import sharding_rules as sr
 from repro_torch.kernels.flash_attn import ops as flash_ops
 from repro_torch.nn import layers
 from repro_torch.nn.init import P
@@ -118,20 +120,92 @@ def out_project(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return out.flatten(-2) @ wo.reshape(h * e, d)
 
 
+def tp_heads(cfg: AttnConfig) -> tuple[int, int, int, int]:
+    """(q lo, q hi, kv lo, kv hi): the query heads this rank attends and
+    the kv heads they read; all heads outside a group.  The q heads are
+    the rank's cut of ``wq``'s heads where the rules cut it there, else
+    all of them."""
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    ctx = tp.current()
+    if ctx is None:
+        return 0, h, 0, kv
+    if sr.cut_dim(gqa_spec(cfg)["wq"], ctx.mesh) == 1:
+        qlo, qhi = tp.local_range(h)
+    else:
+        qlo, qhi = 0, h
+    g = h // kv
+    return qlo, qhi, qlo // g, (qhi - 1) // g + 1
+
+
+def _heads_tp(x: torch.Tensor, w: torch.Tensor, b, lo: int, hi: int,
+              compute_dtype) -> torch.Tensor:
+    """Heads [lo, hi) of ``x @ w`` (+ ``b``) in a group, by where ``w`` was
+    cut: along its heads (they are this rank's), its input dim (a partial
+    product, reduced), its head dim (made whole), or not at all."""
+    dim = tp.model_dim(w)
+    wc = w.to(compute_dtype)
+    if dim == 1:
+        y = _heads(x, wc)
+        if b is not None:
+            y = y + (b if tp.model_dim(b) == 0 else tp.whole(b)[lo:hi]).to(compute_dtype)
+        return y
+    if dim == 0:
+        y = tp.reduce_partial(_heads(tp.take_local(x, -1), wc))
+    elif dim == 2:
+        y = tp.gather_last(_heads(x, wc))
+    else:
+        y = _heads(x, wc)
+    if b is not None:
+        y = y + tp.whole(b).to(compute_dtype)
+    return y[:, :, lo:hi]
+
+
+def _kv_for_q(k: torch.Tensor, cfg: AttnConfig) -> torch.Tensor:
+    """The kv heads (B, S, KV_local, hd) repeated to the rank's q heads."""
+    groups = cfg.n_heads // cfg.n_kv_heads
+    qlo, qhi, kvlo, _ = tp_heads(cfg)
+    if qlo % groups == 0 and (qhi - qlo) % groups == 0:
+        return _repeat_kv(k, groups)
+    idx = torch.arange(qlo, qhi, device=k.device) // groups - kvlo
+    return k.index_select(2, idx)
+
+
+def _out_tp(out: torch.Tensor, wo: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """``out_project`` in a group: row-parallel on ``wo`` cut along its
+    heads (``out`` holds the rank's heads) or its head dim, column-parallel
+    on one cut along the embed dim."""
+    dim = tp.model_dim(wo)
+    wc = wo.to(compute_dtype)
+    if dim == 0:
+        return tp.reduce_partial(out_project(out, wc))
+    if dim == 1:
+        return tp.reduce_partial(out_project(tp.take_local(out, -1), wc))
+    if dim == 2:
+        return tp.gather_last(out_project(out, wc))
+    return out_project(out, wc)
+
+
 def gqa_project(params, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor,
                 compute_dtype=torch.bfloat16):
-    """x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,KV,hd), RoPE applied."""
+    """x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,KV,hd), RoPE applied; in a
+    group, the rank's q heads and the kv heads they read (``tp_heads``)."""
     x = x.to(compute_dtype)
-    q = _heads(x, params["wq"].to(compute_dtype))
-    k = _heads(x, params["wk"].to(compute_dtype))
-    v = _heads(x, params["wv"].to(compute_dtype))
-    if cfg.qkv_bias:
-        q = q + params["bq"].to(compute_dtype)
-        k = k + params["bk"].to(compute_dtype)
-        v = v + params["bv"].to(compute_dtype)
+    if tp.current() is not None:
+        qlo, qhi, kvlo, kvhi = tp_heads(cfg)
+        q = _heads_tp(x, params["wq"], params.get("bq"), qlo, qhi, compute_dtype)
+        k = _heads_tp(x, params["wk"], params.get("bk"), kvlo, kvhi, compute_dtype)
+        v = _heads_tp(x, params["wv"], params.get("bv"), kvlo, kvhi, compute_dtype)
+    else:
+        q = _heads(x, params["wq"].to(compute_dtype))
+        k = _heads(x, params["wk"].to(compute_dtype))
+        v = _heads(x, params["wv"].to(compute_dtype))
+        if cfg.qkv_bias:
+            q = q + params["bq"].to(compute_dtype)
+            k = k + params["bk"].to(compute_dtype)
+            v = v + params["bv"].to(compute_dtype)
     if cfg.qk_norm:
-        q = _headwise_rms(q, params["qnorm"].float())
-        k = _headwise_rms(k, params["knorm"].float())
+        q = _headwise_rms(q, tp.whole(params["qnorm"]).float())
+        k = _headwise_rms(k, tp.whole(params["knorm"]).float())
     q = layers.apply_rope(q, positions, cfg.rope_base, cfg.rotary_dim)
     k = layers.apply_rope(k, positions, cfg.rope_base, cfg.rotary_dim)
     return q, k, v
@@ -208,10 +282,13 @@ def attention(params, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor,
     """Self-attention over a full sequence (prefill), causal from position
     0.  Without a window: the ``flash_attn`` kernel (``flash_mha``).  With
     one: ``attend_full``, or ``attend_chunked`` past ``CHUNKED_THRESHOLD``
-    tokens, as in the reference."""
+    tokens, as in the reference.  In a group, over the rank's heads."""
     q, k, v = gqa_project(params, cfg, x, positions, compute_dtype)
-    groups = cfg.n_heads // cfg.n_kv_heads
-    k, v = _repeat_kv(k, groups), _repeat_kv(v, groups)
+    if tp.current() is not None:
+        k, v = _kv_for_q(k, cfg), _kv_for_q(v, cfg)
+    else:
+        groups = cfg.n_heads // cfg.n_kv_heads
+        k, v = _repeat_kv(k, groups), _repeat_kv(v, groups)
     s = x.shape[1]
     if cfg.window is None:
         out = flash_ops.flash_mha(q, k, v, cfg.scale, causal=True)
@@ -220,6 +297,8 @@ def attention(params, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor,
     else:
         mask = causal_mask(s, s, window=cfg.window, device=x.device)
         out = attend_full(q, k, v, mask, cfg.scale)
+    if tp.current() is not None:
+        return _out_tp(out, params["wo"], compute_dtype)
     return out_project(out, params["wo"].to(compute_dtype))
 
 
@@ -230,9 +309,11 @@ def attention(params, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor,
 
 def kv_cache_shape(cfg: AttnConfig, batch: int, max_len: int, dtype=torch.bfloat16):
     """{k, v} as ``meta`` tensors.  Sliding-window layers hold only the
-    window (a ring buffer)."""
+    window (a ring buffer).  In a group, the kv heads the rank's q heads
+    read (``tp_heads``)."""
     length = min(max_len, cfg.window) if cfg.window else max_len
-    shp = (batch, length, cfg.n_kv_heads, cfg.head_dim)
+    _, _, kvlo, kvhi = tp_heads(cfg)
+    shp = (batch, length, kvhi - kvlo, cfg.head_dim)
     return {"k": torch.empty(shp, dtype=dtype, device="meta"),
             "v": torch.empty(shp, dtype=dtype, device="meta")}
 
@@ -263,9 +344,13 @@ def decode_step(params, cfg: AttnConfig, cache, x_t: torch.Tensor, pos,
     k_cache[rows, slot] = k_t[:, 0].to(k_cache.dtype)
     v_cache[rows, slot] = v_t[:, 0].to(v_cache.dtype)
 
-    groups = cfg.n_heads // cfg.n_kv_heads
-    k = _repeat_kv(k_cache.to(compute_dtype), groups)
-    v = _repeat_kv(v_cache.to(compute_dtype), groups)
+    if tp.current() is not None:
+        k = _kv_for_q(k_cache.to(compute_dtype), cfg)
+        v = _kv_for_q(v_cache.to(compute_dtype), cfg)
+    else:
+        groups = cfg.n_heads // cfg.n_kv_heads
+        k = _repeat_kv(k_cache.to(compute_dtype), groups)
+        v = _repeat_kv(v_cache.to(compute_dtype), groups)
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * cfg.scale
     kpos = torch.arange(cache_len, device=x_t.device)
     if cfg.window:
@@ -278,6 +363,8 @@ def decode_step(params, cfg: AttnConfig, cache, x_t: torch.Tensor, pos,
     scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(compute_dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v)[:, 0]
+    if tp.current() is not None:
+        return cache, _out_tp(out, params["wo"], compute_dtype)
     return cache, out_project(out, params["wo"].to(compute_dtype))
 
 

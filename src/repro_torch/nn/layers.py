@@ -14,6 +14,16 @@ the reference's HWIO once); inside, an NHWC tensor is handed to
 element at the end, so it is asymmetric at stride 2 (on 32×32 inputs the
 7×7/2 stem pads (2, 3) and the 3/2 max-pool (0, 1), with −inf).  PyTorch's
 symmetric ``padding=`` would differ; the pads are applied with ``F.pad``.
+
+Inside a tensor-parallel group (``distributed.constraints.tp_group``) the
+LM layers take their rank's cut of each leaf, by where it was cut
+(``tp_dim``): ``dense`` and the MLP blocks are column-parallel on a weight
+cut along its output dim and row-parallel, ending in ``reduce_partial``, on
+one cut along its input dim; the embedding is a masked lookup plus
+``reduce_partial`` on a vocab-cut table and a lookup plus ``gather_last``
+on an embed-cut one (the fallback); ``logits`` end in ``gather_last``; a
+cut norm scale or bias is made whole.  The activations between layers are
+whole on every rank.  Outside a group nothing of this runs.
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import constraints as tp
 from repro_torch.nn.init import P
 
 
@@ -35,10 +46,56 @@ def dense_spec(d_in: int, d_out: int, axes=("embed", "mlp"), bias: bool = False,
 
 
 def dense(params, x: torch.Tensor, compute_dtype=torch.float32) -> torch.Tensor:
+    if tp.current() is not None:
+        return _dense_in(params, x, False, compute_dtype)
     y = x.to(compute_dtype) @ params["w"].to(compute_dtype)
     if "b" in params:
         y = y + params["b"].to(compute_dtype)
     return y
+
+
+def _bias(params, y: torch.Tensor, local: bool, compute_dtype) -> torch.Tensor:
+    """``y`` plus the bias, cut like ``y``'s last dim (``local``) or whole."""
+    if "b" not in params:
+        return y
+    b = params["b"]
+    if local != (tp.model_dim(b) is not None):
+        b = tp.take_local(b, 0) if local else tp.whole(b)
+    return y + b.to(compute_dtype)
+
+
+def _dense_out(params, x: torch.Tensor, compute_dtype):
+    """A group's dense on a whole ``x``: (y, whether y's last dim is this
+    rank's cut).  Column-parallel on a weight cut along its output dim; a
+    weight cut along its input dim takes the rank's slice of ``x`` and
+    reduces the partial product."""
+    w = params["w"]
+    dim = tp.model_dim(w)
+    if dim == 1:
+        y = x.to(compute_dtype) @ w.to(compute_dtype)
+        return _bias(params, y, True, compute_dtype), True
+    if dim == 0:
+        y = tp.reduce_partial(tp.take_local(x, -1).to(compute_dtype) @ w.to(compute_dtype))
+    else:
+        y = x.to(compute_dtype) @ w.to(compute_dtype)
+    return _bias(params, y, False, compute_dtype), False
+
+
+def _dense_in(params, x: torch.Tensor, x_local: bool, compute_dtype) -> torch.Tensor:
+    """A group's dense whose output is whole on every rank; ``x_local``
+    says ``x``'s last dim is this rank's cut (a column-parallel output),
+    which a weight cut along its input dim multiplies as it is
+    (row-parallel)."""
+    w = params["w"]
+    dim = tp.model_dim(w)
+    if x_local and dim != 0:
+        x, x_local = tp.gather_last(x), False
+    if dim == 0:
+        xs = x if x_local else tp.take_local(x, -1)
+        y = tp.reduce_partial(xs.to(compute_dtype) @ w.to(compute_dtype))
+        return _bias(params, y, False, compute_dtype)
+    y, local = _dense_out(params, x, compute_dtype)
+    return tp.gather_last(y) if local else y
 
 
 def embedding_spec(vocab: int, d: int, dtype=torch.float32):
@@ -49,12 +106,30 @@ def embedding_spec(vocab: int, d: int, dtype=torch.float32):
 def embedding(params, ids: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Rows of the table, cast after the gather (the same values as the
     reference's cast-then-gather, without casting the whole table)."""
-    return params["table"][ids].to(compute_dtype)
+    table = params["table"]
+    dim = tp.model_dim(table)
+    if dim == 0:
+        # vocab-cut: this rank's rows, zeros elsewhere, summed over ranks
+        n = table.shape[0]
+        lo = tp.current().rank * n
+        mask = (ids >= lo) & (ids < lo + n)
+        rows = table[torch.clamp(ids - lo, 0, n - 1)].to(compute_dtype)
+        return tp.reduce_partial(torch.where(mask[..., None], rows, 0))
+    if dim == 1:
+        return tp.gather_last(table[ids].to(compute_dtype))
+    return table[ids].to(compute_dtype)
 
 
 def logits(params, x: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Tied-embedding readout: x @ table.T"""
-    return x.to(compute_dtype) @ params["table"].to(compute_dtype).T
+    table = params["table"]
+    dim = tp.model_dim(table)
+    if dim == 0:
+        return tp.gather_last(x.to(compute_dtype) @ table.to(compute_dtype).T)
+    if dim == 1:
+        return tp.reduce_partial(
+            tp.take_local(x, -1).to(compute_dtype) @ table.to(compute_dtype).T)
+    return x.to(compute_dtype) @ table.to(compute_dtype).T
 
 
 def rmsnorm_spec(d: int, dtype=torch.float32):
@@ -65,7 +140,7 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6, offset: float = 0.0) -> 
     """``offset=1`` is gemma's (1 + w) scale."""
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps) * (offset + params["scale"].float())
+    y = xf * torch.rsqrt(var + eps) * (offset + tp.whole(params["scale"]).float())
     return y.to(x.dtype)
 
 
@@ -148,6 +223,10 @@ def glu_mlp_spec(d_model: int, d_ff: int, dtype=torch.float32):
 
 
 def glu_mlp(params, x: torch.Tensor, act=swiglu, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    if tp.current() is not None:
+        g, local = _dense_out(params["gate"], x, compute_dtype)
+        u, _ = _dense_out(params["up"], x, compute_dtype)
+        return _dense_in(params["down"], act(g, u), local, compute_dtype)
     g = dense(params["gate"], x, compute_dtype)
     u = dense(params["up"], x, compute_dtype)
     return dense(params["down"], act(g, u), compute_dtype)
@@ -161,6 +240,9 @@ def mlp_spec(d_model: int, d_ff: int, dtype=torch.float32, bias: bool = False):
 
 
 def mlp(params, x: torch.Tensor, act=gelu, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    if tp.current() is not None:
+        h, local = _dense_out(params["up"], x, compute_dtype)
+        return _dense_in(params["down"], act(h), local, compute_dtype)
     return dense(params["down"], act(dense(params["up"], x, compute_dtype)), compute_dtype)
 
 

@@ -14,9 +14,17 @@ parameter layout (E stacked experts):
 - ``dense``: the reference's one-hot dispatch oracle (O(T·E·C) memory),
   for small tests.
 
-Expert parallelism (``moe_gather``'s ``expert_shard=`` and
-``MoEConfig.ep_constraint``) waits for the port's distribution layer
-(ROADMAP Queue 1 #6) and raises.
+Expert parallelism, as in the reference: ``moe_gather(...,
+expert_shard=(lo, n))`` serves experts [lo, lo + n) only (the shared
+expert on shard 0 only), and its output is a partial sum the caller
+reduces.  Inside a tensor-parallel group (``distributed.constraints``)
+``moe_block`` takes the rank's experts from the rules (experts over the
+``model`` axis, ``TP_RULES["experts"]``), routes on the whole router,
+and ends in ``reduce_partial``; each pair keeps the queue position it has
+on one device, so the same pairs are dropped.  ``MoEConfig.ep_constraint``
+is the reference's GSPMD hint on the expert buffers: the identity outside
+a group, as ``maybe_constrain`` is, and inside one too, where each rank's
+buffers hold only its experts already.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import constraints as tp
 from repro_torch.nn import layers
 from repro_torch.nn.init import P
 
@@ -42,7 +51,7 @@ class MoEConfig:
     capacity_factor: float = 1.25
     impl: str = "gather"  # gather | dense
     router_norm_topk: bool = True  # renormalize top-k probs
-    ep_constraint: bool = False  # a sharding constraint (Queue 1 #6)
+    ep_constraint: bool = False  # GSPMD's expert-buffer hint: the identity here
 
 
 def moe_spec(cfg: MoEConfig, dtype=torch.float32):
@@ -61,8 +70,14 @@ def moe_spec(cfg: MoEConfig, dtype=torch.float32):
 
 
 def route(params, cfg: MoEConfig, x: torch.Tensor):
-    """x: (T, D) -> (weights (T, k), idx (T, k), probs (T, E) f32)."""
-    logits = x.float() @ params["router"].float()
+    """x: (T, D) -> (weights (T, k), idx (T, k), probs (T, E) f32).  In a
+    group, a router cut along its experts gives each rank's columns of the
+    logits, made whole, so every rank routes on the same bits."""
+    router = params["router"]
+    if tp.model_dim(router) == 1:
+        logits = tp.gather_last(x.float() @ router.float())
+    else:
+        logits = x.float() @ router.float()
     probs = torch.softmax(logits, dim=-1)
     w, idx = torch.topk(probs, cfg.top_k, dim=-1)
     if cfg.router_norm_topk:
@@ -109,16 +124,8 @@ def _shared(params, cfg: MoEConfig, x: torch.Tensor, compute_dtype):
     return layers.glu_mlp(params["shared"], x, compute_dtype=compute_dtype)
 
 
-def _refuse_ep(cfg: MoEConfig, expert_shard) -> None:
-    if expert_shard is not None or cfg.ep_constraint:
-        raise NotImplementedError(
-            "expert parallelism (expert_shard=, ep_constraint) is not ported "
-            "yet (ROADMAP Queue 1 #6, distribution)")
-
-
 def moe_dense(params, cfg: MoEConfig, x: torch.Tensor, compute_dtype=torch.bfloat16):
     """One-hot dispatch oracle. x: (T, D) -> (y (T, D), aux)."""
-    _refuse_ep(cfg, None)
     t, _ = x.shape
     w, idx, probs = route(params, cfg, x)
     cap = _capacity(cfg, t)
@@ -142,37 +149,65 @@ def moe_dense(params, cfg: MoEConfig, x: torch.Tensor, compute_dtype=torch.bfloa
 def moe_gather(params, cfg: MoEConfig, x: torch.Tensor, compute_dtype=torch.bfloat16,
                expert_shard: tuple[int, int] | None = None):
     """Gather/scatter path. x: (T, D) -> (y (T, D), aux).  Every pair past
-    its expert's capacity goes to one overflow slot, which is dropped."""
-    _refuse_ep(cfg, expert_shard)
+    its expert's capacity goes to one overflow slot, which is dropped.
+
+    ``expert_shard=(lo, n)`` serves experts [lo, lo + n) only: ``y`` is a
+    partial sum the caller reduces over the shards, and the shared expert
+    is added on shard 0 only.  The expert weights may be whole (they are
+    sliced) or already the shard's ``n``."""
     t, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     w, idx, probs = route(params, cfg, x)
+    lo, n_local = expert_shard if expert_shard is not None else (0, e)
     cap = _capacity(cfg, t)
-    pos, keep = dispatch(idx, e, cap)
-    slot = torch.where(keep, idx.reshape(-1) * cap + pos, e * cap)
+    flat = idx.reshape(-1)
+    local = (flat >= lo) & (flat < lo + n_local)
+    # pairs of other shards go to an overflow expert n_local; a pair's
+    # place in its expert's queue is the one it has over all experts
+    pos, _ = dispatch(torch.where(local, flat - lo, n_local).reshape(idx.shape),
+                      n_local + 1, cap)
+    keep = local & (pos < cap)
+    slot = torch.where(keep, (flat - lo) * cap + pos, n_local * cap)
     token_of = torch.arange(t * k, device=x.device) // k
     xc = x.to(compute_dtype)
-    xe = torch.zeros((e * cap + 1, d), dtype=compute_dtype, device=x.device)
+    xe = torch.zeros((n_local * cap + 1, d), dtype=compute_dtype, device=x.device)
     xe[slot] = xc[token_of]
-    ye = _expert_ffn(params["gate"], params["up"], params["down"],
-                     xe[:-1].reshape(e, cap, d), compute_dtype)
-    ye_flat = torch.cat([ye.reshape(e * cap, d),
+    gate_w, up_w, down_w = (params[name] if params[name].shape[0] == n_local
+                            else params[name][lo:lo + n_local]
+                            for name in ("gate", "up", "down"))
+    ye = _expert_ffn(gate_w, up_w, down_w, xe[:-1].reshape(n_local, cap, d),
+                     compute_dtype)
+    ye_flat = torch.cat([ye.reshape(n_local * cap, d),
                          torch.zeros((1, d), dtype=compute_dtype, device=x.device)])
     contrib = ye_flat[slot] * (w.reshape(-1, 1) * keep[:, None]).to(compute_dtype)
     # each token's k pairs are adjacent: a sum over them is the reference's
     # scatter-add, in a fixed order (index_add would add with atomics on a
     # GPU, in an order that changes from run to run)
     y = contrib.view(t, k, d).sum(dim=1)
-    if cfg.n_shared:
+    if cfg.n_shared and lo == 0:
         y = y + _shared(params, cfg, x, compute_dtype)
     return y, aux_load_balance_loss(probs, idx, e)
+
+
+def _moe_block_tp(params, cfg: MoEConfig, xf: torch.Tensor, compute_dtype):
+    """A group's MoE layer: the rank's experts on every rank's routes,
+    reduced; the shared expert tensor-parallel after the reduce."""
+    lo, hi = tp.local_range(cfg.n_experts)
+    y, aux = moe_gather(params, dataclasses.replace(cfg, n_shared=0), xf,
+                        compute_dtype, expert_shard=(lo, hi - lo))
+    y = tp.reduce_partial(y)
+    if cfg.n_shared:
+        y = y + _shared(params, cfg, xf, compute_dtype)
+    return y, aux
 
 
 def moe_block(params, cfg: MoEConfig, x: torch.Tensor, compute_dtype=torch.bfloat16):
     """x: (B, S, D) -> (y (B, S, D), aux_loss)."""
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
-    if cfg.impl == "dense":
+    if tp.current() is not None:
+        y, aux = _moe_block_tp(params, cfg, xf, compute_dtype)
+    elif cfg.impl == "dense":
         y, aux = moe_dense(params, cfg, xf, compute_dtype)
     else:
         y, aux = moe_gather(params, cfg, xf, compute_dtype)

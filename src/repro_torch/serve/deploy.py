@@ -1,7 +1,7 @@
 """``deploy()``: the paper's generator -> serving-architecture loop.
 
-The port of ``repro.serve.deploy`` on one device: the four reasoners and
-the LM archs the port builds, freely mixed.  NSFlow's headline claim
+The port of ``repro.serve.deploy``: the four reasoners and the LM archs
+the port builds, freely mixed, on a pool of devices.  NSFlow's headline claim
 (paper Sec III, V) is end to end: a design architecture generator reads
 the workload's dataflow dependencies and emits the serving architecture.
 For each NSAI workload:
@@ -26,21 +26,33 @@ An LM model (kind ``lm``, ``rwkv`` or ``griffin``; the recurrent kinds
 prefill with exact-length scans) has no DSE step, as in the reference:
 its ``ServeConfig`` comes from the budget's LM fields (``max_slots``,
 ``max_len``, ``decode_block``, ``max_new_tokens``) overridden by its
-options, and ``configs.base.lm_engine`` builds the slot-pool ``Engine``
-over the arch's smoke config, its parameters drawn from the same ``(seed,
-model index)`` seed.
+options, and ``configs.base.lm_engine_pool`` builds the slot-pool
+``Engine`` over the arch's smoke config, its parameters drawn from the
+same ``(seed, model index)`` seed.
+
+The mesh side is the reference's co-search (``_mesh_plan`` over
+``core.meshdse.serving_search``, under the H100 table of
+``launch.mesh.HW``): the device pool is ``Budget.devices`` (None = every
+visible CUDA device, or the one CPU device), and each model gets a mesh
+point whose ``data`` axis is its replica count and whose ``model`` axis is
+its tensor-parallel degree.  An NSAI model serves whole pipelines, one per
+replica (``reason_engine_pool``, replica i on device ``i % pool``); an LM
+model serves ``replicas`` engines (``lm_engine_pool``) or one engine
+tensor-parallel over ``Budget.tp`` devices of the pool
+(``distributed.world``).  A pool larger than the visible devices wraps
+round-robin: ``Budget(devices=2)`` on one card runs two ranks there.
+``replicas="auto"`` takes the search's winner.
 
 The result is a :class:`Deployment`: one
 :class:`~repro_torch.serve.frontdoor.FrontDoor` over every engine, with an
 :class:`~repro_torch.serve.control.OverloadController` attached when the
 budget sets ``slo_ms`` or ``queue_depth``.  ``Deployment.backend`` is
 ``registry.negotiate(device)``, the record of what the device selects per
-kernel; ``Deployment.report()`` keeps the reference's keys and records
-None where the port has no counterpart yet (the mesh point).  A
-``Deployment`` whose engine is a
-:class:`~repro_torch.serve.replica.ReplicaPool` (built by hand with
-``configs.base.reason_engine_pool``) reports and warms it as the
-reference does.
+kernel; ``Deployment.report()`` keeps the reference's keys, the mesh
+point and replica count included.  A ``Deployment`` whose engine is a
+:class:`~repro_torch.serve.replica.ReplicaPool` reports and warms it as
+the reference does.  ``Deployment.close()`` ends the tensor-parallel
+worlds.
 
 ``preflight`` gates the deployment as in the reference: ``"error"`` (the
 default) runs the cheap tier of ``repro_torch.analyze`` over the reason
@@ -49,13 +61,11 @@ models' schedules (for a pool, its first replica's) and raises
 records the failing report and carries on; ``"off"`` skips it.  The
 report lands in ``Deployment.report()["analysis"]``.
 
-What the port does not have yet raises ``NotImplementedError`` naming its
-ROADMAP item, and is never ignored: a ``Budget`` with ``devices``,
-``replicas`` or ``tp`` above 1 (deploy's replica count comes from the mesh
-co-search, Queue 1 #3d and #6; LM replica pools and tensor-parallel
-decode, #4 item 4).  ``backend=`` other than None raises too, by design
-(#3e): the device selects each kernel, and no plan may send a CUDA tensor
-to a plain version.
+``backend=`` other than None raises ``NotImplementedError``, by design
+(ROADMAP Queue 1 #3e): the device selects each kernel, and no plan may
+send a CUDA tensor to a plain version.  ``Budget.tp`` beyond the pool
+raises; it is never ignored for an LM model (an NSAI model serves whole
+pipelines, as in the reference).
 """
 
 from __future__ import annotations
@@ -68,6 +78,7 @@ import numpy as np
 import torch
 
 from repro_torch.backend import registry
+from repro_torch.common.tree import tree_leaves
 from repro_torch.serve.control import (ControlConfig, OverloadController,
                                        validate_shed_policy)
 from repro_torch.serve.frontdoor import (ArrivalRequest, FrontDoor,
@@ -94,11 +105,14 @@ class Budget:
     ``inflight_cap`` size the DSE and the serving plan; ``slo_ms`` /
     ``queue_depth`` / ``shed_policy`` size the overload control plane
     (setting either of the first two attaches an ``OverloadController``).
-    ``devices``, ``replicas`` and ``tp`` size the mesh side of the search,
-    which the port does not have yet: a value above 1 (or
-    ``replicas="auto"``) raises ``NotImplementedError``.  ``max_slots``,
-    ``max_len``, ``decode_block`` and ``max_new_tokens`` size every LM
-    model's slot-pool engine."""
+    ``devices`` / ``replicas`` / ``tp`` size the mesh side of the search:
+    ``devices`` is the device pool (None = the visible CUDA devices, or
+    the CPU), ``replicas`` the data-parallel engine replica count per
+    model (None = 1, ``"auto"`` = the data axis of the mesh-DSE winner
+    under ``devices``), ``tp`` the tensor-parallel degree of each LM
+    engine (NSAI pipelines serve whole, so it does not apply to them).
+    ``max_slots``, ``max_len``, ``decode_block`` and ``max_new_tokens``
+    size every LM model's slot-pool engine."""
 
     max_pes: int = 4096           # AdArray PE budget handed to the DSE
     max_batch: int = 8            # admission-group ceiling (NSAI buckets)
@@ -107,7 +121,7 @@ class Budget:
     max_len: int = 128            # LM per-slot KV capacity
     decode_block: int = 8         # LM tokens per decode block
     max_new_tokens: int = 24      # LM default generation budget
-    devices: int | None = None    # device pool (None = 1 here)
+    devices: int | None = None    # device pool (None = the visible devices)
     replicas: int | str | None = None  # DP engine replicas (None = 1)
     tp: int | None = None         # LM tensor-parallel degree (None = 1)
     slo_ms: float | Mapping[str, float] | None = None
@@ -115,23 +129,45 @@ class Budget:
     shed_policy: str = "lowest-priority"
 
 
-def _refuse_unported(budget: Budget, backend) -> None:
-    """Raise for every option whose layer the port does not have yet."""
-    if budget.replicas == "auto" or any(
-            v is not None and v > 1
-            for v in (budget.devices, budget.replicas, budget.tp)):
-        raise NotImplementedError(
-            f"Budget(devices={budget.devices}, replicas={budget.replicas}, "
-            f"tp={budget.tp}): deploy() serves one engine per model on one "
-            "device; its replica count comes from the mesh co-search "
-            "(ROADMAP Queue 1 #3d and #6; LM pools and tensor-parallel "
-            "decode, #4 item 4). Build an NSAI pool by hand with "
-            "configs.base.reason_engine_pool")
+def _refuse_backend(backend) -> None:
     if backend is not None:
         raise NotImplementedError(
             f"backend={backend!r}: the port takes no lowering override "
             "(ROADMAP Queue 1 #3e, by design): the tensor's device selects "
             "each kernel; pass device='cpu' for the plain versions")
+
+
+def _mesh_plan(n_params: float, d_model: int, n_layers: int, seq: int,
+               batch: int, ndev: int, replicas, tp: int,
+               kv_bytes_per_tok: float = 0.0):
+    """Resolve (replica count, deployed MeshPoint) for one model, as the
+    reference does.
+
+    ``replicas="auto"`` lets the serving-mode mesh DSE pick: search the
+    whole ``ndev`` pool with the model axis pinned to ``tp`` and take the
+    winner's data axis.  An explicit/None replica count is honored as-is:
+    the search then runs at ``chips = replicas x tp`` so the recorded
+    point describes the factorization actually deployed (its ``bound_s``
+    is the per-step roofline prediction for that mesh)."""
+    from repro_torch.core import meshdse
+
+    def pts_at(chips, b):
+        pts = meshdse.serving_search(
+            n_params, n_params, d_model, n_layers, seq, b,
+            devices=chips, kv_bytes_per_tok=kv_bytes_per_tok,
+            max_model=tp)
+        return [p for p in pts if p.model == tp] or pts
+
+    if replicas == "auto":
+        point = pts_at(max(1, ndev), batch)[0]
+        return point.data, point
+    r = int(replicas or 1)
+    # the search drops data axes that don't divide the batch; an explicit
+    # replica count is honored regardless, so round the modeled batch up
+    b = batch if (batch % r == 0 or batch < r) else -(-batch // r) * r
+    pts = pts_at(r * tp, b)
+    point = next((p for p in pts if p.data == r and p.model == tp), pts[0])
+    return r, point
 
 
 @dataclasses.dataclass
@@ -163,6 +199,11 @@ class Deployment:
     backend: registry.LoweringPlan | None = None
     options: dict = dataclasses.field(default_factory=dict)
     analysis: Any = None
+    # the mesh-DSE outcome per model: the deployed MeshPoint (data =
+    # replicas, model = TP degree; empty for a hand-built Deployment) and
+    # the replica count (1 when absent)
+    mesh: dict = dataclasses.field(default_factory=dict)
+    replicas: dict = dataclasses.field(default_factory=dict)
 
     def _pool(self, m: str):
         """The model's ReplicaPool, or None when served by a bare engine."""
@@ -176,6 +217,13 @@ class Deployment:
         compile-time structure from; stats come from the pool (merged)."""
         pool = self._pool(m)
         return pool.replicas[0] if pool is not None else self.engines[m]
+
+    def close(self) -> None:
+        """End every tensor-parallel engine's world (a no-op for engines on
+        one device)."""
+        for eng in self.engines.values():
+            if hasattr(eng, "world"):
+                eng.close()
 
     def backend_record(self) -> dict | None:
         """The device's LoweringPlan as a plain record: platform, how it
@@ -191,14 +239,17 @@ class Deployment:
         return self.door.serve(arrivals)
 
     def report(self) -> dict:
-        """Per-model deployment record with the chosen DSE point, under the
-        reference's keys (None where the port has no counterpart).  Stats
-        come off the engine, for a pool the sum over its replicas."""
+        """Per-model deployment record with the chosen DSE point and mesh
+        point, under the reference's keys.  Stats come off the engine, for
+        a pool the sum over its replicas; ``replicas`` counts the engines
+        that serve the model (a pool's length)."""
         out = {}
         backend = self.backend_record()
         for m, eng in self.engines.items():
             pool, base = self._pool(m), self._base(m)
             design = self.designs[m]
+            point = self.mesh.get(m)
+            mesh = point.record() if point is not None else None
             if self.classes[m] != "reason":
                 out[m] = {
                     "class": self.classes[m], "design": None,
@@ -206,8 +257,9 @@ class Deployment:
                     "serving": {"max_slots": base.cfg.max_slots,
                                 "max_len": base.cfg.max_len,
                                 "decode_block": base.cfg.decode_block},
-                    "backend": backend, "mesh": None, "replicas": 1,
-                    "per_replica": None}
+                    "backend": backend, "mesh": mesh,
+                    "replicas": len(pool) if pool is not None else self.replicas.get(m, 1),
+                    "per_replica": pool.per_replica() if pool is not None else None}
                 continue
             sched = base.schedules[self.variants[m]]
             serving = {
@@ -234,8 +286,8 @@ class Deployment:
                 "searched_points": design.searched_points,
                 "serving": serving,
                 "backend": backend,
-                "mesh": None,
-                "replicas": len(pool) if pool is not None else 1,
+                "mesh": mesh,
+                "replicas": len(pool) if pool is not None else self.replicas.get(m, 1),
                 "per_replica": pool.per_replica() if pool is not None else None,
             }
         out["analysis"] = (self.analysis.to_dict()
@@ -267,7 +319,10 @@ class Deployment:
             dse = (f"dse={design.tag()} ({design.searched_points} points)"
                    if design is not None else "dse=n/a (single nn stream)")
             knobs = " ".join(f"{k}={v}" for k, v in rec["serving"].items())
-            lines.append(f"{m} [{rec['class']}]: {knobs} | {dse} | mesh=n/a "
+            point = self.mesh.get(m)
+            mesh = (f"{point.tag()} replicas={rec['replicas']}"
+                    if point is not None else "mesh=n/a")
+            lines.append(f"{m} [{rec['class']}]: {knobs} | {dse} | {mesh} "
                          f"| {backend}")
             if rec["per_replica"]:
                 split = " ".join(
@@ -364,7 +419,7 @@ def deploy(workloads: Iterable[str], traffic: Traffic | None = None,
            backend=None, preflight: str = "error", device=None,
            clock: Callable[[], float] = time.perf_counter,
            sleep: Callable[[float], None] = time.sleep) -> Deployment:
-    """Deploy a mixed set of workloads behind one front-door on one device.
+    """Deploy a mixed set of workloads behind one front-door.
 
     ``workloads``: model names of the runtime registry: NSAI workload ids
     (``nvsa``, ``prae``, ``mimonet``, ``lvrf``) and the port's LM arch ids
@@ -372,9 +427,10 @@ def deploy(workloads: Iterable[str], traffic: Traffic | None = None,
     ``options[model]`` passes ``make_config`` knobs (``d``,
     ``nn_precision``) and an optional ``variant`` to an NSAI model, and
     ``ServeConfig`` field overrides to an LM model.  The NSAI serving
-    configuration is derived, not hand-set (see the module docstring).
-    ``device``: None means ``"cuda"`` (raises without CUDA); ``"cpu"``
-    serves on the plain versions.  ``preflight``: ``"error"`` (default),
+    configuration is derived, not hand-set, and so is the mesh (see the
+    module docstring).  ``device``: None means ``"cuda"`` (raises without
+    CUDA; the pool is then every visible card); ``"cpu"`` serves on the
+    plain versions, and a pool of ``Budget.devices`` CPU devices.  ``preflight``: ``"error"`` (default),
     ``"warn"`` or ``"off"`` (see the module docstring)."""
     from repro_torch.configs import base as cbase
     from repro_torch.core import dse
@@ -392,9 +448,13 @@ def deploy(workloads: Iterable[str], traffic: Traffic | None = None,
     if preflight not in ("error", "warn", "off"):
         raise ValueError(f"preflight must be 'error', 'warn' or 'off', "
                          f"got {preflight!r}")
-    _refuse_unported(budget, backend)
+    _refuse_backend(backend)
     dev = registry.resolve_device(device)
     lowering_plan = registry.negotiate(dev)
+    visible = cbase.device_pool() if dev.type == "cuda" else (str(dev),)
+    ndev = budget.devices or len(visible)
+    pool = tuple(visible[i % len(visible)] for i in range(ndev))
+    tp_eff = budget.tp or 1
 
     engines: dict[str, Any] = {}
     classes: dict[str, str] = {}
@@ -402,22 +462,46 @@ def deploy(workloads: Iterable[str], traffic: Traffic | None = None,
     plans: dict[str, Any] = {}
     configs: dict[str, Any] = {}
     variants: dict[str, str | None] = {}
+    mesh: dict[str, Any] = {}
+    replicas: dict[str, int] = {}
     for i, m in enumerate(models):
         opts = dict(options.get(m, {}))
         gen = torch.Generator().manual_seed(
             int(np.random.SeedSequence([seed, i]).generate_state(1)[0]))
         if m not in cbase.REASON_WORKLOADS:
             # resolve_models validated every name, so this is an LM arch:
-            # no design point, the budget's slot pool and the options
+            # no design point, the budget's slot pool and the options; the
+            # mesh co-search pins the model axis to budget.tp, with the KV
+            # term of the arch config (bytes per resident token across
+            # every layer's K+V, f32 smoke params)
+            from repro_torch.configs.registry import get_arch
+
+            if tp_eff > ndev:
+                raise ValueError(
+                    f"Budget(tp={tp_eff}) exceeds the device pool of {ndev} "
+                    f"{pool}: set Budget(devices=) to at least {tp_eff} (a "
+                    "pool larger than the visible devices wraps round-robin)")
             scfg = dataclasses.replace(
                 ServeConfig(max_slots=budget.max_slots,
                             max_len=budget.max_len,
                             decode_block=budget.decode_block,
                             max_new_tokens=budget.max_new_tokens), **opts)
-            engines[m], configs[m] = cbase.lm_engine(m, scfg, key=gen,
-                                                     device=dev)
+            arch = get_arch(m)
+            mcfg = arch.make_smoke()
+            kv_bytes = (getattr(mcfg, "n_layers", 1) * 2
+                        * getattr(mcfg, "n_kv_heads", getattr(mcfg, "n_heads", 1))
+                        * getattr(mcfg, "head_dim", 64) * 4.0)
+            r, point = _mesh_plan(
+                float(cbase.param_count(arch, mcfg)), getattr(mcfg, "d_model", 128),
+                getattr(mcfg, "n_layers", 1), seq=budget.max_len,
+                batch=budget.max_slots, ndev=ndev, replicas=budget.replicas,
+                tp=tp_eff, kv_bytes_per_tok=kv_bytes)
+            engines[m], configs[m] = cbase.lm_engine_pool(
+                m, scfg, key=gen, replicas=r, tp=tp_eff,
+                device=dev if tp_eff == 1 else None, devices=pool)
             classes[m], designs[m], plans[m], variants[m] = \
                 "lm", None, None, None
+            mesh[m], replicas[m] = point, r
             continue
         entry = cbase.REASON_WORKLOADS[m]
         variant = opts.pop("variant", None) or entry.variants[0]
@@ -431,17 +515,30 @@ def deploy(workloads: Iterable[str], traffic: Traffic | None = None,
         design = dse.explore(sch.ensure_graph(probe), max_pes=budget.max_pes)
         plan = dse.serving_plan(design, max_batch=budget.max_batch,
                                 inflight_cap=budget.inflight_cap)
-        eng = cbase.reason_engine(
+        # mesh co-search (serving mode): staged pipelines serve one whole
+        # pipeline per device, so the model axis is pinned to 1 and the
+        # winner's data axis is the engine replica count
+        n_params = sum(t.numel() for t in tree_leaves(consts)
+                       if isinstance(t, torch.Tensor))
+        r, point = _mesh_plan(
+            float(n_params), getattr(cfg, "d", 128),
+            max(1, len(entry.stage_specs(cfg, variant))), seq=1,
+            batch=budget.max_batch, ndev=ndev, replicas=budget.replicas, tp=1)
+        eng = cbase.reason_engine_pool(
             m, cfg,
             ReasonConfig(batch_size=plan.batch_size, schedule=plan.schedule,
                          variant=variant, max_inflight=plan.max_inflight,
                          buckets=plan.buckets),
-            consts=consts, variants=(variant,), device=dev)
+            consts=consts, variants=(variant,), replicas=r, device=dev)
         # one call per group where the fused callable is negotiated exact
-        if plan.schedule == "overlap" and eng.schedules[variant].fused_ok:
-            eng.cfg.schedule = "fused"
+        # (replicas share the compiled schedules, each keeps its own cfg)
+        subs = eng.replicas if hasattr(eng, "replicas") else [eng]
+        if plan.schedule == "overlap" and subs[0].schedules[variant].fused_ok:
+            for sub in subs:
+                sub.cfg.schedule = "fused"
         engines[m], designs[m], plans[m] = eng, design, plan
         configs[m], variants[m], classes[m] = cfg, variant, "reason"
+        mesh[m], replicas[m] = point, r
 
     controller = None
     if budget.slo_ms is not None or budget.queue_depth is not None:
@@ -468,7 +565,8 @@ def deploy(workloads: Iterable[str], traffic: Traffic | None = None,
                      variants=variants, traffic=traffic, budget=budget,
                      seed=seed, controller=controller, backend=lowering_plan,
                      options={m: dict(options.get(m, {})) for m in models
-                              if options.get(m)})
+                              if options.get(m)},
+                     mesh=mesh, replicas=replicas)
     # the preflight gate: the cheap tier over the schedules the engines
     # serve (a pool's first replica's; on meta, so nothing launches), the
     # memoized serving lint and the static registry checks

@@ -973,3 +973,49 @@ def test_deploy_through_the_preflight_gate_on_the_card(gen):
     rec = dep.report()["analysis"]
     assert rec["ok"] and rec["coverage"]["schedules"] == 1, rec
     assert "preflight PASS" in dep.summary()
+
+
+@pytest.mark.parametrize("arch_id", ["llama3.2-3b", "granite-moe-1b-a400m"])
+def test_tensor_parallel_world_on_the_card(gen, arch_id):
+    """Two ranks on one card over gloo (``devices=("cuda:0", "cuda:0")``):
+    at f32 compute and smoke width, the greedy streams equal the
+    single-device engine's and the forward's logits lie within 1e-4 of
+    its; each rank launches flash_attn once per layer of the forward, on
+    its own heads."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import base as cb
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import world
+    from repro_torch.nn import init as nninit
+    from repro_torch.serve.engine import Engine, Request, ServeConfig
+
+    arch = get_arch(arch_id)
+    cfg = dataclasses.replace(arch.make_smoke(), compute_dtype=torch.float32)
+    serve = ServeConfig(max_new_tokens=8, max_slots=3, max_len=64, decode_block=4)
+    key = torch.Generator("cuda").manual_seed(3)
+    seeded = world.SeededParams.of(key)
+    params = nninit.materialize(cb.model_spec(arch, cfg), key)
+    rng = np.random.default_rng(0)
+    reqs = [Request(uid=i, prompt=rng.integers(1, cfg.vocab, int(n)).astype(np.int32))
+            for i, n in enumerate(rng.integers(3, 30, 4))]
+    step, init = cb.serve_fns(arch, cfg, 64)
+    want = Engine(step, init, serve, params=params).run(reqs)
+    eng = world.tp_engine(arch_id, cfg, seeded, 2, ("cuda:0", "cuda:0"), serve)
+    try:
+        got = eng.run(reqs)
+        assert {u: r.tokens.tolist() for u, r in got.items()} == \
+            {u: r.tokens.tolist() for u, r in want.items()}
+        eng.world.reset_launches()
+        registry.reset_launches()
+        toks = torch.randint(0, cfg.vocab, (2, 40), device="cuda", generator=gen)
+        logits = eng.forward(toks)
+        launches = [c["flash_attn"] for c in eng.world.launches()]
+        assert launches == [cfg.n_layers] * 2
+        forward, readout = cb.forward_fn(arch, cfg)
+        torch.testing.assert_close(logits, readout(params, forward(params, toks)),
+                                   atol=1e-4, rtol=0)
+    finally:
+        eng.close()

@@ -130,8 +130,14 @@ def test_report_keeps_the_reference_keys(pair):
         assert set(got[m]["backend"]) == set(want[m]["backend"])
         assert got[m]["backend"]["platform"] == "cpu"
         assert set(got[m]["backend"]["lowerings"]) == set(p_registry.KERNELS)
-        assert got[m]["mesh"] is None
-        assert got[m]["replicas"] == 1 and got[m]["per_replica"] is None
+        # the mesh co-search's point: the reference's factorisation and
+        # keys, its times under the port's H100 table (the reference's
+        # holds a TPU's)
+        assert set(got[m]["mesh"]) == set(want[m]["mesh"])
+        assert (got[m]["mesh"]["data"], got[m]["mesh"]["model"]) == \
+            (want[m]["mesh"]["data"], want[m]["mesh"]["model"]) == (1, 1)
+        assert got[m]["replicas"] == want[m]["replicas"] == 1
+        assert got[m]["per_replica"] is None
     # both packages ran their default preflight gate over the same models
     assert set(got["analysis"]) == set(want["analysis"])
     assert got["analysis"]["ok"] and want["analysis"]["ok"]
@@ -139,6 +145,7 @@ def test_report_keeps_the_reference_keys(pair):
         want["analysis"]["coverage"]["schedules"] == len(MODELS)
     assert got["control"] is None
     assert "dse=8x32x" in port.summary()
+    assert "mesh=1x1 bound=" in port.summary()
     assert "backend=cpu/torch" in port.summary()
     assert "preflight PASS: 0 error(s), 0 warning(s)" in port.summary()
 
@@ -199,10 +206,34 @@ def test_controller_attaches_as_in_the_reference():
 @pytest.mark.parametrize("budget, match", [
     ({"devices": 2}, "#3d and #6"), ({"replicas": 2}, "#3d and #6"),
     ({"replicas": "auto"}, "#3d and #6"), ({"tp": 2}, "#3d and #6")])
-def test_unported_budgets_raise(budget, match):
-    with pytest.raises(NotImplementedError, match=match):
-        p_deploy_mod.deploy(["nvsa"], budget=p_deploy_mod.Budget(**budget),
-                            device="cpu")
+def test_unported_budgets_raise(budget, match, monkeypatch):
+    """These budgets were refused, naming ROADMAP #3d and #6 (``match``),
+    until the mesh co-search was ported.  Now each deploys on the CPU, and
+    the mesh point and replica count it records are the reference's
+    ``_mesh_plan`` under the port's H100 table (patched into the
+    reference's ``meshdse`` for the comparison), for nvsa's parameter
+    count and stage count in the reference."""
+    import jax
+
+    from repro.configs import base as r_cb
+    from repro.core import meshdse as r_meshdse
+    from repro_torch.launch.mesh import HW
+
+    monkeypatch.setattr(r_meshdse, "HW", dict(HW))
+    b = p_deploy_mod.Budget(**budget)
+    dep = p_deploy_mod.deploy(["nvsa"], budget=b, device="cpu")
+    entry = r_cb.REASON_WORKLOADS["nvsa"]
+    cfg = entry.make_config()
+    consts = jax.eval_shape(lambda: entry.make_consts(cfg, jax.random.PRNGKey(0)))
+    n_params = sum(int(np.prod(x.shape)) for x in jax.tree.leaves(consts))
+    r, point = r_deploy_mod._mesh_plan(
+        float(n_params), cfg.d, len(entry.stage_specs(cfg, entry.variants[0])), seq=1,
+        batch=b.max_batch, ndev=b.devices or jax.device_count(),
+        replicas=b.replicas, tp=1)
+    rec = dep.report()["nvsa"]
+    assert rec["replicas"] == r and rec["mesh"] == point.record()
+    assert len(dep.engines["nvsa"].replicas if r > 1 else [dep.engines["nvsa"]]) == r
+    assert f"mesh={point.data}x{point.model}" in dep.summary()
 
 
 def test_unported_options_raise():

@@ -123,7 +123,10 @@ def test_deploy_reports_equal_apart_from_mesh(pair):
     assert port.classes == ref.classes == {"nvsa": "reason", LM: "lm"}
     for m in MODELS:
         w, g = dict(want[m]), dict(got[m])
-        assert g.pop("mesh") is None and w.pop("mesh") is not None
+        # the mesh co-search's point: the reference's factorisation and
+        # keys, its times under the port's H100 table
+        gm, wm = g.pop("mesh"), w.pop("mesh")
+        assert set(gm) == set(wm) and (gm["data"], gm["model"]) == (wm["data"], wm["model"])
         wb, gb = w.pop("backend"), g.pop("backend")
         assert set(gb) == set(wb) and gb["platform"] == "cpu"
         if m == LM:
@@ -135,7 +138,7 @@ def test_deploy_reports_equal_apart_from_mesh(pair):
                 {k: v for k, v in ws.items() if k != "fused"}
             assert gs["fused"]["ok"] == ws["fused"]["ok"]
     assert f"{LM} [lm]: max_slots=2 max_len=64 decode_block=8 | " \
-        "dse=n/a (single nn stream) | mesh=n/a" in port.summary()
+        "dse=n/a (single nn stream) | mesh=1x1 bound=" in port.summary()
     assert port.configs[LM] == dataclasses.replace(
         PARCHS[LM].make_smoke(), compute_dtype=torch.float32)
 
