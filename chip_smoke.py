@@ -236,8 +236,9 @@ and prints no result line):
    at ~81 against ~5 elsewhere), its tokens the argmax of the bf16 decode
    scan at the engine's slot count outside near ties; rwkv6-7b also
    served at 2 layers, held at bf16; recurrentgemma-9b also at one (rec,
-   rec, attn) unit of depth serving 2 prompts of 2056-2100 tokens, so its
-   rings wrap past the window, held at f32 as above.  Then internvl2-26b
+   rec, attn) unit of depth serving 2 prompts of 2056-2100 tokens in two
+   slots, 4 new tokens each, so its rings wrap past the window, held at
+   f32 as above.  Then internvl2-26b
    at its width cut by memory to 38 of its 48 layers (``lm_vlm_arch``,
    15.96B f32 parameters): the forward over 1024 random patch embeddings
    and 1024 tokens, flash_attn once per layer at (1, 2048, 48, 128), held
@@ -330,6 +331,35 @@ and prints no result line):
    single-device; each collective's count and host ms (a timed forward,
    the device synchronised around each collective); each rank's peak
    bytes; the mesh records.
+11c. Dist: the training half of distribution (``launches_by_path["dist"]``,
+   summed over the ranks), on one world of two ranks on the one card.
+   llama3.2-3b at its published width (28 layers, f32 parameters, bf16
+   compute) pipelined by ``distributed/gpipe.py`` over the two ranks, 14
+   layers each (rank 0 holds layers 0-13 and the embedding, final norm
+   and head; rank 1 draws 14-27 from the same seeded generator), 4
+   microbatches of (1, 512): 5 ticks, 70 flash_attn launches on each rank;
+   the logits within 3e-2 of the scale of the single device's forward of
+   the same parameters, one backward through the schedule (the permutes'
+   reverse, in lockstep) with each stage's gradients within 1e-4 of each
+   leaf's max of the single device accumulating the same microbatches in
+   order; the permutes' count, bytes and host ms (a second step, timed),
+   the bubble fraction, ms a pipelined step, each rank's peak bytes.
+   ``compressed_psum`` of each rank's largest gradient leaf (one layer's
+   (3072, 8192) f32 MLP weight: a stage holds a leaf a layer) within the
+   quantisation bound (the sum of the ranks' scale / 2) of the exact sum; ten
+   error-feedback steps within the last residual of the true sum.  NVSA
+   cnn at d = 128 folded by ``core/folding.py`` (n_l = 1): the frontend on
+   64 panels on rank 0, the symbolic back end on 8 problems' PMFs on rank
+   1 (circ_conv launched there), both bit for bit the single process's
+   calls.  ``launch.train`` at llama3.2-3b's smoke width (20 steps of 4 x
+   32, checkpoints at 10 and 20; the loss falling), then ``--resume`` from
+   step 10's checkpoint, bit for bit the uninterrupted run; a tp-2 world
+   whose ranks restore their cuts of its parameters
+   (``world.CheckpointParams``, ``checkpoint.restore(shardings=)``), its
+   logits within 3e-2 of the single device's.  Then the dry-run
+   (``launch.dryrun.measure_cell``) of phase 10b's step, (1, 2048) on a (1,
+   1) mesh, beside its measurement: the measured step at least the
+   roofline bound, the argument bytes those of the tensors the step held.
 12. The ``kernels`` JSON line: every ported kernel with its launches on the
    paths (each path's counts set to 0 just before it runs and read just
    after) and its times at its path's shape, its bound and the units the
@@ -2430,6 +2460,7 @@ LM_REC_CPU_LAYERS = {LM_RWKV_ARCH: 2, LM_GRIFFIN_ARCH: 3}   # griffin: one unit
 LM_REC_SERVE = dict(LM_SERVE, max_new_tokens=16)   # 8 slots of 512 tokens
 LM_REC_REQUESTS, LM_REC_LENGTHS = 8, (16, 32, 48)   # three distinct lengths
 LM_REC_RING_REQUESTS, LM_REC_RING_PROMPTS = 2, (2056, 2100)   # past the window
+LM_REC_RING_NEW = 4   # new tokens a ring prompt (one decode block): the scans take the time
 # internvl2-26b: 48 layers of 390M parameters and a 1.14B untied embed and
 # head, 79.4 GB of f32; cut by memory to 38 layers (63.8 GB)
 VLM_ARCH, VLM_LAYERS = "internvl2-26b", 38
@@ -3274,8 +3305,9 @@ def lm_recurrent_arch(arch_id: str, dev: str) -> None:
         params_r, cfg_r = lm_sliced(params, arch_id, cfg, len(cfg.pattern))
         prompts = lm_prompts(cfg.vocab, LM_REC_RING_REQUESTS, LM_REC_RING_PROMPTS, SEED + 7)
         check(min(map(len, prompts)) > cfg.window, "ring prompts must pass the window")
-        serve = dict(LM_SERVE, max_slots=LM_REC_RING_REQUESTS, max_new_tokens=8,
-                     max_len=-(-(LM_REC_RING_PROMPTS[1] + 8) // 64) * 64)
+        serve = dict(LM_SERVE, max_slots=LM_REC_RING_REQUESTS,
+                     max_new_tokens=LM_REC_RING_NEW, decode_block=LM_REC_RING_NEW,
+                     max_len=-(-(LM_REC_RING_PROMPTS[1] + LM_REC_RING_NEW) // 64) * 64)
         row = lm_engine_row(arch, params_r, cfg_r, serve, prompts,
                             f"{arch_id}[{cfg_r.n_layers} layers]", dev, full=False,
                             held=FlashHeld(),
@@ -3485,6 +3517,7 @@ TRAIN_LM_OPT = dict(lr=1e-4, warmup_steps=1, total_steps=TRAIN_LM_STEPS)
 TWIN_LM_WIDTH, TWIN_LM_STEPS, TWIN_LM_BATCH, TWIN_LM_SEQ, TWIN_LM_LR = \
     "full100m", 200, 8, 256, 1e-3
 TWIN_LM_FAIL_AT = 130
+TRAIN_LM_MEASURED: dict = {}   # the llama3.2-3b step's times and bytes, for phase 11c
 
 
 def train_step_profile(step) -> dict:
@@ -3692,6 +3725,7 @@ def phase_train_lm(dev: str = "cuda") -> dict[str, int]:
     params = nninit.materialize(lm.lm_spec(cfg), torch.Generator(dev).manual_seed(SEED))
     state = opt.init_state(params, ocfg)
     batches = train_lm_batch(cfg, TRAIN_LM_SEQ, dev)
+    held_bytes = sum(t.numel() * t.element_size() for t in tree_leaves((params, state, batches)))
     loss_fn = lambda p, b: lm.loss_fn(p, cfg, b)   # noqa: E731
     losses, host_ms, event_ms, launches = [], [], [], []
     with FlashHeld() as held:
@@ -3728,6 +3762,10 @@ def phase_train_lm(dev: str = "cuda") -> dict[str, int]:
     check(all(n == cfg.n_layers for n in launches),
           f"llama3.2-3b training: flash_attn launches a step {launches}, "
           f"want {cfg.n_layers}")
+    if on_card:   # the dry-run row of phase 11c reads the warm steps
+        TRAIN_LM_MEASURED.update(ms_host=statistics.median(host_ms[1:]),
+                                 ms_events=statistics.median(event_ms[1:]),
+                                 peak=peak, held_bytes=held_bytes)
     del params, state, metrics, batches
     if on_card:
         torch.cuda.empty_cache()
@@ -4482,6 +4520,591 @@ def phase_tp(dev: str = "cuda") -> dict[str, int]:
     return counts
 
 
+# -- phase 11c: the training half of distribution ----------------------------------
+
+DIST_DEVICES = ("cuda:0", "cuda:0")   # two ranks over-subscribe the one card
+DIST_STAGES, DIST_MICRO, DIST_MB = 2, 4, (1, 512)   # llama3.2-3b: 2 x 14 layers
+DIST_NVSA_D, DIST_NVSA_PROBLEMS = 128, 8   # the served d; 64 panels a side
+DIST_EF_STEPS, DIST_EF_SIZE = 10, 1 << 20
+DIST_LAUNCH = ["--arch", LM_ARCH, "--steps", "20", "--batch", "4", "--seq", "32",
+               "--lr", "3e-3"]   # smoke width, checkpoints at 10 and 20
+DIST_DRY_SHAPE = (1, 2048)   # phase 10b's step: (B, S), on a (1, 1) mesh
+
+
+def dist_peak(device: str) -> int:
+    """The process's peak allocated bytes on its card (0 on the CPU)."""
+    import torch
+
+    if not device.startswith("cuda"):
+        return 0
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated()
+
+
+def dist_sync(dev: str) -> None:
+    import torch
+
+    if dev.startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def dist_stage_fn(cfg):
+    """llama3.2-3b's layers over one stage's units (``dist_units``)."""
+    import torch
+
+    from repro_torch.models import lm
+
+    plan = lm.stage_plan(cfg)
+
+    def stage(units, h):
+        positions = torch.arange(h.shape[1], device=h.device)
+        for unit in units:
+            h, _ = lm._unit_fwd(cfg, unit, h, positions, plan.unit)
+        return h
+
+    return stage
+
+
+def dist_units(body, n: int) -> list:
+    """The ``n`` units of a stacked body slice as leaves of their own: a
+    layer's gradient then forms in place over the ticks, with no stacked
+    copy (the schedule already holds every tick's activations and bf16
+    weight copies, ~17 GB a rank at full width)."""
+    from repro_torch.common.tree import tree_map
+    from repro_torch.models import lm
+
+    return [tree_map(lambda t: t.detach().clone().requires_grad_(), u)
+            for u in lm._unstack(body, n)]
+
+
+def dist_rank_init(cfg, source, n_stages: int):
+    """On every rank of the pipeline: its stage's parameters (one leaf a
+    layer, ``dist_units``), kept in its SPMD state.  Rank 0 is given its
+    stage (copies of the caller's model); another rank draws the whole
+    model from the generator state ``source`` leaf by leaf on its card, as
+    ``nninit.materialize`` draws it, and keeps its slice of the body."""
+    import torch
+
+    from repro_torch.common.tree import tree_map
+    from repro_torch.configs import base as cb
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import constraints as tpc
+    from repro_torch.nn import init as nninit
+
+    ctx = tpc.spmd_current("pod")
+    if isinstance(source, list):
+        body = source
+    else:
+        gen = torch.Generator(ctx.device)
+        gen.set_state(source)
+        per = cfg.n_layers // n_stages
+        lo = ctx.rank * per
+        body = None
+        for key, sub in cb.model_spec(get_arch(LM_ARCH), cfg).items():
+            drawn = tree_map(lambda p: nninit._materialize_one(p, gen)[lo:lo + per].clone()
+                             if key == "body" else nninit._materialize_one(p, gen), sub)
+            if key == "body":
+                body = dist_units(drawn, per)
+            del drawn
+        if ctx.device.startswith("cuda"):
+            torch.cuda.empty_cache()
+    ctx.state.update(params=body, cfg=cfg)
+    return dist_peak(ctx.device)
+
+
+def dist_rank_forward(x_micro):
+    """The pipelined body over ``x_micro`` (n_micro, mb, S, D); rank 0
+    passes the caller's embeddings, the others zeros.  Keeps the outputs
+    for the backward; rank 0 returns them."""
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.distributed import constraints as tpc
+    from repro_torch.distributed import gpipe
+
+    ctx = tpc.spmd_current("pod")
+    units = ctx.state["params"]
+    for p in tree_leaves(units):
+        p.grad = None
+    f = gpipe.make_pipelined_fn(dist_stage_fn(ctx.state["cfg"]), ctx.size, ctx.mesh, "pod")
+    outs = f(units, x_micro.to(ctx.device))
+    ctx.state["outs"] = outs
+    return outs if ctx.rank == 0 else None
+
+
+def dist_rank_backward(g):
+    """One backward through the schedule from the cotangent ``g`` of the
+    outputs, on every rank in lockstep; returns each rank's peak bytes."""
+    import torch
+
+    from repro_torch.common.tree import tree_map
+    from repro_torch.distributed import constraints as tpc
+
+    ctx = tpc.spmd_current("pod")
+    torch.autograd.backward(ctx.state.pop("outs"), g.to(ctx.device))
+    ctx.state["grads"] = tree_map(lambda p: p.grad, ctx.state["params"])
+    return dist_peak(ctx.device)
+
+
+def dist_rank_grads_err(src: int, want):
+    """Rank ``src``'s stage gradients, summed to every rank leaf by leaf
+    (zeros from the others: exact), against ``want`` on rank 0 (None on
+    the others): the largest leaf error relative to the leaf's max."""
+    import torch
+
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.distributed import constraints as tpc
+
+    ctx = tpc.spmd_current("pod")
+    want = None if want is None else tree_leaves(want)
+    worst = 0.0
+    with torch.no_grad():
+        for i, g in enumerate(tree_leaves(ctx.state["grads"])):
+            got = tpc.psum(g if ctx.rank == src else torch.zeros_like(g), "pod")
+            if want is not None:
+                scale = max(float(want[i].abs().max()), 1e-30)
+                err = (got.to(want[i].device).float() - want[i].float()).abs().max()
+                worst = max(worst, float(err) / scale)
+            del got
+    return worst
+
+
+def dist_rank_compress():
+    """``compressed_psum`` of the rank's largest gradient leaf over the
+    ranks, against the exact f32 sum: (max |err|, the bound sum(scale) / 2,
+    the leaf's shape, the int8 payload's bytes)."""
+    import torch
+
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.distributed import compression, constraints as tpc
+
+    ctx = tpc.spmd_current("pod")
+    with torch.no_grad():
+        g = max(tree_leaves(ctx.state["grads"]), key=lambda t: t.numel())
+        before = dict(ctx.nbytes)
+        got = compression.compressed_psum(g, "pod")
+        wire = {k: v - before.get(k, 0) for k, v in ctx.nbytes.items()}
+        bound = float(tpc.all_gather(compression.quantize(g)[1], "pod").sum()) / 2
+        exact = tpc.psum(g.float(), "pod")
+        err = float((got - exact).abs().max())
+    return {"max_abs_err": err, "bound": bound, "shape": list(g.shape),
+            "all_gather_bytes": wire.get("all_gather", 0), "f32_bytes": g.numel() * 4}
+
+
+def dist_rank_clear():
+    """Drop the rank's SPMD state and cached blocks."""
+    import torch
+
+    from repro_torch.distributed import constraints as tpc
+
+    ctx = tpc.spmd_current("pod")
+    ctx.state.clear()
+    if ctx.device.startswith("cuda"):
+        torch.cuda.empty_cache()
+
+
+def dist_nvsa_streams(cfg, params, books):
+    """NVSA's two streams as folding takes them: the frontend on panels (N,
+    H, W, 1) -> every attribute's PMFs side by side (N, sum V); the
+    symbolic back end on PMFs packed (N, 16, sum V) -> answer log-probs."""
+    import torch
+
+    from repro_torch.models import nvsa
+
+    sizes = list(cfg.raven.attr_sizes)
+    qbooks = nvsa.quantize_codebooks(cfg, books)
+
+    def nn_fn(x):
+        return torch.cat(nvsa.frontend_pmfs(params, cfg, x)[0], dim=-1)
+
+    def vsa_fn(x):
+        parts = torch.split(x, sizes, dim=-1)
+        return nvsa.reason(cfg, qbooks, [p[:, :8] for p in parts], [p[:, 8:] for p in parts])[0]
+
+    return nn_fn, vsa_fn
+
+
+def dist_rank_fold(cfg, consts, panels, packed):
+    """NVSA folded over two ranks (n_l = 1): the frontend on rank 0, the
+    symbolic back end on rank 1."""
+    from repro_torch.common.tree import tree_map
+    from repro_torch.core import folding
+    from repro_torch.distributed import constraints as tpc
+
+    ctx = tpc.spmd_current("model")
+    consts = tree_map(lambda t: t.to(ctx.device), consts)
+    nn_fn, vsa_fn = dist_nvsa_streams(cfg, consts["params"], consts["books"])
+    f = folding.make_folded_fn(ctx.mesh, "model", 1, nn_fn, vsa_fn,
+                               (panels.shape[0], sum(cfg.raven.attr_sizes)),
+                               (packed.shape[0], 8))
+    return f(panels.to(ctx.device), packed.to(ctx.device))
+
+
+def dist_gpipe(w, on_path, dev: str) -> dict:
+    """llama3.2-3b at its published width pipelined over the world's two
+    ranks (14 layers each; embedding, final norm and head on the caller),
+    against the single device accumulating the same microbatches in order:
+    the logits within ``LM_LOGIT_TOL`` of the scale, each stage's
+    gradients within ``TRAIN_FIRST_TOL["grad"]``.  Then the compressed
+    reduction of each rank's largest gradient leaf.  Returns the row."""
+    import torch
+
+    from repro_torch.common.tree import tree_leaves, tree_map
+    from repro_torch.configs import base as cb
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import gpipe
+    from repro_torch.models import lm
+    from repro_torch.nn import init as nninit
+    from repro_torch.nn import layers
+
+    arch, cfg = get_arch(LM_ARCH), lm_config(LM_ARCH)
+    per = cfg.n_layers // DIST_STAGES
+    gen = torch.Generator(dev).manual_seed(SEED + 34)
+    source = gen.get_state()
+    params = nninit.materialize(cb.model_spec(arch, cfg), gen)
+    g_cpu = torch.Generator("cpu").manual_seed(SEED + 35)
+    toks = torch.randint(0, cfg.vocab, (DIST_MICRO, *DIST_MB), generator=g_cpu).to(dev)
+    tgts = torch.randint(0, cfg.vocab, (DIST_MICRO, *DIST_MB), generator=g_cpu).to(dev)
+
+    # the single device: the microbatches in order, their gradients summed
+    t0 = time.perf_counter()
+    flat = [t.detach().requires_grad_() for t in tree_leaves(params)]
+    it = iter(flat)
+    whole = tree_map(lambda _: next(it), params)
+    ref, ref_logits = None, []
+    for m in range(DIST_MICRO):
+        hidden, _ = lm.forward(whole, cfg, toks[m])
+        logits = lm.lm_logits(whole, cfg, hidden)
+        got = torch.autograd.grad(lm._xent(logits, tgts[m]), flat)
+        ref_logits.append(logits.detach())
+        if ref is None:
+            ref = list(got)
+        else:
+            for a, b in zip(ref, got):
+                a.add_(b)
+        del got
+    dist_sync(dev)
+    single_ms = (time.perf_counter() - t0) * 1e3
+    # the reference's gradients wait on the host: the schedule holds each
+    # tick's activations and bf16 weight copies at once, ~14 GB a rank
+    ref = [g.cpu() for g in ref]
+    it = iter(ref)
+    ref = tree_map(lambda _: next(it), params)
+    del flat, whole, it, hidden, logits
+    ref_logits = torch.cat(ref_logits)
+
+    # the pipeline: rank 0 holds layers 0-13 and the embedding, final norm
+    # and head (copies of the caller's model, which is then freed); rank 1
+    # draws layers 14-27
+    caller = {k: tree_map(lambda t: t.detach().clone().requires_grad_(), params[k])
+              for k in ("embed", "final_norm")}
+    stage0 = dist_units(tree_map(lambda t: t[:per], params["body"]), per)
+    del params
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    peaks_init = w.spmd(dist_rank_init, [(cfg, stage0, DIST_STAGES),
+                                         (cfg, source, DIST_STAGES)], axis="pod")
+
+    def step():
+        x = torch.stack([lm._embed(caller, cfg, toks[m]) for m in range(DIST_MICRO)])
+        outs, _ = w.spmd(dist_rank_forward, [(x,), (torch.zeros(x.shape, dtype=x.dtype),)],
+                         axis="pod")
+        o = outs.detach().requires_grad_()
+        logits = []
+        for m in range(DIST_MICRO):   # the loss is the microbatches' sum
+            h = layers.rmsnorm(caller["final_norm"], o[m], offset=cfg.norm_offset)
+            y = lm.lm_logits(caller, cfg, h)
+            lm._xent(y, tgts[m]).backward()
+            logits.append(y.detach())
+            del h, y
+        peaks = w.spmd(dist_rank_backward, [(o.grad,), (o.grad.cpu(),)], axis="pod")
+        return torch.cat(logits), peaks
+
+    dist_sync(dev)
+    t0 = time.perf_counter()
+    (logits, peaks), per_rank = on_path(step)
+    pipe_ms = (time.perf_counter() - t0) * 1e3
+    ticks = DIST_MICRO + DIST_STAGES - 1
+    row = {"phase": "dist", "row": "gpipe", "arch": LM_ARCH, "n_layers": cfg.n_layers,
+           "stages": DIST_STAGES, "layers_per_stage": per, "microbatches": DIST_MICRO,
+           "microbatch": list(DIST_MB), "ticks": ticks,
+           "bubble_fraction": gpipe.bubble_fraction(DIST_STAGES, DIST_MICRO),
+           "flash_attn_launches_per_rank": [c["flash_attn"] for c in per_rank],
+           "logits_vs_single_device": tp_logit_err(logits, ref_logits),
+           "ms_pipelined_step": pipe_ms, "ms_single_device_step": single_ms,
+           "peak_bytes_per_rank": [max(a, b) for a, b in zip(peaks_init, peaks)],
+           "card": CARD}
+    check([c["flash_attn"] for c in per_rank] == [per * ticks] * DIST_STAGES,
+          f"gpipe: flash_attn launches per rank {row['flash_attn_launches_per_rank']}, "
+          f"want {per} a tick on each")
+    check(row["logits_vs_single_device"] <= LM_LOGIT_TOL,
+          f"gpipe: logits {row['logits_vs_single_device']} of the scale from the single device")
+    del logits, ref_logits
+    tol = TRAIN_FIRST_TOL["grad"]
+    ref_units = lm._unstack(ref["body"], cfg.n_layers)
+    errs = {"stage0": tree_rel_err(tree_map(lambda p: p.grad, stage0), ref_units[:per]),
+            "caller": tree_rel_err(tree_map(lambda p: p.grad, caller),
+                                   {k: ref[k] for k in caller})}
+    errs["stage1"], _ = w.spmd(dist_rank_grads_err, [(1, ref_units[per:]), (1, None)],
+                               axis="pod")
+    row["grad_rel_err"] = errs
+    check(max(errs.values()) <= tol, f"gpipe: gradients {errs} beyond {tol} of each leaf's max")
+    del ref, ref_units
+
+    # the permutes timed: a second step, the card synchronised around each
+    ctx = w.spmd_ctx
+    n0, b0 = ctx.stats.get("ppermute", (0, 0.0)), ctx.nbytes.get("ppermute", 0)
+    ctx.timed = True
+    try:
+        for p in tree_leaves((caller, stage0)):
+            p.grad = None
+        dist_sync(dev)
+        t0 = time.perf_counter()
+        step()
+        row["ms_pipelined_step_timed"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        ctx.timed = False
+    n1, b1 = ctx.stats["ppermute"], ctx.nbytes["ppermute"]
+    row["ppermute"] = {"count": n1[0] - n0[0], "bytes": b1 - b0,
+                       "ms_total": (n1[1] - n0[1]) * 1e3}
+
+    # compression of each rank's largest gradient leaf
+    comp_rows = w.spmd(dist_rank_compress, [()] * DIST_STAGES, axis="pod")
+    row["compressed_psum"] = comp_rows[0]
+    c = comp_rows[0]
+    check(c["max_abs_err"] <= c["bound"] * (1 + 1e-4),
+          f"compressed_psum: {c['max_abs_err']} beyond the quantisation bound {c['bound']}")
+    check(c["all_gather_bytes"] * 2 <= c["f32_bytes"] * DIST_STAGES,
+          f"compressed_psum moved {c['all_gather_bytes']} bytes")
+    w.spmd(dist_rank_clear, [()] * DIST_STAGES, axis="pod")
+    del caller, stage0
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return row
+
+
+def dist_error_feedback(dev: str) -> dict:
+    """Ten error-feedback steps on the card, as the reference's
+    ``test_error_feedback_accumulates_to_truth`` runs them: the summed
+    dequantised payloads stay within the last residual of the true sum."""
+    import torch
+
+    from repro_torch.distributed import compression
+
+    gen = torch.Generator(dev).manual_seed(SEED + 36)
+    res = {"g": torch.zeros(DIST_EF_SIZE, device=dev)}
+    true_sum = torch.zeros(DIST_EF_SIZE, device=dev)
+    ef_sum = torch.zeros(DIST_EF_SIZE, device=dev)
+    for _ in range(DIST_EF_STEPS):
+        g = {"g": torch.randn(DIST_EF_SIZE, generator=gen, device=dev) * 0.1}
+        payload, res = compression.ef_compress_tree(g, res)
+        true_sum += g["g"]
+        ef_sum += compression.ef_decompress_tree(payload)["g"]
+    err, resid = float((true_sum - ef_sum).abs().max()), float(res["g"].abs().max())
+    check(err <= resid + 1e-5, f"error feedback: {err} beyond the residual {resid}")
+    return {"steps": DIST_EF_STEPS, "size": DIST_EF_SIZE, "max_abs_err": err,
+            "residual_max": resid}
+
+
+def dist_fold(w, on_path, dev: str) -> dict:
+    """NVSA cnn at the served d = 128 folded over the two ranks: the
+    frontend on 64 panels on rank 0, the symbolic back end on 8 problems'
+    PMFs on rank 1, both bit for bit the single process's calls."""
+    import numpy as np
+    import torch
+
+    from repro_torch.common.tree import tree_map
+    from repro_torch.configs import base as cb
+    from repro_torch.data import raven
+
+    entry = cb.REASON_WORKLOADS["nvsa"]
+    cfg = entry.make_config(d=DIST_NVSA_D)
+    consts = entry.make_consts(cfg, torch.Generator().manual_seed(SEED))
+    batch = raven.generate_batch(cfg.raven, SEED + 37, DIST_NVSA_PROBLEMS)
+    s = cfg.raven.image_size
+    panels = torch.from_numpy(batch["context"].reshape(-1, s, s, 1).astype(np.float32))
+    cands = torch.from_numpy(batch["candidates"].reshape(-1, s, s, 1).astype(np.float32))
+    on_card = tree_map(lambda t: t.to(dev), consts)
+    nn_fn, vsa_fn = dist_nvsa_streams(cfg, on_card["params"], on_card["books"])
+    want_nn = nn_fn(panels.to(dev))
+    n = DIST_NVSA_PROBLEMS
+    packed = torch.cat([want_nn.reshape(n, 8, -1), nn_fn(cands.to(dev)).reshape(n, 8, -1)],
+                       dim=1)
+    want_vsa = vsa_fn(packed)
+    dist_sync(dev)
+    t0 = time.perf_counter()
+    res, per_rank = on_path(lambda: w.spmd(
+        dist_rank_fold, [(cfg, consts, panels, packed.cpu())] * 2, axis="model"))
+    fold_ms = (time.perf_counter() - t0) * 1e3
+    (nn0, vsa0), (nn1, vsa1) = res
+    check(torch.equal(nn0, want_nn) and torch.equal(vsa0, want_vsa),
+          "fold: rank 0's outputs differ from the single process's calls")
+    check(torch.equal(nn1, want_nn.cpu()) and torch.equal(vsa1, want_vsa.cpu()),
+          "fold: rank 1's outputs differ from the single process's calls")
+    check(per_rank[1]["circ_conv"] > 0 and per_rank[0]["circ_conv"] == 0,
+          f"fold: circ_conv launches per rank {[c['circ_conv'] for c in per_rank]}, "
+          "want them on the VSA rank only")
+    return {"phase": "dist", "row": "fold", "model": "nvsa", "d": cfg.d, "n_l": 1,
+            "panels": list(panels.shape), "problems": n, "ms_folded_call": fold_ms,
+            "circ_conv_launches_per_rank": [c["circ_conv"] for c in per_rank],
+            "bit_equal": True, "card": CARD}
+
+
+def dist_launcher(w, on_path, dev: str) -> dict:
+    """``launch.train`` at llama3.2-3b's smoke width on the card: 20 steps
+    with checkpoints at 10 and 20, then a run resumed from step 10's,
+    bit for bit the uninterrupted one; then a tp-2 world whose ranks each
+    restore their cut of the parameters from the checkpoint
+    (``CheckpointParams``), its logits against the single device's."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import base as cb
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import world
+    from repro_torch.launch import train as launch_train
+    from repro_torch.nn import init as nninit
+    from repro_torch.serve.engine import ServeConfig
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt
+
+    tmp = Path(tempfile.mkdtemp(prefix="dist_train_"))
+    try:
+        t0 = time.perf_counter()
+        full, per_rank = on_path(lambda: launch_train.main(
+            [*DIST_LAUNCH, "--device", dev, "--ckpt-dir", str(tmp / "a")]))
+        losses = [m["loss"] for m in full]
+        check(all(math.isfinite(x) for x in losses)
+              and np.mean(losses[-5:]) < np.mean(losses[:5]),
+              f"launch.train: losses {losses}")
+        (tmp / "b").mkdir()
+        shutil.copytree(tmp / "a" / "step_00000010", tmp / "b" / "step_00000010")
+        (tmp / "b" / "LATEST").write_text("10")
+        resumed, per_rank_b = on_path(lambda: launch_train.main(
+            [*DIST_LAUNCH, "--device", dev, "--ckpt-dir", str(tmp / "b"), "--resume"]))
+        train_s = time.perf_counter() - t0
+        check([m["step"] for m in resumed] == list(range(11, 21))
+              and [(m["loss"], m["grad_norm"]) for m in resumed]
+              == [(m["loss"], m["grad_norm"]) for m in full[10:]],
+              "launch.train --resume: steps 11-20 differ from the uninterrupted run")
+        same = all(np.array_equal(np.load(f), np.load(tmp / "b" / "step_00000020" / f.name))
+                   for f in sorted((tmp / "a" / "step_00000020").glob("a_*.npy")))
+        check(same, "launch.train --resume: the final checkpoints differ")
+
+        # the remesh: each rank restores its cut of the run's parameters
+        arch = get_arch(LM_ARCH)
+        cfg = arch.make_smoke()
+        shapes = nninit.shapes(cb.model_spec(arch, cfg))
+        template = {"opt": opt.state_shapes(shapes, opt.AdamWConfig(quantized_state=arch.opt_8bit)),
+                    "params": shapes}
+        restored, step = ckpt.restore(tmp / "a", template, device=dev)
+        eng = world.TPEngine(w, world.EngineSpec(
+            LM_ARCH, cfg, world.CheckpointParams(str(tmp / "a"), template, key="params"),
+            ServeConfig(**TP_SERVE)), owns_world=False)
+        cut_dims, _ = eng.on_every_rank(tp_embed_cut)
+        toks = torch.randint(0, cfg.vocab, (1, 64),
+                             generator=torch.Generator("cpu").manual_seed(SEED + 38)).to(dev)
+        y, per_rank_tp = on_path(lambda: eng.forward(toks))
+        forward, readout = cb.forward_fn(arch, cfg)
+        single = readout(restored["params"], forward(restored["params"], toks))
+        err = tp_logit_err(y, single)
+        eng.close()
+        check(err <= LM_LOGIT_TOL, f"remesh: tp-2 logits {err} of the scale from the single device")
+        check(all(c["flash_attn"] == cfg.n_layers for c in per_rank_tp),
+              f"remesh: flash_attn per rank {[c['flash_attn'] for c in per_rank_tp]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"phase": "dist", "row": "launch_train", "arch": LM_ARCH, "args": DIST_LAUNCH,
+            "losses": losses, "resumed_bit_equal": True, "seconds": train_s,
+            "flash_attn_launches": per_rank[0]["flash_attn"] + per_rank_b[0]["flash_attn"],
+            "remesh": {"step": step, "tp": 2, "embed_cut_dim": cut_dims,
+                       "logits_vs_single_device": err,
+                       "flash_attn_launches_per_rank": [c["flash_attn"] for c in per_rank_tp]},
+            "card": CARD}
+
+
+def dist_dryrun_row() -> dict:
+    """The dry-run of phase 10b's step (llama3.2-3b, (1, 2048), a (1, 1)
+    mesh) through ``launch.dryrun.measure_cell``, beside its measurement:
+    the measured time must be at least the roofline bound, and the
+    argument bytes those of the tensors the step held."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+
+    measured = TRAIN_LM_MEASURED
+    check(bool(measured), "dist: the dry-run row reads phase 10b's step; run phase_train_lm first")
+    b, s = DIST_DRY_SHAPE
+    rec = dryrun.measure_cell(LM_ARCH, ShapeSpec("train_lm", "train", s, b), make_host_mesh())
+    terms = rec["roofline"]
+    row = {"phase": "dist", "row": "dryrun_vs_measured", "arch": LM_ARCH,
+           "shape": list(DIST_DRY_SHAPE), "mesh": [1, 1], "roofline": terms,
+           "flops_per_device": rec["flops_per_device"],
+           "model_flops_per_device": rec["model_flops_per_device"],
+           "bytes_per_device": rec["bytes_per_device"],
+           "measured_ms_per_step_host": measured["ms_host"],
+           "measured_ms_per_step_cuda_events": measured["ms_events"],
+           "measured_peak_bytes": measured["peak"], "held_bytes": measured["held_bytes"],
+           "bound_share": terms["bound_s"] * 1e3 / measured["ms_events"], "card": CARD}
+    check(measured["ms_events"] / 1e3 >= terms["bound_s"],
+          f"dry-run: the measured step {measured['ms_events']} ms beats its bound "
+          f"{terms['bound_s'] * 1e3} ms")
+    check(rec["bytes_per_device"]["arguments"] == measured["held_bytes"],
+          f"dry-run: argument bytes {rec['bytes_per_device']['arguments']}, the step held "
+          f"{measured['held_bytes']}")
+    return row
+
+
+def phase_dist(dev: str = "cuda") -> dict[str, int]:
+    """The training half of distribution (phase 11c of the module
+    docstring).  Returns the launch counts of the pipelined step, the
+    fold, the launcher's runs and the restored world's forward, summed over
+    the ranks."""
+    import torch
+
+    from repro_torch.backend import registry
+    from repro_torch.distributed import world
+
+    t_phase = time.perf_counter()
+    counts = {k: 0 for k in registry.KERNELS}
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    w = world.World(DIST_DEVICES)
+    start_s = time.perf_counter() - t_phase
+
+    def on_path(fn):
+        """``fn()`` with every rank's counts set to 0 before and added to the
+        path's after; returns its result and each rank's counts."""
+        w.reset_launches()
+        out = fn()
+        dist_sync(dev)
+        per_rank = w.launches()
+        for c in per_rank:
+            for k in counts:
+                counts[k] += c[k]
+        return out, per_rank
+
+    try:
+        t0 = time.perf_counter()
+        row = dist_gpipe(w, on_path, dev)
+        row.update(world_start_s=start_s, seconds=time.perf_counter() - t0,
+                   error_feedback=dist_error_feedback(dev))
+        emit(row)
+        t0 = time.perf_counter()
+        emit({**dist_fold(w, on_path, dev), "seconds": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        emit({**dist_launcher(w, on_path, dev), "seconds_with_remesh": time.perf_counter() - t0})
+    finally:
+        w.close()
+    emit(dist_dryrun_row())
+    check(counts["flash_attn"] > 0 and counts["circ_conv"] > 0,
+          f"dist: the path's launches {counts}")
+    emit({"phase": "dist_done", "seconds": time.perf_counter() - t_phase, "launches": counts})
+    return counts
+
+
 
 # the other rows a kernel's entry of the ``kernels`` line carries, under
 # these keys: circ_conv at NVSA's served bucket and at MIMONet's training
@@ -4535,6 +5158,7 @@ def main() -> int:
     main_rows.update(encdec_rows)
     paths["door_lm"] = phase_door_lm()
     paths["tp"] = phase_tp()
+    paths["dist"] = phase_dist()
     emit({"phase": "launches_by_path", **paths})
     kernels = []
     for name, spec in registry.KERNELS.items():

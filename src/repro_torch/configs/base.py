@@ -40,6 +40,7 @@ import torch
 
 from repro_torch import interop
 from repro_torch.backend import registry
+from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.core import workloads
 from repro_torch.data import raven
 from repro_torch.models import encdec as encdec_mod
@@ -64,10 +65,10 @@ from repro_torch.serve.schedule import StageSpec, TensorSpec
 
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
-    """The reference's ``ArchSpec``.  ``fsdp`` picks the sharding rules a
-    tensor-parallel world cuts by (``distributed.world``); ``opt_8bit``
-    (the optimizer switch) is recorded for the launcher of Queue 1 #6
-    (``launch/train.py``)."""
+    """The reference's ``ArchSpec``.  ``fsdp`` picks the sharding rules
+    the dry-run's specs follow (``launch/dryrun.py``); ``opt_8bit`` is the
+    optimizer switch the training launcher (``launch/train.py``) and the
+    dry-run read (``AdamWConfig.quantized_state``)."""
 
     id: str
     family: str                   # moe | dense | ssm | hybrid | vlm | audio
@@ -145,6 +146,61 @@ def prefill_fn(arch: ArchSpec, cfg):
         return readout(params, forward(params, tokens)[:, -1:])[:, 0]
 
     return f
+
+
+def _dm(cfg, kind: str) -> int:
+    return cfg.lm.d_model if kind == "vlm" else cfg.d_model
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def train_batch_specs(arch: ArchSpec, cfg, shape: ShapeSpec):
+    """One global training batch of ``shape`` as ``meta`` tensors (the
+    reference's ``ShapeDtypeStruct``s): tokens and targets; the VLM's bf16
+    patch embeds beside them; the enc-dec kind's frames and target tokens
+    at half the sequence each, as the reference splits it."""
+    b, s = shape.global_batch, shape.seq_len
+    if arch.kind == "vlm":
+        return {"patch_embeds": _meta((b, cfg.n_img_tokens, _dm(cfg, "vlm")), torch.bfloat16),
+                "tokens": _meta((b, s), torch.int32), "targets": _meta((b, s), torch.int32)}
+    if arch.kind == "encdec":
+        half = s // 2
+        return {"frames": _meta((b, half, cfg.d_model), torch.bfloat16),
+                "tgt_tokens": _meta((b, half), torch.int32),
+                "tgt_targets": _meta((b, half), torch.int32)}
+    return {"tokens": _meta((b, s), torch.int32), "targets": _meta((b, s), torch.int32)}
+
+
+def prefill_input_specs(arch: ArchSpec, cfg, shape: ShapeSpec) -> tuple:
+    """``prefill_fn``'s inputs after the parameters, as ``meta`` tensors."""
+    b, s = shape.global_batch, shape.seq_len
+    if arch.kind == "vlm":
+        return ({"patch_embeds": _meta((b, cfg.n_img_tokens, _dm(cfg, "vlm")),
+                                       torch.bfloat16),
+                 "tokens": _meta((b, s), torch.int32)},)
+    if arch.kind == "encdec":
+        return (_meta((b, s, cfg.d_model), torch.bfloat16),)
+    return (_meta((b, s), torch.int32),)
+
+
+def decode_state_specs(arch: ArchSpec, cfg, shape: ShapeSpec):
+    """(caches, token, pos) of one decode step as ``meta`` tensors: the
+    model's own ``cache_shapes`` / ``state_shapes`` (the enc-dec kind's
+    self-attention cache capped at 4096 positions, its cross cache over
+    the whole source, as the reference caps it)."""
+    m = _mod(arch.kind)
+    b, s = shape.global_batch, shape.seq_len
+    if arch.kind == "rwkv":
+        caches = m.state_shapes(cfg, b)
+    elif arch.kind == "griffin":
+        caches = m.state_shapes(cfg, b, s)
+    elif arch.kind == "encdec":
+        caches = m.cache_shapes(cfg, b, min(s, 4096), src_len=s)
+    else:
+        caches = m.cache_shapes(cfg, b, s)
+    return caches, _meta((b,), torch.int32), _meta((), torch.int32)
 
 
 def decode_fn(arch: ArchSpec, cfg):

@@ -138,7 +138,7 @@ def cache_pspec(shape: tuple, mesh: Mesh, kv_axis: int | None = None,
     The port executes the batch and kv-head arms; a tensor-parallel world
     keeps the kv heads its query heads read where the kv heads do not
     divide (``nn/attention.py``), and sequence-sharded caches wait (ROADMAP
-    Queue 1 #6)."""
+    Queue 1 #6 item 6)."""
     spec: list = [None] * len(shape)
     daxes = data_axes(mesh)
     dsize = _axis_size(mesh, daxes)
@@ -196,7 +196,7 @@ def shard_leaf(t: torch.Tensor, spec: tuple, rank: int, mesh: Mesh) -> torch.Ten
     if any(a not in (None, "model") and _axis_size(mesh, a) > 1 for a in spec):
         raise NotImplementedError(
             f"spec {spec}: only the model axis is cut (data-parallel shards of "
-            "a leaf wait for ROADMAP Queue 1 #6's training half)")
+            "a leaf wait for ROADMAP Queue 1 #6 item 8)")
     if "model" not in spec:
         return t
     dim = spec.index("model")

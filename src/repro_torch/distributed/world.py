@@ -37,6 +37,18 @@ Nothing hangs and nothing degrades quietly:
 
 Kernels are built in rank 0 before the workers start
 (``kernels/_build.py``), so no two ranks run ``nvcc`` into one directory.
+
+``World.spmd`` runs one module-level function on every rank with each
+rank's own arguments, inside an SPMD context over one mesh axis
+(``constraints.spmd_group``): the port's ``shard_map``, under which the
+pipeline (``distributed/gpipe.py``), the compressed reduction
+(``compression.py``) and mesh folding (``core/folding.py``) run.  It keeps
+``World.call``'s failure rules.
+
+The parameters' sources: ``SeededParams`` (drawn from a generator's
+state), ``GivenParams`` (whole trees) and ``CheckpointParams`` (each rank
+restores its own cut from a checkpoint, ``checkpoint.restore(shardings=)``,
+the port of the reference's elastic remesh).
 """
 
 from __future__ import annotations
@@ -57,6 +69,7 @@ import torch
 from repro_torch.common.tree import tree_map
 from repro_torch.distributed import constraints as tpc
 from repro_torch.distributed import sharding_rules as sr
+from repro_torch.launch.mesh import make_host_mesh
 
 WORLD_TIMEOUT_S = 60.0
 _POLL_S = 0.2
@@ -114,6 +127,46 @@ class GivenParams:
                                                             isinstance(a, torch.Tensor)
                                                             else a).to(device)),
                         spec, self.tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class CheckpointParams:
+    """Parameters restored from the checkpoint under ``ckpt_dir``
+    (``train/checkpoint.py``; ``step`` None: the newest), each rank
+    restoring only its cut: ``checkpoint.restore(shardings=)`` checks every
+    leaf whole against ``template``, cuts it on the host by the world's
+    rules (``sharding_rules.world_pspec``) and moves the cut to the rank's
+    device, leaf by leaf, so no rank's device holds the whole model.  The
+    few leaves the layers read whole (``sharding_rules.reads_whole``) are
+    restored whole and cut by the world's cut, which keeps their whole
+    beside it, as ``SeededParams`` does.
+
+    ``template`` is the checkpoint's whole tree as ``meta`` tensors
+    (``nninit.shapes`` of the spec; a ``Trainer``'s checkpoint holds
+    ``{"opt": optimizer.state_shapes(...), "params": ...}``), ``key`` the
+    subtree that holds the parameters (None: the whole tree).  Leaves
+    outside it are checked against the checkpoint's index and never read
+    (``checkpoint.SKIP``)."""
+
+    ckpt_dir: str
+    template: Any
+    key: str | None = None
+    step: int | None = None
+
+    def __call__(self, spec, cut: Callable, device: torch.device):
+        from repro_torch.train import checkpoint as ckpt
+
+        ctx = tpc.current()
+        rank, mesh = (0, make_host_mesh()) if ctx is None else (ctx.rank, ctx.mesh)
+        specs = tree_map(lambda p: None if sr.reads_whole(p) else sr.world_pspec(p, mesh),
+                         spec)
+        shardings = specs if self.key is None else \
+            {k: specs if k == self.key else ckpt.SKIP for k in self.template}
+        tree, _ = ckpt.restore(self.ckpt_dir, self.template, self.step, device=device,
+                               shardings=shardings, rank=rank, mesh=mesh)
+        params = tree if self.key is None else tree[self.key]
+        return tree_map(lambda p, t: cut(p, t.to(device)) if sr.reads_whole(p) else t,
+                        spec, params)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -207,6 +260,17 @@ def peak_bytes(rank: RankEngine) -> int:
     return int(torch.cuda.max_memory_allocated(rank.device))
 
 
+def to_host(tree):
+    """``tree`` with every tensor moved to the host (what crosses a pipe)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_host(v) for v in tree)
+    return tree
+
+
 def _streams(out) -> dict | None:
     """The token streams of a call's results ({uid: tokens}), None for a
     call that returns none."""
@@ -237,6 +301,7 @@ def _worker(rank: int, size: int, store_path: str, device: str, timeout_s: float
         return
     conn.send(("ok", None))
     parent = multiprocessing.parent_process()
+    spmd = tpc.SPMDContext(group, rank, size, device=str(torch.device(device)))
     ranks: dict[int, RankEngine] = {}
     streams: dict[int, list] = {}
     while True:
@@ -268,6 +333,11 @@ def _worker(rank: int, size: int, store_path: str, device: str, timeout_s: float
             elif op == "fn":
                 handle, fn, a = args
                 out = fn(ranks[handle], *a)
+            elif op == "spmd":
+                fn, a, axis = args
+                spmd.axis = axis
+                with tpc.spmd_group(spmd):
+                    out = to_host(fn(*a))
             elif op == "drop":
                 ranks.pop(args[0], None)
                 out = None
@@ -336,18 +406,22 @@ class World:
             self._replies("start")
             self.group = _make_group(store, 0, self.size, timeout_s) if self.size > 1 else None
             self._replies("start")
+            self._spmd = tpc.SPMDContext(self.group, 0, self.size,
+                                         device=str(self.devices[0]))
         except BaseException:
             self._end()
             raise
 
     # -- messages -------------------------------------------------------
 
-    def send(self, op: str, *args) -> None:
+    def send(self, op: str, *args, each: list | None = None) -> None:
+        """``(op, args)`` to every worker, or ``(op, each[r - 1])`` to
+        worker r."""
         if self.closed:
             raise WorldError("the tensor-parallel world is closed")
         for r, conn in enumerate(self._conns, 1):
             try:
-                conn.send((op, args))
+                conn.send((op, args if each is None else each[r - 1]))
             except (BrokenPipeError, EOFError, OSError) as e:
                 self.fail(f"rank {r} is gone ({e})")
 
@@ -374,14 +448,16 @@ class World:
             out.append(msg)
         return out
 
-    def call(self, op: str, args: tuple, local: Callable, what: str):
-        """Send ``op`` to the workers, run ``local`` here meanwhile, and
+    def call(self, op: str, args: tuple, local: Callable, what: str,
+             each: list | None = None):
+        """Send ``op`` to the workers (``each``: worker r's own arguments,
+        ``each[r - 1]``), run ``local`` here meanwhile, and
         return (its result, the workers' payloads).  If ``local`` raises,
         the world survives only where every worker raised the same type and
         no rank entered a collective during the call (a request refused
         before any work, which leaves every engine as it was); otherwise it
         is closed and ``WorldError`` raised."""
-        self.send(op, *args)
+        self.send(op, *args, each=each)
         entered = tpc.entered()
         try:
             out = local()
@@ -394,8 +470,11 @@ class World:
             except WorldError as broken:
                 raise broken from e
             if not all(m[0] == "raised" and m[1][0] == type(e).__name__ for m in replies):
+                theirs = "; ".join(f"rank {r}: " + ("ok" if m[0] == "ok" else
+                                                    f"{m[1][0]}: {m[1][1]}\n{m[1][2]}")
+                                   for r, m in enumerate(replies, 1))
                 self.fail(f"rank 0 raised {type(e).__name__} during {what} and the "
-                          "workers did not", cause=e)
+                          f"workers did not ({theirs})", cause=e)
             if mine or any(m[1][3] for m in replies):
                 self.fail(f"every rank raised {type(e).__name__} during {what}, after "
                           "a collective had started", cause=e)
@@ -409,6 +488,35 @@ class World:
     def fail(self, msg: str, cause: BaseException | None = None):
         self._end()
         raise WorldError(f"tensor-parallel world of {self.size}: {msg}") from cause
+
+    # -- SPMD --------------------------------------------------------------
+
+    def spmd(self, fn: Callable, args: list, axis: str = "model") -> list:
+        """``fn(*args[r])`` on every rank r at once, inside an SPMD context
+        over one mesh axis ``axis`` of the world's ranks
+        (``constraints.spmd_group``; each rank's context, and its ``state``,
+        persists from call to call).  ``fn`` must be importable by name, and
+        the workers' arguments cross a pipe: pass host tensors.  Returns
+        every rank's result, rank 0's as it is and the workers' moved to
+        the host.  Failures follow ``call``'s rules."""
+        if len(args) != self.size:
+            raise ValueError(f"spmd: {len(args)} argument tuples for {self.size} ranks")
+        self._spmd.axis = axis
+
+        def local():
+            with tpc.spmd_group(self._spmd):
+                return fn(*args[0])
+
+        out, theirs = self.call("spmd", (), local, getattr(fn, "__name__", "spmd"),
+                                each=[(fn, tuple(a), axis) for a in args[1:]])
+        return [out, *theirs]
+
+    @property
+    def spmd_ctx(self) -> tpc.SPMDContext:
+        """Rank 0's SPMD context: its collectives so far (``stats``,
+        ``nbytes``); set ``timed`` to synchronise the device around each and
+        add its host seconds."""
+        return self._spmd
 
     # -- queries ----------------------------------------------------------
 
@@ -566,8 +674,9 @@ def tp_engine(arch_id: str, cfg, params_fn: Callable, tp: int, devices, serve_cf
               timeout_s: float = WORLD_TIMEOUT_S) -> TPEngine:
     """An LM ``Engine`` served tensor-parallel by a world of ``tp``
     processes on ``devices[:tp]`` (rank r on ``devices[r]``), over whole
-    parameters from ``params_fn`` (``SeededParams`` / ``GivenParams``),
-    each rank keeping its cut.  ``close()`` ends the world."""
+    parameters from ``params_fn`` (``SeededParams`` / ``GivenParams`` /
+    ``CheckpointParams``), each rank keeping its cut.  ``close()`` ends the
+    world."""
     devices = tuple(devices)
     if tp < 1 or tp > len(devices):
         raise ValueError(f"tp={tp} needs {tp} devices, got {len(devices)}")

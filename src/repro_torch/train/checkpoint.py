@@ -19,9 +19,13 @@ restores the other's checkpoints:
 - **bf16**: the reference's ``np.save`` writes a bfloat16 leaf as two raw
   bytes an element (``'<V2'``, numpy has no bf16); the port reads and
   writes the same bytes, without ``ml_dtypes``.
-- ``restore`` fills a template and puts each leaf on ``device``; the
-  reference's ``shardings=`` (elastic resharding) waits for ROADMAP Queue 1
-  #6.
+- ``restore`` fills a template and puts each leaf on ``device``.  With
+  ``shardings=`` (the reference's elastic remesh) it cuts each leaf for
+  one rank of a mesh on the host before moving the cut there: a
+  checkpoint written on one mesh restores onto any other, since leaves are
+  stored whole.  A ``SKIP`` spec checks a leaf against the index and
+  loads nothing, so a rank that wants the parameters of a ``Trainer``
+  checkpoint never reads its moments.
 """
 
 from __future__ import annotations
@@ -39,6 +43,11 @@ import torch
 from repro_torch.backend import registry
 
 _BF16 = np.dtype("V2")
+
+#: a spec of ``restore(shardings=)``, in place of a leaf's or a subtree's:
+#: check the leaves' paths, shapes and dtypes against the index, load
+#: nothing, and give None for each
+SKIP = "skip"
 
 
 def _flatten(tree, path: str = "") -> list[tuple[str, Any]]:
@@ -135,12 +144,41 @@ def latest_step(ckpt_dir: str | os.PathLike) -> int | None:
     return step
 
 
+def _leaf_specs(template, shardings) -> list:
+    """The spec of each leaf of ``template`` in ``_flatten``'s order, read
+    from ``shardings`` at the same place; None or ``SKIP`` in place of a
+    subtree is that for each of its leaves."""
+    whole = shardings is None or (isinstance(shardings, str) and shardings == SKIP)
+    if isinstance(template, dict):
+        return [s for k in sorted(template)
+                for s in _leaf_specs(template[k], shardings if whole else shardings[k])]
+    if isinstance(template, (list, tuple)):
+        return [s for i, v in enumerate(template)
+                for s in _leaf_specs(v, shardings if whole else shardings[i])]
+    return [] if template is None else [shardings]
+
+
 def restore(ckpt_dir: str | os.PathLike, template: Any, step: int | None = None,
-            device=None) -> tuple[Any, int]:
+            device=None, shardings: Any = None, rank: int = 0,
+            mesh=None) -> tuple[Any, int]:
     """Restore into the structure of ``template`` (its leaves give the
-    shapes and dtypes the checkpoint must have); each leaf a tensor on
-    ``device`` (None = ``"cuda"``).  Returns (tree, step)."""
+    shapes and dtypes the checkpoint must have; ``meta`` tensors will do);
+    each leaf a tensor on ``device`` (None = ``"cuda"``).  Returns (tree,
+    step).
+
+    ``shardings`` (the elastic remesh) is a tree of the port's plain-tuple
+    specs matched to ``template`` (``sharding_rules.param_shardings``
+    gives one): each leaf is checked whole, cut on the host for ``rank`` of
+    ``mesh`` by ``sharding_rules.shard_leaf`` (which records ``tp_dim``
+    and refuses a cut along any axis but ``model``), then moved to
+    ``device``.  A None spec, or None in place of a subtree, leaves those
+    leaves whole on the host, as the reference leaves a leaf without a
+    sharding a host array.  A ``SKIP`` spec (or subtree) checks those
+    leaves' shapes and dtypes against the index, reads no file of theirs
+    and gives None in their place."""
     dev = registry.resolve_device(device)
+    if shardings is not None and mesh is None:
+        raise ValueError("restore(shardings=) needs the mesh the specs name (mesh=)")
     ckpt_dir = pathlib.Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -157,15 +195,40 @@ def restore(ckpt_dir: str | os.PathLike, template: Any, step: int | None = None,
         bad = next(i for i, (a, b) in enumerate(zip(paths, index["paths"])) if a != b)
         raise ValueError(f"leaf {bad}: template path {paths[bad]}, checkpoint "
                          f"{index['paths'][bad]}")
+    specs = None if shardings is None else _leaf_specs(template, shardings)
     out = []
     for i, (path, tmpl) in enumerate(leaves):
+        if specs is not None and isinstance(specs[i], str) and specs[i] == SKIP:
+            shape, dtype = tuple(index["shapes"][i]), index["dtypes"][i]
+            if shape != tuple(tmpl.shape) or dtype != _dtype_name(tmpl):
+                raise ValueError(f"leaf {i} {path}: checkpoint {shape} {dtype}, "
+                                 f"template {tuple(tmpl.shape)} {tmpl.dtype}")
+            out.append(None)
+            continue
         arr = np.load(d / f"a_{i}.npy")
         t = _from_numpy(arr, index["dtypes"][i])
         if tuple(t.shape) != tuple(tmpl.shape) or t.dtype != tmpl.dtype:
             raise ValueError(f"leaf {i} {path}: checkpoint {tuple(t.shape)} "
                              f"{t.dtype}, template {tuple(tmpl.shape)} {tmpl.dtype}")
-        out.append(t.to(dev))
+        if specs is None:
+            out.append(t.to(dev))
+        elif specs[i] is None:
+            out.append(t)
+        else:
+            out.append(_cut_to(t, specs[i], rank, mesh, dev))
     return _unflatten(template, out), step
+
+
+def _cut_to(t: torch.Tensor, spec: tuple, rank: int, mesh, dev) -> torch.Tensor:
+    """Rank ``rank``'s cut of the whole host leaf ``t`` on ``dev``, its cut
+    dim (``tp_dim``) kept."""
+    from repro_torch.distributed import sharding_rules as sr
+
+    part = sr.shard_leaf(t, tuple(spec), rank, mesh)
+    out = part.to(dev)
+    if hasattr(part, "tp_dim"):
+        out.tp_dim = part.tp_dim
+    return out
 
 
 class AsyncCheckpointer:

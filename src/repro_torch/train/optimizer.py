@@ -93,6 +93,27 @@ def init_state(params, cfg: AdamWConfig):
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def state_shapes(param_shapes, cfg: AdamWConfig):
+    """What ``init_state`` builds for parameters shaped like
+    ``param_shapes``, as ``meta`` tensors (shapes and dtypes, no storage):
+    f32 ``m`` / ``v`` like each parameter, or, with ``quantized_state``,
+    int8 ``m_q`` / ``v_q`` (n_blocks, qblock) and f32 ``m_s`` / ``v_s``
+    (n_blocks, 1); and the int32 ``step``.  The dry-run reads it."""
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    def shape_like(p):
+        if cfg.quantized_state:
+            n_blocks = -(-math.prod(p.shape) // cfg.qblock)
+            return {"m_q": meta((n_blocks, cfg.qblock), torch.int8),
+                    "m_s": meta((n_blocks, 1), torch.float32),
+                    "v_q": meta((n_blocks, cfg.qblock), torch.int8),
+                    "v_s": meta((n_blocks, 1), torch.float32)}
+        return {"m": meta(tuple(p.shape), torch.float32),
+                "v": meta(tuple(p.shape), torch.float32)}
+    return {"mu": tree_map(shape_like, param_shapes), "step": meta((), torch.int32)}
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every (non-None) leaf, in f32."""
     return torch.sqrt(sum(torch.sum(torch.square(x.float()))
@@ -161,6 +182,16 @@ def _unflatten(structure, leaves: list):
     return tree_map(lambda _: next(it), structure)
 
 
+def _leaf(p: torch.Tensor) -> torch.Tensor:
+    """``p`` detached as a leaf to differentiate, keeping the record of a
+    tensor-parallel cut (``tp_dim``, ``tp_whole``) that the layers read."""
+    out = p.detach().requires_grad_(p.is_floating_point())
+    for name in ("tp_dim", "tp_whole"):
+        if hasattr(p, name):
+            setattr(out, name, getattr(p, name))
+    return out
+
+
 def value_and_grad(fn, has_aux: bool = False):
     """``jax.value_and_grad`` over the first argument, a tree of tensors:
     returns ``g(params, *args) -> (value, grads)`` (``((value, aux),
@@ -168,8 +199,7 @@ def value_and_grad(fn, has_aux: bool = False):
     leaf the value does not reach gets ``None``; ``apply_updates`` takes
     it as zeros."""
     def g(params, *args, **kwargs):
-        leaves = [p.detach().requires_grad_(p.is_floating_point())
-                  for p in tree_leaves(params)]
+        leaves = [_leaf(p) for p in tree_leaves(params)]
         out = fn(_unflatten(params, leaves), *args, **kwargs)
         value = out[0] if has_aux else out
         wrt = [p for p in leaves if p.requires_grad]

@@ -16,8 +16,9 @@ The port of ``repro.train.trainer``, on ``train/optimizer.py``'s
   in ``straggler_log`` (on a cluster the runner would reschedule it).
 - **donation**: the step updates the parameters and moments in place, as
   the reference's jitted step donates them, so a model's state is held
-  once.  The reference's elastic remesh (``restore(shardings=)``) waits
-  for ROADMAP Queue 1 #6.
+  once.  The elastic remesh (``checkpoint.restore(shardings=)``) restores
+  a run's checkpoint onto another mesh, rank by rank
+  (``distributed.world.CheckpointParams``).
 """
 
 from __future__ import annotations

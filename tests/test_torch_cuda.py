@@ -1019,3 +1019,55 @@ def test_tensor_parallel_world_on_the_card(gen, arch_id):
                                    atol=1e-4, rtol=0)
     finally:
         eng.close()
+
+
+def test_compression_quantize_rounds_like_the_cpu(gen):
+    """``compression.quantize`` divides by a 0-d tensor, so the card rounds
+    ``g / scale`` as the CPU does, ties included: payloads and scales
+    bit-equal, on random gradients and on values built to land near .5
+    steps."""
+    from repro_torch.distributed import compression
+
+    g = torch.randn(1 << 16, device="cuda", generator=gen) * 0.05
+    steps = torch.arange(-127, 127, device="cuda", dtype=torch.float32) + 0.5
+    for x in (g, steps * 0.01, torch.cat([steps, torch.tensor([127.0], device="cuda")]) / 3):
+        q, s = compression.quantize(x)
+        qc, sc = compression.quantize(x.cpu())
+        assert torch.equal(q.cpu(), qc) and torch.equal(s.cpu(), sc)
+        torch.testing.assert_close(compression.dequantize(q, s).cpu(),
+                                   compression.dequantize(qc, sc), atol=0, rtol=0)
+
+
+def test_gpipe_world_on_the_card(gen):
+    """A pipeline of two stages on two ranks of one card (gloo): the
+    reference test's tanh dense stages, 4 microbatches of (2, 16): the
+    outputs within 1e-5 and each stage's gradients within 1e-4 of the
+    sequential loop on the CPU."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import _torch_dist_ranks as ranks
+
+    from repro_torch.distributed import world
+
+    cpu = torch.Generator().manual_seed(1)
+    w = torch.randn(2, 16, 16, generator=cpu) / 4
+    b = torch.randn(2, 16, generator=cpu) * 0.1
+    x = torch.randn(4, 2, 16, generator=cpu)
+    wd = world.World(("cuda:0", "cuda:0"))
+    try:
+        res = wd.spmd(ranks.gpipe_dense, [(w, b, x)] * 2, axis="pod")
+    finally:
+        wd.close()
+    pw, pb = w.clone().requires_grad_(), b.clone().requires_grad_()
+    h = x
+    for s in range(2):
+        h = ranks.tanh_dense({"w": pw[s], "b": pb[s]}, h)
+    (h ** 2).sum().backward()
+    torch.testing.assert_close(res[0][0].cpu(), h.detach(), atol=1e-5, rtol=0)
+    assert torch.equal(res[0][0].cpu(), res[1][0])
+    torch.testing.assert_close(torch.stack([res[0][1]["w"].cpu(), res[1][1]["w"]]), pw.grad,
+                               atol=1e-4, rtol=0)
+    torch.testing.assert_close(torch.stack([res[0][1]["b"].cpu(), res[1][1]["b"]]), pb.grad,
+                               atol=1e-4, rtol=0)
