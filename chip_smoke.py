@@ -323,14 +323,34 @@ and prints no result line):
    not divide, so its embedding is cut along the embed dim; a (1, 2048)
    forward with each MoE layer's experts forced to the single-device
    forward's, within the same bound, 24 flash_attn launches on each rank
-   at (1, 2048, 8, 64).  Then ``deploy(["nvsa", "llama3.2-3b"],
+   at (1, 2048, 8, 64).  Then the other kinds at tp 2 on one world of two
+   ranks (``tp_kinds``), each against the single device run first in rank
+   0's process (its parameters freed before the world's): rwkv6-7b and
+   recurrentgemma-9b at their widths and 8 / 9 layers at f32 compute
+   (within 1e-3 of the logits' scale), then their bf16 forward at tp 2
+   held against the single device's f32 forward within 1.5 times the
+   single device's own bf16 gap of it, deepseek-v3-671b at 4 layers,
+   dropless, without its MTP head (experts forced to the single device's;
+   3e-2): a (1, 512) forward and 2 prompts x 4 new tokens through the
+   engine twice, no flash_attn launch; internvl2-26b at 8 layers: a
+   prefill of 1024 patch embeddings + 1024 tokens (``world.model_prefill``), 8
+   flash_attn launches a rank at (1, 2048, 24, 128); seamless-m4t-large-v2
+   at 24 + 24 layers: an encode of (1, 2048) frames (24 launches a rank at
+   (1, 2048, 8, 64), non-causal), ``decode_train``'s logits for 64 target
+   tokens (48), an encode of (2, 2048), its caches and 4 decode steps at
+   B = 2 fed the single device's greedy tokens (24 each); every output
+   within 3e-2 of the single device's scale, the same bits on both ranks,
+   each greedy token the single device's outside near ties, each rank's
+   peak at most ``LM_PEAK_LIMIT``, each flash_attn shape held against its
+   plain version on rank 0.  Then ``deploy(["nvsa", "llama3.2-3b"],
    Budget(devices=2, replicas="auto", tp=2))`` on the card: the mesh
    co-search gives nvsa 2 replicas and the LM (smoke scale) a world of
    two ranks, 8 requests a model served through the door, circ_conv
    launched.  Rows: ms a forward and a decode step, tensor-parallel and
-   single-device; each collective's count and host ms (a timed forward,
-   the device synchronised around each collective); each rank's peak
-   bytes; the mesh records.
+   single-device (the other kinds: ms a prefill, an encode, a decode step);
+   each collective's count, bytes and host ms (a timed call, the device
+   synchronised around each collective); each rank's peak bytes; world
+   build seconds; the mesh records.
 11c. Dist: the training half of distribution (``launches_by_path["dist"]``,
    summed over the ranks), on one world of two ranks on the one card.
    llama3.2-3b at its published width (28 layers, f32 parameters, bf16
@@ -373,7 +393,9 @@ and prints no result line):
    bf16 at (1, 2048, 48, 128) under ``internvl2`` and the four non-causal
    shapes of phase 10c under ``encoder``, ``cross``, ``decode_cross`` and
    ``encoder_32k``, and phase 11b's per-rank shapes (1, 2048, 12, 128)
-   under ``tp`` and (1, 2048, 8, 64) under ``tp_moe``
+   under ``tp`` and (1, 2048, 8, 64) under ``tp_moe``, and seamless's
+   (``TP_ENCDEC_FLASH_ROWS``) under ``tp_encoder``, ``tp_encoder_b2``,
+   ``tp_dec_self``, ``tp_cross`` and ``tp_decode_cross``
    (ms, device_ms, library_ms, bound_ms, bound_units, max_abs_err).
 13. The last line: ``{"ok": true, "device": {...}}``.
 
@@ -383,6 +405,8 @@ either it exits with code 2.
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -1046,7 +1070,7 @@ def flash_kernel_rows(gen) -> dict:
                   f"{row['single_tf32_max_abs_err']} is within the f32 limit "
                   f"{FLASH_F32_ATOL}, which so would not show a lost split")
         emit(row)
-        if sq == 2048 and h in (12, 8):
+        if sq == 2048 and h in (12, 8) and causal:
             main["flash_attn_tp" if h == 12 else "flash_attn_tp_moe"] = row
         elif sq == 2048 and hd == 64:
             main["flash_attn_hd64"] = row
@@ -1054,7 +1078,23 @@ def flash_kernel_rows(gen) -> dict:
             main["flash_attn_internvl2"] = row
         elif sq == 2048:
             main["flash_attn" if f32 else "flash_attn_bf16"] = row
+    # seamless-m4t-large-v2's shapes on each rank at tp 2 (8 of its 16 heads)
+    for name, (b, sq, skv, h, hd, causal) in TP_ENCDEC_FLASH_ROWS.items():
+        row = flash_row(gen, b, sq, skv, h, hd, causal, torch.bfloat16)
+        emit(row)
+        main[f"flash_attn_{name}"] = row
     return main
+
+
+# (B, Sq, Skv, H, hd, causal) of seamless-m4t-large-v2's attention on each rank
+# at tp 2 (phase 11b): the encoder at (1, 2048) and at the serving batch of 2,
+# decode_train's self- and cross-attention over 64 target tokens, the decode
+# step's cross-attention
+TP_ENCDEC_FLASH_ROWS = {"tp_encoder": (1, 2048, 2048, 8, 64, False),
+                        "tp_encoder_b2": (2, 2048, 2048, 8, 64, False),
+                        "tp_dec_self": (1, 64, 64, 8, 64, True),
+                        "tp_cross": (1, 64, 2048, 8, 64, False),
+                        "tp_decode_cross": (2, 1, 2048, 8, 64, False)}
 
 
 def host_us(fn, calls: int = 200, windows: int = 15) -> float:
@@ -4318,10 +4358,31 @@ def tp_forced_forward(rank, toks, forced):
     return y if rank.ctx.rank == 0 else world.digest(y)
 
 
-def tp_logit_err(got, want) -> float:
-    """max |got - want| over the logits' scale of each row (``logit_scale``)."""
+def tp_forward_at(rank, toks, dtype: str):
+    """On every rank of a world: the forward's logits of ``toks`` at compute
+    dtype ``dtype`` over the rank's parameters; rank 0 returns them, the
+    others their ``world.digest``."""
+    import torch
+
+    from repro_torch.configs import base as cb
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import world
+
+    cfg = dataclasses.replace(rank.spec.cfg, compute_dtype=getattr(torch, dtype))
+    forward, readout = cb.forward_fn(get_arch(rank.spec.arch_id), cfg)
+    t = toks.to(rank.device)
+    y = rank.run(lambda: readout(rank.params, forward(rank.params, t)))
+    return y if rank.ctx.rank == 0 else world.digest(y)
+
+
+def tp_logit_err(got, want, inputs=None) -> float:
+    """max |got - want| over the logits' scale of each row (``logit_scale``;
+    with ``inputs``, each row's input token, taken without that column, as
+    a tied embedding echoes it)."""
     got, want = got.float().flatten(0, -2), want.float().flatten(0, -2)
-    return float(((got - want).abs().amax(-1) / logit_scale(want)).max())
+    if inputs is not None:
+        inputs = inputs.reshape(-1)
+    return float(((got - want).abs().amax(-1) / logit_scale(want, inputs)).max())
 
 
 def tp_ms(fn, reps: int = 3) -> float:
@@ -4340,11 +4401,12 @@ def tp_ms(fn, reps: int = 3) -> float:
 
 
 def tp_collectives(eng, fn) -> dict:
-    """Each collective of one ``fn()`` on rank 0: its count and, in a second
-    call with the card synchronised around each collective, its host ms."""
-    before = dict(eng.collectives)
+    """Each collective of one ``fn()`` on rank 0: its count, the bytes rank
+    0 handed it and, in a second call with the card synchronised around
+    each collective, its host ms."""
+    before, bytes_before = dict(eng.collectives), dict(eng.rank0.ctx.nbytes)
     fn()
-    mid = dict(eng.collectives)
+    mid, bytes_mid = dict(eng.collectives), dict(eng.rank0.ctx.nbytes)
     eng.rank0.ctx.timed = True
     try:
         fn()
@@ -4354,13 +4416,412 @@ def tp_collectives(eng, fn) -> dict:
     for op, (n, _) in mid.items():
         n0, s0 = before.get(op, (0, 0.0))
         n1, s1 = eng.collectives[op]
-        out[op] = {"count": n - n0, "ms_each": (s1 - mid[op][1]) * 1e3 / max(1, n1 - n)}
+        out[op] = {"count": n - n0, "bytes": bytes_mid[op] - bytes_before.get(op, 0),
+                   "ms_each": (s1 - mid[op][1]) * 1e3 / max(1, n1 - n)}
     return out
 
 
 def tp_embed_cut(rank):
     """The dim the rank's embedding table was cut along (None: whole)."""
     return getattr(rank.params["embed"]["table"], "tp_dim", None)
+
+
+# -- phase 11b: the other kinds at tp 2 ------------------------------------------
+# each at its published width on one world of two ranks, against the single
+# device in rank 0's process (before the model's world calls, its parameters
+# freed after): rwkv6-7b and recurrentgemma-9b at LM_ENGINE_LAYERS' depths and
+# f32 compute (two bf16 computations of either part by more than 3e-2 of the
+# logits' scale: each lies that far from its own f32 forward, which the row
+# reports), deepseek-v3-671b at lm's 4 layers, dropless, without its MTP head
+# (a fifth MoE layer only the training loss reads: with it, two ranks drawing
+# on one card would peak near its 80 GB), internvl2-26b at 8 of its 48
+# layers, seamless-m4t-large-v2 at its full 24 + 24
+TP_KIND_ARCHS = (LM_RWKV_ARCH, LM_GRIFFIN_ARCH, "deepseek-v3-671b")
+TP_KIND_FORWARD = (1, 512)
+TP_KIND_SERVE = dict(max_slots=2, max_len=64, max_new_tokens=4, decode_block=4,
+                     prefill_bucket=16)
+TP_KIND_REQUESTS, TP_KIND_PROMPTS = 2, (16, 32)
+TP_REC_TOL = 1e-3       # of the logits' scale: the recurrent kinds at f32 compute
+# the recurrent kinds' bf16 forward at tp 2 lies from the single device's f32
+# forward at most this many times the single device's own bf16 forward does
+TP_REC_BF16_RATIO = 1.5
+TP_VLM_LAYERS = 8
+TP_ENCDEC_SRC, TP_ENCDEC_TGT, TP_ENCDEC_SERVE_B, TP_ENCDEC_STEPS = 2048, 64, 2, 4
+# the flash_attn launches a call makes on each rank
+TP_ENCDEC_FLASH = {"encode": 24, "decode_train": 48, "decode_step": 24}
+
+
+def tp_kind_config(arch_id: str):
+    """The config of ``arch_id``'s tp-2 row (``TP_KIND_ARCHS``, the VLM,
+    the enc-dec kind): its published width, cut in depth as the comment
+    above ``TP_KIND_ARCHS`` says."""
+    import dataclasses
+
+    import torch
+
+    cfg = lm_config(arch_id) if arch_id != ENCDEC_ARCH else encdec_config()
+    if arch_id in LM_REC_ARCHS:
+        return dataclasses.replace(cfg, n_layers=LM_ENGINE_LAYERS[arch_id],
+                                   compute_dtype=torch.float32)
+    if arch_id == "deepseek-v3-671b":
+        return dropless(dataclasses.replace(cfg, mtp=False))
+    if arch_id == VLM_ARCH:
+        return dataclasses.replace(cfg, lm=dataclasses.replace(cfg.lm, n_layers=TP_VLM_LAYERS))
+    return cfg
+
+
+def tp_reset_peak() -> None:
+    """Reset this process's peak allocated bytes on its card (run on every
+    rank by ``tp_reset_peaks``)."""
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+
+
+def tp_reset_peaks(w) -> None:
+    """Reset every rank's peak allocated bytes, before a model is built."""
+    w.spmd(tp_reset_peak, [()] * w.size)
+
+
+def tp_margins(params, arch, cfg, prompts, streams, dev, tol: float) -> dict:
+    """Each stream's top-2 margins of the single device's forward over
+    prompt + generated tokens, at its generated positions, in tie margins
+    (twice ``tol`` of the logits' scale), as ``lm_check_decode`` takes
+    them."""
+    out = {}
+    for uid, res in streams.items():
+        a = lm_forward_logits(params, arch, cfg, prompts[uid], res.tokens, dev)
+        top = a.topk(2, dim=-1).values
+        out[uid] = ((top[:, 0] - top[:, 1]) / (2 * tol * a.abs().amax(-1).clamp(min=1.0))
+                    ).cpu().numpy()
+    return out
+
+
+def tp_peaks(model, label: str) -> list[int]:
+    """Each rank's peak allocated bytes since ``tp_reset_peaks``, each at
+    most ``LM_PEAK_LIMIT``."""
+    from repro_torch.distributed import world
+
+    peaks = [world.peak_bytes(model.rank0), *model.on_every_rank(world.peak_bytes)[1]]
+    check(max(peaks) <= LM_PEAK_LIMIT, f"{label}: peak bytes per rank {peaks}")
+    return peaks
+
+
+def tp_token_kind(w, on_path, arch_id: str, held: "FlashHeld", dev: str) -> dict:
+    """``arch_id`` (rwkv6-7b, recurrentgemma-9b, deepseek-v3-671b) at tp 2
+    against the single device: a ``TP_KIND_FORWARD`` forward (deepseek's
+    experts forced to the single device's, ``RoutesHeld``) within
+    ``LM_LOGIT_TOL`` (the recurrent kinds: ``TP_REC_TOL`` at f32) of the
+    logits' scale (griffin's without the input token's column),
+    the same bits on both ranks; the recurrent kinds' bf16 forward at tp 2
+    within ``TP_REC_BF16_RATIO`` times the single device's own bf16 gap of
+    the f32 forward, the same bits on both ranks; the engine serving ``TP_KIND_REQUESTS``
+    prompts twice, equal, and the single device's streams but at near
+    ties of its forward; no flash_attn launch.  Returns the row."""
+    import torch
+
+    from repro_torch.configs import base as cb
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import world
+    from repro_torch.nn import init as nninit
+    from repro_torch.serve.engine import Engine, Request, ServeConfig
+
+    arch, cfg = get_arch(arch_id), tp_kind_config(arch_id)
+    moe = getattr(cfg, "moe", None) is not None
+    tol = TP_REC_TOL if arch_id in LM_REC_ARCHS else LM_LOGIT_TOL
+    gen = torch.Generator("cpu").manual_seed(SEED + 13)
+    toks = torch.randint(0, cfg.vocab, TP_KIND_FORWARD, generator=gen).to(dev)
+    prompts = lm_prompts(cfg.vocab, TP_KIND_REQUESTS, TP_KIND_PROMPTS, SEED + 5)
+    reqs = [Request(uid=i, prompt=q) for i, q in enumerate(prompts)]
+    echo = toks if arch_id == LM_GRIFFIN_ARCH else None
+
+    # the single device first, its parameters freed before the world's
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = nninit.materialize(cb.model_spec(arch, cfg), torch.Generator(dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    row = {"phase": "tp", "arch": arch_id, "tp": 2, "n_layers": cfg.n_layers,
+           "compute_dtype": str(cfg.compute_dtype).split(".")[1],
+           "forward": list(TP_KIND_FORWARD), "single_draw_s": time.perf_counter() - t0}
+    forward, readout = cb.forward_fn(arch, cfg)
+    with RoutesHeld() as routes:
+        single = readout(params, forward(params, toks))
+    row["single_ms_per_forward"] = tp_ms(lambda: readout(params, forward(params, toks)))
+    if arch_id in LM_REC_ARCHS:
+        # the model's own bf16 rounding at this depth, which two bf16
+        # computations of it (tp and single) may each show
+        f16, r16 = cb.forward_fn(arch, dataclasses.replace(cfg, compute_dtype=torch.bfloat16))
+        single16 = r16(params, f16(params, toks))
+        row["single_bf16_vs_f32_of_scale"] = tp_logit_err(single16, single, echo)
+    step, init = cb.serve_fns(arch, cfg, TP_KIND_SERVE["max_len"])
+    one = Engine(step, init, ServeConfig(**TP_KIND_SERVE), params=params)
+    one.run(reqs)
+    single_streams = one.run(reqs)
+    row["single_ms_per_decode_step"] = (
+        one.stats["decode_time_s"] * 1e3
+        / (one.stats["decode_blocks"] * TP_KIND_SERVE["decode_block"]))
+    margins = tp_margins(params, arch, cfg, prompts, single_streams, dev, tol)
+    row["single_peak_bytes"] = torch.cuda.max_memory_allocated()
+    del params, one, step, init
+    gc.collect()     # the engine's cycles hold the parameters
+    torch.cuda.empty_cache()
+
+    tp_reset_peaks(w)
+    t0 = time.perf_counter()
+    eng = world.TPEngine(w, world.EngineSpec(
+        arch_id, cfg, world.SeededParams.of(torch.Generator(dev).manual_seed(SEED)),
+        ServeConfig(**TP_KIND_SERVE)), owns_world=False)
+    row["build_s"] = time.perf_counter() - t0
+    if moe:
+        def fwd():
+            y, theirs = eng.on_every_rank(tp_forced_forward, toks, routes.calls)
+            check(all(d == world.digest(y) for d in theirs),
+                  f"{arch_id} tp forward: the ranks' logits differ")
+            return y
+    else:
+        def fwd():
+            return eng.forward(toks)          # raises unless both ranks' bits agree
+    with held:
+        y, per_rank = on_path(w, fwd)
+    row["flash_attn_launches_per_rank"] = [c["flash_attn"] for c in per_rank]
+    check(row["flash_attn_launches_per_rank"] == [0, 0],
+          f"{arch_id} tp forward: flash_attn per rank {row['flash_attn_launches_per_rank']}")
+    check(tuple(y.shape) == (*TP_KIND_FORWARD, cfg.vocab) and bool(y.isfinite().all()),
+          f"{arch_id} tp forward: logits")
+    row["logits_vs_single_device"] = tp_logit_err(y, single, echo)
+    row["tolerance_of_scale"] = tol
+    check(row["logits_vs_single_device"] <= tol,
+          f"{arch_id} tp forward: {row['logits_vs_single_device']} of the logits' scale "
+          "from the single device")
+    del y
+    if arch_id in LM_REC_ARCHS:
+        # the bf16 path at tp 2, held against the f32 forward by the single
+        # device's own bf16 gap: a fault of the cut at bf16 only shows here
+        y16, theirs = eng.on_every_rank(tp_forward_at, toks, "bfloat16")
+        check(all(d == world.digest(y16) for d in theirs),
+              f"{arch_id} tp bf16 forward: the ranks' logits differ")
+        row["tp_bf16_vs_single_bf16_of_scale"] = tp_logit_err(y16, single16, echo)
+        row["tp_bf16_vs_single_f32_of_scale"] = tp_logit_err(y16, single, echo)
+        bound = TP_REC_BF16_RATIO * row["single_bf16_vs_f32_of_scale"]
+        check(row["tp_bf16_vs_single_f32_of_scale"] <= bound,
+              f"{arch_id} tp bf16 forward: {row['tp_bf16_vs_single_f32_of_scale']} of the "
+              f"scale from the single device's f32 forward, above {bound}")
+        del y16, single16
+    del single
+    row["ms_per_forward"] = tp_ms(fwd)
+    row["collectives_per_forward"] = tp_collectives(eng, fwd)
+    (served, per_a), (again, per_b) = (on_path(w, lambda: eng.run(reqs)) for _ in "ab")
+    check(all(list(served[u].tokens) == list(again[u].tokens) for u in served),
+          f"{arch_id} tp engine: a second greedy run differs")
+    check([c["flash_attn"] for c in per_a + per_b] == [0] * 4,
+          f"{arch_id} tp engine: flash_attn launched")
+    row["left_single_device_at_near_ties"] = lm_same_streams(single_streams, served,
+                                                             margins, f"{arch_id} tp engine")
+    stats = eng.stats
+    row["ms_per_decode_step"] = (stats["decode_time_s"] * 1e3
+                                 / (stats["decode_blocks"] * TP_KIND_SERVE["decode_block"]))
+    row["peak_bytes_per_rank"] = tp_peaks(eng, f"{arch_id} tp")
+    row["card"] = CARD
+    eng.close()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def tp_vlm(w, on_path, held: "FlashHeld", dev: str) -> dict:
+    """internvl2-26b at its width and ``TP_VLM_LAYERS`` layers at tp 2: its
+    partitioned ``prefill_fn`` (``TPModel.same`` of ``world.model_prefill``)
+    over ``VLM_IMAGE_TOKENS`` patch embeddings and ``VLM_TEXT_TOKENS`` tokens,
+    flash_attn once a layer on each rank at (1, 2048, 24, 128), the
+    last-token logits within ``LM_LOGIT_TOL`` of the single device's scale,
+    the same bits on both ranks."""
+    import torch
+
+    from repro_torch.configs import base as cb
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import world
+    from repro_torch.nn import init as nninit
+
+    arch, cfg = get_arch(VLM_ARCH), tp_kind_config(VLM_ARCH)
+    gen = torch.Generator("cpu").manual_seed(SEED + 8)
+    batch = {"patch_embeds": torch.randn(1, VLM_IMAGE_TOKENS, cfg.lm.d_model,
+                                         generator=gen).to(dev),
+             "tokens": torch.randint(0, cfg.lm.vocab, (1, VLM_TEXT_TOKENS),
+                                     generator=gen).to(dev)}
+    torch.cuda.reset_peak_memory_stats()
+    params = nninit.materialize(cb.model_spec(arch, cfg), torch.Generator(dev).manual_seed(SEED))
+    prefill = cb.prefill_fn(arch, cfg)
+    single = prefill(params, batch)
+    row = {"phase": "tp", "arch": VLM_ARCH, "tp": 2, "n_layers": cfg.lm.n_layers,
+           "prefill": [1, VLM_IMAGE_TOKENS, VLM_TEXT_TOKENS],
+           "single_ms_per_prefill": tp_ms(lambda: prefill(params, batch)),
+           "single_peak_bytes": torch.cuda.max_memory_allocated()}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tp_reset_peaks(w)
+    t0 = time.perf_counter()
+    model = world.TPModel(w, world.EngineSpec(
+        VLM_ARCH, cfg, world.SeededParams.of(torch.Generator(dev).manual_seed(SEED)), None),
+        owns_world=False)
+    row["build_s"] = time.perf_counter() - t0
+    with held:
+        y, per_rank = on_path(w, lambda: model.same(world.model_prefill, batch))
+    row["flash_attn_launches_per_rank"] = [c["flash_attn"] for c in per_rank]
+    check(row["flash_attn_launches_per_rank"] == [cfg.lm.n_layers] * 2,
+          f"{VLM_ARCH} tp prefill: flash_attn per rank {row['flash_attn_launches_per_rank']}, "
+          f"want {cfg.lm.n_layers}")
+    check(tuple(y.shape) == (1, cfg.lm.vocab) and bool(y.isfinite().all()),
+          f"{VLM_ARCH} tp prefill: logits")
+    row["logits_vs_single_device"] = tp_logit_err(y, single)
+    check(row["logits_vs_single_device"] <= LM_LOGIT_TOL,
+          f"{VLM_ARCH} tp prefill: {row['logits_vs_single_device']} of the logits' scale")
+    row["ms_per_prefill"] = tp_ms(lambda: model.same(world.model_prefill, batch))
+    row["collectives_per_prefill"] = tp_collectives(
+        model, lambda: model.same(world.model_prefill, batch))
+    row["peak_bytes_per_rank"] = tp_peaks(model, f"{VLM_ARCH} tp")
+    row["card"] = CARD
+    model.close()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def tp_encdec(w, on_path, held: "FlashHeld", dev: str) -> dict:
+    """seamless-m4t-large-v2 at its width and depth at tp 2 (``TPModel``):
+    an encode of (1, ``TP_ENCDEC_SRC``) frames, ``decode_train``'s logits
+    for ``TP_ENCDEC_TGT`` target tokens over it, then an encode of
+    ``TP_ENCDEC_SERVE_B`` rows, its caches and ``TP_ENCDEC_STEPS`` decode
+    steps fed the single device's greedy tokens: flash_attn on each rank
+    ``TP_ENCDEC_FLASH`` times a call, every output within ``LM_LOGIT_TOL``
+    of the single device's scale, the same bits on both ranks, each greedy
+    token the single device's but at its near ties."""
+    import torch
+
+    from repro_torch.configs import base as cb
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import world
+    from repro_torch.models import encdec
+    from repro_torch.nn import init as nninit
+    from repro_torch.nn import layers
+
+    arch, cfg = get_arch(ENCDEC_ARCH), tp_kind_config(ENCDEC_ARCH)
+    gen = torch.Generator("cpu").manual_seed(SEED + 21)
+    frames = torch.randn(1, TP_ENCDEC_SRC, cfg.d_model, generator=gen).bfloat16().to(dev)
+    frames2 = torch.randn(TP_ENCDEC_SERVE_B, TP_ENCDEC_SRC, cfg.d_model,
+                          generator=gen).bfloat16().to(dev)
+    tgt = torch.randint(0, cfg.vocab, (1, TP_ENCDEC_TGT), generator=gen).to(dev)
+    max_len = TP_ENCDEC_STEPS + 1
+
+    torch.cuda.reset_peak_memory_stats()
+    params = nninit.materialize(cb.model_spec(arch, cfg), torch.Generator(dev).manual_seed(SEED))
+    enc = encdec.encode(params, cfg, frames)
+    dt = layers.logits(params["embed"], encdec.decode_train(params, cfg, enc, tgt),
+                       cfg.compute_dtype)
+    enc2 = encdec.encode(params, cfg, frames2)
+    caches = encdec.init_caches(params, cfg, enc2, max_len, device=dev)
+    tok = torch.zeros(TP_ENCDEC_SERVE_B, dtype=torch.long, device=dev)
+    steps, toks = [], [tok]
+    for t in range(TP_ENCDEC_STEPS):
+        caches, logits = encdec.decode_step(params, cfg, caches, toks[-1], t)
+        steps.append(logits)
+        toks.append(logits.argmax(-1))
+    row = {"phase": "tp", "arch": ENCDEC_ARCH, "tp": 2,
+           "n_layers": [cfg.n_enc_layers, cfg.n_dec_layers],
+           "encode": [1, TP_ENCDEC_SRC], "decode_train": [1, TP_ENCDEC_TGT],
+           "decode_steps": [TP_ENCDEC_SERVE_B, TP_ENCDEC_STEPS],
+           "single_ms_per_encode": tp_ms(lambda: encdec.encode(params, cfg, frames)),
+           "single_ms_per_decode_step": tp_ms(lambda: encdec.decode_step(
+               params, cfg, caches, toks[0], 0))}
+    row["single_peak_bytes"] = torch.cuda.max_memory_allocated()
+    del params, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tp_reset_peaks(w)
+    t0 = time.perf_counter()
+    model = world.TPModel(w, world.EngineSpec(
+        ENCDEC_ARCH, cfg, world.SeededParams.of(torch.Generator(dev).manual_seed(SEED)), None),
+        owns_world=False)
+    row["build_s"] = time.perf_counter() - t0
+    launches, errs = {}, {}
+
+    def kept(fn, *args):      # an enc-dec serving step on every rank, the bits compared
+        return model.same(world.model_call, fn, *args)
+
+    def held_call(name, fn):
+        with held:
+            out, per_rank = on_path(w, fn)
+        launches.setdefault(name, []).append([c["flash_attn"] for c in per_rank])
+        check(launches[name][-1] == [TP_ENCDEC_FLASH.get(name, 0)] * 2,
+              f"{ENCDEC_ARCH} tp {name}: flash_attn per rank {launches[name][-1]}")
+        return out
+
+    def held_err(name, got, want):
+        errs[name] = max(errs.get(name, 0.0), tp_logit_err(got, want))
+        check(errs[name] <= LM_LOGIT_TOL, f"{ENCDEC_ARCH} tp {name}: {errs[name]} of the "
+                                          "single device's scale")
+
+    held_err("encode", held_call("encode", lambda: kept(encdec.kept_encode, frames)), enc)
+    held_err("decode_train",
+             held_call("decode_train", lambda: kept(encdec.kept_decode_train, tgt)), dt)
+    held_err("encode", held_call("encode", lambda: kept(encdec.kept_encode, frames2)), enc2)
+    held_call("init_caches", lambda: kept(encdec.kept_init_caches, max_len))
+    tie_left = 0
+    for t in range(TP_ENCDEC_STEPS):
+        got = held_call("decode_step", lambda t=t: kept(encdec.kept_decode_step, toks[t], t))
+        held_err("decode_step", got, steps[t])
+        want = steps[t].float()
+        top = want.topk(2, dim=-1).values
+        margin = (top[:, 0] - top[:, 1]) / (2 * LM_LOGIT_TOL * want.abs().amax(-1).clamp(min=1.0))
+        differ = got.argmax(-1) != toks[t + 1]
+        check(bool((margin[differ] <= 1).all()),
+              f"{ENCDEC_ARCH} tp decode step {t}: a greedy token leaves the single "
+              "device's outside a near tie")
+        tie_left += int(differ.sum())
+    row.update(flash_attn_launches_per_rank=launches, outputs_vs_single_device=errs,
+               greedy_left_single_device_at_near_ties=tie_left)
+    row["ms_per_encode"] = tp_ms(lambda: kept(encdec.kept_encode, frames))
+    row["collectives_per_encode"] = tp_collectives(model,
+                                                   lambda: kept(encdec.kept_encode, frames))
+    kept(encdec.kept_encode, frames2)
+    kept(encdec.kept_init_caches, max_len)
+    row["ms_per_decode_step"] = tp_ms(lambda: kept(encdec.kept_decode_step, toks[0], 0))
+    row["collectives_per_decode_step"] = tp_collectives(
+        model, lambda: kept(encdec.kept_decode_step, toks[0], 0))
+    row["peak_bytes_per_rank"] = tp_peaks(model, f"{ENCDEC_ARCH} tp")
+    row["card"] = CARD
+    model.close()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def tp_kinds(on_path, dev: str) -> None:
+    """The other kinds at tp 2 on one world of two ranks (phase 11b's second
+    part), a row each: ``tp_token_kind`` for ``TP_KIND_ARCHS``, ``tp_vlm``,
+    ``tp_encdec``.  Rank 0's first flash_mha call at each shape is held
+    against its plain version (``FlashHeld``)."""
+    from repro_torch.distributed import world
+
+    held = FlashHeld()
+    t0 = time.perf_counter()
+    w = world.World(TP_DEVICES)
+    rows = [lambda a=a: tp_token_kind(w, on_path, a, held, dev) for a in TP_KIND_ARCHS]
+    rows += [lambda: tp_vlm(w, on_path, held, dev), lambda: tp_encdec(w, on_path, held, dev)]
+    try:
+        for row in rows:
+            t1 = time.perf_counter()
+            emit(dict(row(), row_s=time.perf_counter() - t1))
+    finally:
+        w.close()
+    emit({"phase": "tp", "kinds_s": time.perf_counter() - t0, "flash_held": held.rows,
+          "card": CARD})
 
 def phase_tp(dev: str = "cuda") -> dict[str, int]:
     """Distribution on the serving path (phase 11b of the module docstring).
@@ -4430,6 +4891,7 @@ def phase_tp(dev: str = "cuda") -> dict[str, int]:
               "collectives_all_calls": run_collectives,
               "peak_bytes_per_rank": peaks, "card": CARD}
     final = eng.close()
+    del eng          # rank 0's cut of the parameters, in this process
     check(len(final) == 1, "tp: the world did not close with its worker's streams")
     tp_row["ranks_streams_equal"] = True
 
@@ -4455,6 +4917,7 @@ def phase_tp(dev: str = "cuda") -> dict[str, int]:
         single_streams, served, decode["margins"], "tp engine")
     emit(tp_row)
     del params, one
+    gc.collect()     # the engine's cycles hold the parameters
     torch.cuda.empty_cache()
 
     # granite-moe-1b-a400m: its vocab does not divide, experts forced
@@ -4489,8 +4952,11 @@ def phase_tp(dev: str = "cuda") -> dict[str, int]:
           f"granite tp forward: {moe_row['logits_vs_single_device']} of the logits' scale")
     emit(moe_row)
     eng_m.close()
-    del params_m, single_m, y_m
+    del eng_m, params_m, single_m, y_m
+    gc.collect()
     torch.cuda.empty_cache()
+
+    tp_kinds(on_path, dev)
 
     # deploy()'s replicas / tp arm on the card
     t0 = time.perf_counter()
@@ -5112,7 +5578,8 @@ def phase_dist(dev: str = "cuda") -> dict[str, int]:
 # unbind_classify at d = 256, simd_fused bf16, at d = 128 and at M = 1024,
 # flash_attn bf16, bf16 at head dim 64, bf16 at internvl2-26b's 48 heads, the
 # four non-causal bf16 shapes of the encdec phase (ENCDEC_FLASH) and each
-# rank's heads in the tp phase
+# rank's heads in the tp phase (llama's, granite's, seamless's:
+# TP_ENCDEC_FLASH_ROWS)
 SUB_ROWS = {"circ_conv": (("served", "circ_conv_served"), ("train", "circ_conv_train_conv"),
                           ("train_corr", "circ_conv_train_corr")),
             "circ_dict": (("corr", "circ_dict_corr"), ("bf16", "circ_dict_bf16")),
@@ -5124,7 +5591,8 @@ SUB_ROWS = {"circ_conv": (("served", "circ_conv_served"), ("train", "circ_conv_t
                            ("encoder", "flash_attn_encoder"), ("cross", "flash_attn_cross"),
                            ("decode_cross", "flash_attn_decode_cross"),
                            ("encoder_32k", "flash_attn_encoder_32k"),
-                           ("tp", "flash_attn_tp"), ("tp_moe", "flash_attn_tp_moe"))}
+                           ("tp", "flash_attn_tp"), ("tp_moe", "flash_attn_tp_moe"),
+                           *((k, f"flash_attn_{k}") for k in TP_ENCDEC_FLASH_ROWS))}
 
 
 def main() -> int:

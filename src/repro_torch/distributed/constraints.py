@@ -164,6 +164,18 @@ def take_local(x: torch.Tensor, dim: int) -> torch.Tensor:
     return x.narrow(dim, lo, hi - lo)
 
 
+def local(t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """This rank's slice along ``dim`` of a parameter leaf: the leaf itself
+    where it was cut along ``dim``, else the slice of it (uncut) or of the
+    whole it keeps (``tp_whole``; cut elsewhere).  The identity outside a
+    group."""
+    if _CURRENT is None:
+        return t
+    if model_dim(t) == dim % t.dim():
+        return t
+    return take_local(whole(t), dim)
+
+
 def _all_reduce(x: torch.Tensor, op: str, ctx: TPContext | None = None) -> torch.Tensor:
     """The sum over ``ctx``'s ranks (the tensor-parallel context by
     default) of ``x``, in place; a context without a group records it (a

@@ -220,11 +220,28 @@ def cut_dim(p: P, mesh: Mesh) -> int | None:
     return spec.index("model") if "model" in spec else None
 
 
+#: the axes of a bias over heads, which the layers read whole
+_HEAD_AXES = frozenset({"heads", "kv", "hd"})
+
+
 def reads_whole(p: P) -> bool:
-    """Whether the layers read leaf ``p`` whole: a vector of a layer (one
-    axis besides ``layers``: a norm scale, a q/k norm, a bias) or a bias
-    over heads (no ``embed`` axis).  Weight matrices are read cut."""
-    return sum(a != "layers" for a in p.axes) <= 1 or "embed" not in p.axes
+    """Whether the layers read leaf ``p`` whole (``cut_leaf`` keeps its
+    whole beside its cut):
+
+    - a vector of a layer (one axis besides ``layers``: a norm scale, a q/k
+      norm, a bias);
+    - a bias over heads (axes among ``heads``, ``kv``, ``hd``);
+    - a per-channel table whose only named axis is ``embed``, which the
+      fallback cuts on the model width: rwkv's token-shift mixes (``mu``
+      (5, embed), ``shift_a``, ``shift_b``) feed the head-cut projections
+      whole; the decay LoRA and a temporal conv's taps are small beside
+      them.
+
+    Weight matrices are read cut, MLA's up-projections (a LoRA rank and
+    heads) among them."""
+    named = [a for a in p.axes if a not in (None, "layers")]
+    return (sum(a != "layers" for a in p.axes) <= 1 or set(named) <= _HEAD_AXES
+            or named == ["embed"])
 
 
 def cut_leaf(p: P, t: torch.Tensor, rank: int, mesh: Mesh) -> torch.Tensor:

@@ -32,8 +32,19 @@ Nothing hangs and nothing degrades quietly:
   (the ranks' engines may then differ);
 - a worker whose leader dies exits (it polls its parent while idle);
 - ``close()`` ends the workers and returns their kernel launch counts;
-- what the layers do not cover (``refuse_uncovered``: kinds other than
-  the dense and MoE GQA ``lm`` kind) raises before any rank computes.
+- what the layers do not cover (``refuse_uncovered``: experts that do not
+  divide the group, heads that a cut would split) raises before any rank
+  computes.
+
+Every kind is covered: the token-input kinds (``lm``, MLA included,
+``rwkv``, ``griffin``) are served through ``TPEngine``.  The VLM and the
+enc-dec kind take non-token inputs, which the ``Engine`` does not, as in
+the reference; their ranks hold their cut of the parameters and no
+engine, and ``TPModel.same`` runs the reference's partitioned
+``prefill_fn`` (``model_prefill``: the VLM's last-token logits, the
+enc-dec encode) and the enc-dec serving steps (``model_call`` of
+``models/encdec.py``'s ``kept_*``) on every rank, each call's result
+compared across ranks.
 
 Kernels are built in rank 0 before the workers start
 (``kernels/_build.py``), so no two ranks run ``nvcc`` into one directory.
@@ -55,6 +66,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import gc
 import itertools
 import os
 import shutil
@@ -182,35 +194,58 @@ class EngineSpec:
 
 @dataclasses.dataclass
 class RankEngine:
-    """One rank's engine, its tensor-parallel context and its local
-    parameters."""
+    """One rank's engine (None for a kind the ``Engine`` does not serve),
+    its tensor-parallel context, its local parameters and what a model's
+    calls keep on the rank between calls (``state``: the enc-dec kind's
+    encoder output and decode caches)."""
 
     spec: EngineSpec
     ctx: tpc.TPContext
     engine: Any
     params: Any
     device: torch.device
+    state: dict = dataclasses.field(default_factory=dict)
 
     def run(self, fn: Callable, *args, **kwargs):
         with tpc.tp_group(self.ctx):
             return fn(*args, **kwargs)
 
 
+def _split_heads(arch, cfg, tp: int) -> str | None:
+    """The heads a cut at ``tp`` would split (rwkv's ``heads_flat``
+    columns, which divide where its heads may not) or cut off their
+    up-projections' heads (MLA, whose absorbed decode reads them per
+    head), else None."""
+    if arch.kind == "rwkv":
+        h = cfg.d_model // cfg.head_dim
+        if cfg.d_model % tp == 0 and h % tp:
+            return f"rwkv's {h} heads"
+    lm_cfg = cfg.lm if arch.kind == "vlm" else cfg
+    if getattr(lm_cfg, "attn_kind", "gqa") == "mla" and lm_cfg.mla.n_heads % tp:
+        return f"MLA's {lm_cfg.mla.n_heads} heads"
+    return None
+
+
 def refuse_uncovered(arch, cfg, tp: int) -> None:
-    """Raise for what tensor parallelism does not cover yet: every kind
-    but ``lm``, MLA attention, and experts that do not divide ``tp`` (the
-    layers would cut them along another dim)."""
-    moe_cfg = getattr(cfg, "moe", None)
-    mla = getattr(cfg, "attn_kind", "gqa") == "mla"
-    if arch.kind != "lm" or mla or (moe_cfg is not None and moe_cfg.n_experts % tp):
+    """Raise for what tensor parallelism does not cover yet: experts that
+    do not divide ``tp`` (the rules would cut them along another dim) and
+    heads that the cut at ``tp`` would split (``_split_heads``)."""
+    lm_cfg = cfg.lm if arch.kind == "vlm" else cfg
+    moe_cfg = getattr(lm_cfg, "moe", None)
+    if moe_cfg is not None and moe_cfg.n_experts % tp:
+        what = f"{moe_cfg.n_experts} experts"
+    else:
+        what = _split_heads(arch, cfg, tp)
+    if what is not None:
         raise NotImplementedError(
-            f"{arch.id}: tensor parallelism covers the dense and MoE GQA lm "
-            f"kind with experts dividing tp; {arch.kind}{' (MLA)' if mla else ''} "
-            f"at tp={tp} waits for ROADMAP Queue 1 #9")
+            f"{arch.id}: tensor parallelism covers every kind where the group "
+            f"divides the experts and the heads; {what} at tp={tp} wait for "
+            "ROADMAP Queue 1 #9")
 
 
 def build_rank(spec: EngineSpec, group, rank: int, size: int, device) -> RankEngine:
-    """Rank ``rank``'s engine over its cut of ``spec``'s parameters."""
+    """Rank ``rank``'s engine over its cut of ``spec``'s parameters (no
+    engine where ``spec`` has no ``serve_cfg``: a ``TPModel``'s)."""
     from repro_torch.configs import base as cb
     from repro_torch.configs.registry import get_arch
     from repro_torch.serve.engine import Engine
@@ -223,8 +258,10 @@ def build_rank(spec: EngineSpec, group, rank: int, size: int, device) -> RankEng
     with tpc.tp_group(ctx):
         params = spec.params_fn(cb.model_spec(arch, spec.cfg),
                                 lambda p, t: sr.cut_leaf(p, t, rank, mesh), device)
-        step, init = cb.serve_fns(arch, spec.cfg, spec.serve_cfg.max_len)
-        engine = Engine(step, init, dataclasses.replace(spec.serve_cfg), params=params)
+        engine = None
+        if spec.serve_cfg is not None:
+            step, init = cb.serve_fns(arch, spec.cfg, spec.serve_cfg.max_len)
+            engine = Engine(step, init, dataclasses.replace(spec.serve_cfg), params=params)
     return RankEngine(spec, ctx, engine, params, device)
 
 
@@ -247,9 +284,43 @@ def digest(y: torch.Tensor) -> tuple:
     return tuple(y.shape), float(yd.sum()), float(yd.abs().sum())
 
 
-def logits_digest(rank: RankEngine, tokens) -> tuple:
-    """The ``digest`` of ``forward_logits``."""
-    return digest(forward_logits(rank, tokens))
+def _on_device(tree, device):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _on_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_on_device(v, device) for v in tree]
+    return tree
+
+
+def model_prefill(rank: RankEngine, inputs) -> torch.Tensor:
+    """``configs.base.prefill_fn`` of the rank's kind on ``inputs``: the
+    VLM's ``{patch_embeds, tokens}`` to last-token logits (B, V), the
+    enc-dec kind's frames to its encoder states' mean (B, D), as the
+    reference's; unwindowed attention launches ``flash_attn`` on the
+    rank's heads."""
+    from repro_torch.configs import base as cb
+    from repro_torch.configs.registry import get_arch
+
+    fn = cb.prefill_fn(get_arch(rank.spec.arch_id), rank.spec.cfg)
+    return rank.run(lambda: fn(rank.params, _on_device(inputs, rank.device)))
+
+
+def model_call(rank: RankEngine, fn: Callable, *args):
+    """``fn(params, cfg, state, *args)`` on the rank, under its group: its
+    parameters, its config and the dict it keeps between calls (the
+    enc-dec kind's encoder states and decode caches:
+    ``models/encdec.py:kept_encode`` and the steps after it), the tensor
+    arguments moved to its device."""
+    return rank.run(fn, rank.params, rank.spec.cfg, rank.state,
+                    *_on_device(list(args), rank.device))
+
+
+def digest_of(rank: RankEngine, fn: Callable, *args) -> tuple:
+    """The ``digest`` of ``fn(rank, *args)``, as a worker returns it."""
+    out = fn(rank, *args)
+    return None if out is None else digest(out)
 
 
 def peak_bytes(rank: RankEngine) -> int:
@@ -317,41 +388,53 @@ def _worker(rank: int, size: int, store_path: str, device: str, timeout_s: float
         if op == "close":
             conn.send(("ok", {"launches": dict(registry.LAUNCHES), "streams": streams}))
             break
+        out = None
         try:
-            if op == "build":
-                handle, spec = args
-                ranks[handle] = build_rank(spec, group, rank, size, device)
-                streams[handle] = []
-                out = None
-            elif op == "call":
-                handle, method, a, kw = args
-                r = ranks[handle]
-                res = _streams(r.run(getattr(r.engine, method), *a, **kw))
-                if res is not None:
-                    streams[handle].append(res)
-                out = res
-            elif op == "fn":
-                handle, fn, a = args
-                out = fn(ranks[handle], *a)
-            elif op == "spmd":
-                fn, a, axis = args
-                spmd.axis = axis
-                with tpc.spmd_group(spmd):
-                    out = to_host(fn(*a))
-            elif op == "drop":
-                ranks.pop(args[0], None)
-                out = None
-            elif op == "launches":
-                out = dict(registry.LAUNCHES)
-            elif op == "reset_launches":
-                registry.reset_launches()
-                out = None
-            else:
-                raise ValueError(f"unknown world op {op!r}")
+            out = _run_op(op, args, ranks, streams, spmd, device)
             conn.send(("ok", out))
         except BaseException as e:  # the leader decides whether the world survives
             conn.send(("raised", (type(e).__name__, str(e), traceback.format_exc(),
                                   tpc.entered() - entered)))
+        del op, args, out   # nothing of a call outlives it: a dropped model is freed
+
+
+def _run_op(op: str, args, ranks: dict, streams: dict, spmd: tpc.SPMDContext,
+            device: str):
+    """One message's work on a worker; returns what it sends back."""
+    from repro_torch.backend import registry
+
+    if op == "build":
+        handle, spec = args
+        ranks[handle] = build_rank(spec, spmd.group, spmd.rank, spmd.size, device)
+        streams[handle] = []
+        return None
+    if op == "call":
+        handle, method, a, kw = args
+        r = ranks[handle]
+        res = _streams(r.run(getattr(r.engine, method), *a, **kw))
+        if res is not None:
+            streams[handle].append(res)
+        return res
+    if op == "fn":
+        handle, fn, a = args
+        return fn(ranks[handle], *a)
+    if op == "spmd":
+        fn, a, axis = args
+        spmd.axis = axis
+        with tpc.spmd_group(spmd):
+            return to_host(fn(*a))
+    if op == "drop":
+        ranks.pop(args[0], None)
+        gc.collect()
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()   # the model's memory back to the card
+        return None
+    if op == "launches":
+        return dict(registry.LAUNCHES)
+    if op == "reset_launches":
+        registry.reset_launches()
+        return None
+    raise ValueError(f"unknown world op {op!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -563,24 +646,23 @@ class World:
             self._end()
 
 
-_MIRRORED = ("submit", "drain_ready", "drain_all", "run", "generate", "reset_stats")
-
-
-class TPEngine:
-    """Rank 0's ``Engine`` of a tensor-parallel world: the runtime protocol
-    (and ``run`` / ``generate``), each call run by every rank.  Reads
-    (``cfg``, ``stats``, ``tokens_per_s()``, ...) are rank 0's engine's.
+class TPModel:
+    """What a world holds for one model: every rank built it
+    (``build_rank``) under ``handle``.  ``same`` runs a call on every rank
+    and compares the results; for the kinds the ``Engine`` does not serve
+    (the VLM, the enc-dec kind: parameters and no engine on each rank)
+    the calls are ``model_prefill`` (the reference's partitioned
+    ``prefill_fn``) and ``model_call`` of the enc-dec serving steps
+    (``models/encdec.py:kept_encode`` and those after it).
     ``owns_world``: ``close()`` closes the world too."""
 
     def __init__(self, world: World, spec: EngineSpec, owns_world: bool = True):
         self.world, self.spec, self.owns_world = world, spec, owns_world
         self.handle = next(world._handles)
-        self.streams: list = []
         self.rank0, _ = world.call(
             "build", (self.handle, spec),
             lambda: build_rank(spec, world.group, 0, world.size, world.devices[0]),
             "build")
-        self.engine = self.rank0.engine
 
     @property
     def tp(self) -> int:
@@ -595,6 +677,55 @@ class TPEngine:
         """Rank 0's collectives so far: op -> (count, host seconds when
         timed)."""
         return self.rank0.ctx.stats
+
+    def on_every_rank(self, fn: Callable, *args):
+        """``fn(rank_engine, *args)`` on every rank (``fn`` importable by
+        name, as the workers unpickle it); returns rank 0's result and the
+        workers' results."""
+        return self.world.call("fn", (self.handle, fn, args),
+                               lambda: fn(self.rank0, *args), getattr(fn, "__name__", "fn"))
+
+    def same(self, fn: Callable, *args) -> torch.Tensor | None:
+        """Rank 0's ``fn(rank_engine, *args)``, run on every rank (the
+        workers' tensor arguments moved to the host); raises unless every
+        rank's result has rank 0's ``digest``."""
+        name = getattr(fn, "__name__", "fn")
+
+        def local():
+            y = fn(self.rank0, *args)
+            return y, None if y is None else digest(y)
+
+        (y, mine), theirs = self.world.call(
+            "fn", (self.handle, digest_of, (fn, *to_host(args))), local, name)
+        for r, d in enumerate(theirs, 1):
+            if d != mine:
+                self.world.fail(f"rank {r}'s result of {name} differs from rank 0's")
+        return y
+
+    def close(self) -> list[dict]:
+        """End this model on every rank (and the world, if owned); returns
+        the workers' last payloads when the world was closed."""
+        if self.world.closed:
+            return self.world.final
+        if not self.owns_world:
+            self.world.call("drop", (self.handle,), lambda: None, "drop")
+            return []
+        return self.world.close()
+
+
+_MIRRORED = ("submit", "drain_ready", "drain_all", "run", "generate", "reset_stats")
+
+
+class TPEngine(TPModel):
+    """Rank 0's ``Engine`` of a tensor-parallel world: the runtime protocol
+    (and ``run`` / ``generate``), each call run by every rank.  Reads
+    (``cfg``, ``stats``, ``tokens_per_s()``, ...) are rank 0's engine's.
+    ``owns_world``: ``close()`` closes the world too."""
+
+    def __init__(self, world: World, spec: EngineSpec, owns_world: bool = True):
+        self.streams: list = []
+        super().__init__(world, spec, owns_world)
+        self.engine = self.rank0.engine
 
     def _mirror(self, method: str, *args, **kwargs):
         out, theirs = self.world.call(
@@ -628,26 +759,10 @@ class TPEngine:
     def reset_stats(self):
         return self._mirror("reset_stats")
 
-    def on_every_rank(self, fn: Callable, *args):
-        """``fn(rank_engine, *args)`` on every rank (``fn`` importable by
-        name, as the workers unpickle it); returns rank 0's result and the
-        workers' results."""
-        return self.world.call("fn", (self.handle, fn, args),
-                               lambda: fn(self.rank0, *args), getattr(fn, "__name__", "fn"))
-
     def forward(self, tokens) -> torch.Tensor:
         """Rank 0's ``forward_logits`` of ``tokens``, run on every rank;
         raises unless every rank's logits have rank 0's digest."""
-        def local():
-            y = forward_logits(self.rank0, tokens)
-            return y, digest(y)
-
-        (y, mine), theirs = self.world.call("fn", (self.handle, logits_digest, (tokens,)),
-                                            local, "forward")
-        for r, d in enumerate(theirs, 1):
-            if d != mine:
-                self.world.fail(f"rank {r}'s forward logits differ from rank 0's")
-        return y
+        return self.same(forward_logits, tokens)
 
     def __getattr__(self, name: str):
         if name in _MIRRORED or name.startswith("__"):
@@ -660,10 +775,7 @@ class TPEngine:
         payloads when the world was closed."""
         if self.world.closed:
             return self.world.final
-        if not self.owns_world:
-            self.world.call("drop", (self.handle,), lambda: None, "drop")
-            return []
-        final = self.world.close()
+        final = super().close()
         for r, payload in enumerate(final, 1):
             if payload["streams"].get(self.handle, []) != self.streams:
                 raise WorldError(f"rank {r}'s token streams differ from rank 0's")
@@ -677,12 +789,35 @@ def tp_engine(arch_id: str, cfg, params_fn: Callable, tp: int, devices, serve_cf
     parameters from ``params_fn`` (``SeededParams`` / ``GivenParams`` /
     ``CheckpointParams``), each rank keeping its cut.  ``close()`` ends the
     world."""
+    from repro_torch.configs import base as cb
+    from repro_torch.configs.registry import get_arch
+
+    cb.serve_fns(get_arch(arch_id), cfg, serve_cfg.max_len)   # the kinds it refuses
+    return _open(TPEngine, devices, tp, EngineSpec(arch_id, cfg, params_fn, serve_cfg),
+                 timeout_s)
+
+
+def tp_model(arch_id: str, cfg, params_fn: Callable, tp: int, devices,
+             timeout_s: float = WORLD_TIMEOUT_S) -> TPModel:
+    """A model held tensor-parallel by a world of ``tp`` processes on
+    ``devices[:tp]``, without an engine (the VLM and the enc-dec kind,
+    whose inputs the ``Engine`` does not take; ``TPModel.same`` runs its
+    calls), over whole parameters from ``params_fn``.  ``close()`` ends the
+    world."""
+    return _open(TPModel, devices, tp, EngineSpec(arch_id, cfg, params_fn, None),
+                 timeout_s)
+
+
+def _open(cls, devices, tp: int, spec: EngineSpec, timeout_s: float):
     devices = tuple(devices)
     if tp < 1 or tp > len(devices):
         raise ValueError(f"tp={tp} needs {tp} devices, got {len(devices)}")
+    from repro_torch.configs.registry import get_arch
+
+    refuse_uncovered(get_arch(spec.arch_id), spec.cfg, tp)
     world = World(devices[:tp], timeout_s=timeout_s)
     try:
-        return TPEngine(world, EngineSpec(arch_id, cfg, params_fn, serve_cfg))
+        return cls(world, spec)
     except BaseException:
         if not world.closed:
             world._end()

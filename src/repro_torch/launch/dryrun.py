@@ -14,20 +14,22 @@ record goes to ``results/dryrun_torch/`` for the roofline
   for the parameters, the moments after them, the batch over the data
   axes, the caches by ``tree_cache_shardings``);
 - **FLOPs per device** from ``torch.utils.flop_counter.FlopCounterMode``
-  over one rank's step traced on ``meta``: the data shard of the batch,
-  and, where the kind has a tensor-parallel path, the rank's cut of the
-  parameters (``sharding_rules.param_shards``) under a dry
-  ``TPContext`` (``group=None``, ``size`` = the model axis).  The counter
-  sees every layer, so the reference's reps-1 / reps-2 calibration (XLA
-  CPU's cost analysis counts a scan body once) has no counterpart.  A kind
-  tensor parallelism does not cover (ROADMAP Queue 1 #9) is traced whole
-  on its data shard and its FLOPs split evenly over the model axis;
+  over one rank's step traced on ``meta``: the data shard of the batch
+  and the rank's cut of the parameters (``sharding_rules.param_shards``)
+  under a dry ``TPContext`` (``group=None``, ``size`` = the model axis),
+  for every kind.  The counter sees every layer, so the reference's
+  reps-1 / reps-2 calibration (XLA CPU's cost analysis counts a scan body
+  once) has no counterpart.  Only a config tensor parallelism refuses
+  (``world.refuse_uncovered``: experts that do not divide the model axis,
+  ROADMAP Queue 1 #9's remainder; no registry arch at the production
+  mesh's 16) is traced whole on its data shard, its FLOPs split evenly
+  over the model axis;
 - **collectives** from the dry context's record (``roofline.
   collectives_of``): the forward's, since the port's tensor-parallel
   layers have no backward collectives (tensor-parallel training is not
-  ported); a training step adds the data-parallel gradient reduction,
-  worked out from the parameter specs (``grad_sync``).  Null, with the
-  reason, for the kinds #9 does not cover.
+  ported, ROADMAP Queue 1 #10); a training step adds the data-parallel
+  gradient reduction, worked out from the parameter specs
+  (``grad_sync``).  Null, with the reason, for a refused config.
 
 There is no ``memory_analysis``: the record holds the argument and output
 bytes per device, and a step's peak is measured on the card only.
@@ -235,7 +237,7 @@ def _local_shape(shape: ShapeSpec, mesh: Mesh) -> ShapeSpec:
 
 
 def _tp_refusal(arch, cfg, model: int) -> str | None:
-    """Why the kind has no tensor-parallel path at this model size."""
+    """Why the config has no tensor-parallel path at this model size."""
     from repro_torch.distributed import world
 
     try:

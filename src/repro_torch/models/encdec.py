@@ -27,6 +27,15 @@ decoder layer runs through ``torch.utils.checkpoint.checkpoint``
 included; without grad it does nothing.  ``EncDecConfig`` is the
 reference's without ``scan_unroll``, which tunes its compiled scan (eager
 PyTorch has nothing for it to do).
+
+In a tensor-parallel group every attention, the encoder's, the decoder's
+and the cross-attention, runs the rank's heads through ``flash_mha`` and
+ends in ``wo``'s row-parallel reduce (``nn/attention.py``); the biased
+MLPs, the layernorms and the tied embedding run as ``nn/layers.py`` runs
+them; the cross cache holds the rank's kv heads.  The ``kept_*`` steps
+run ``encode``, ``decode_train``, ``init_caches`` and ``decode_step`` over
+a dict kept between calls, as a tensor-parallel world's ranks run them
+(``distributed.world.model_call``).
 """
 
 from __future__ import annotations
@@ -38,7 +47,6 @@ import torch
 
 from repro_torch.backend import registry
 from repro_torch.common.tree import tree_map
-from repro_torch.kernels.flash_attn import ops as flash_ops
 from repro_torch.models.lm import _run_layers, _stack_spec, _unstack, _xent
 from repro_torch.nn import attention as attn
 from repro_torch.nn import layers
@@ -95,13 +103,9 @@ def encdec_spec(cfg: EncDecConfig):
 
 
 def _enc_layer(cfg: EncDecConfig, p, x, positions):
-    acfg = cfg.attn_cfg()
     h = layers.layernorm(p["ln1"], x)
-    q, k, v = attn.gqa_project(p["attn"], acfg, h, positions, cfg.compute_dtype)
-    groups = acfg.n_heads // acfg.n_kv_heads
-    k, v = attn._repeat_kv(k, groups), attn._repeat_kv(v, groups)
-    o = flash_ops.flash_mha(q, k, v, acfg.scale, causal=False)   # bidirectional
-    x = x + attn.out_project(o, p["attn"]["wo"].to(cfg.compute_dtype))
+    x = x + attn.attention(p["attn"], cfg.attn_cfg(), h, positions, cfg.compute_dtype,
+                           causal=False)                          # bidirectional
     h = layers.layernorm(p["ln2"], x)
     return x + layers.mlp(p["mlp"], h, compute_dtype=cfg.compute_dtype)
 
@@ -148,9 +152,11 @@ def loss_fn(params, cfg: EncDecConfig, batch) -> torch.Tensor:
 def cache_shapes(cfg: EncDecConfig, batch: int, max_len: int, src_len: int):
     """The decode caches as ``meta`` tensors, stacked over the decoder
     layers: the self-attention K/V of ``max_len`` tokens and the bf16
-    cross-attention K/V of the ``src_len`` encoder states."""
+    cross-attention K/V of the ``src_len`` encoder states (in a
+    tensor-parallel group, of the kv heads the rank's q heads read)."""
     acfg = cfg.attn_cfg()
-    cross = (batch, src_len, cfg.n_kv_heads, cfg.hd)
+    _, _, kvlo, kvhi = attn.tp_heads(acfg)
+    cross = (batch, src_len, kvhi - kvlo, cfg.hd)
     per_layer = {
         "self": attn.kv_cache_shape(acfg, batch, max_len),
         "cross": {"k": torch.empty(cross, dtype=torch.bfloat16, device="meta"),
@@ -195,3 +201,38 @@ def decode_step(params, cfg: EncDecConfig, caches, token: torch.Tensor, pos):
         x = x + layers.mlp(p["mlp"], h[:, None, :], compute_dtype=cdt)[:, 0]
     x = layers.layernorm(params["dec_norm"], x)
     return caches, layers.logits(params["embed"], x, cdt)
+
+
+# ---------------------------------------------------------------------------
+# The serving steps over a kept state: the encoder states, then the decode
+# caches (``distributed.world.model_call`` runs them on every rank)
+# ---------------------------------------------------------------------------
+
+
+def kept_encode(params, cfg: EncDecConfig, state: dict, frames: torch.Tensor):
+    """The encoder states (B, S_src, D) of ``frames``, kept in ``state`` (in
+    place of what it held) for ``kept_decode_train`` / ``kept_init_caches``."""
+    state.clear()
+    state["enc_out"] = encode(params, cfg, frames)
+    return state["enc_out"]
+
+
+def kept_decode_train(params, cfg: EncDecConfig, state: dict, tgt_tokens: torch.Tensor):
+    """The teacher-forced decoder's logits (B, S_tgt, V) over the kept
+    encoder states."""
+    hidden = decode_train(params, cfg, state["enc_out"], tgt_tokens)
+    return layers.logits(params["embed"], hidden, cfg.compute_dtype)
+
+
+def kept_init_caches(params, cfg: EncDecConfig, state: dict, max_len: int) -> None:
+    """The decode caches over the kept encoder states, kept in ``state`` for
+    ``kept_decode_step``."""
+    enc = state["enc_out"]
+    state["caches"] = init_caches(params, cfg, enc, max_len, device=enc.device)
+
+
+def kept_decode_step(params, cfg: EncDecConfig, state: dict, token: torch.Tensor, pos):
+    """One decode step of ``token`` (B,) at ``pos`` over the kept caches:
+    the logits (B, V)."""
+    state["caches"], logits = decode_step(params, cfg, state["caches"], token, pos)
+    return logits

@@ -15,6 +15,13 @@ attention layers are windowed, so the forward keeps the plain twins there
 (``nn/attention.py:attention``); the flash_attn kernel is not on this path.
 ``loss_fn`` is the reference's: the cross entropy of the tied readout.  With
 ``remat``, each unit of ``body`` is recomputed in the backward under grad.
+
+In a tensor-parallel group a recurrent block runs the rank's channels:
+``in_x`` / ``in_gate`` column-parallel (cut on ``mlp``), the conv and the
+RG-LRU on the same channels, ``out`` row-parallel; its decode state holds
+those channels (``rec_width``).  The MQA attention keeps, on every rank,
+the kv head its q heads read, as ``nn/attention.py`` does wherever the kv
+heads do not divide the group.
 """
 
 from __future__ import annotations
@@ -26,6 +33,8 @@ import torch
 
 from repro_torch.backend import registry
 from repro_torch.common.tree import tree_map
+from repro_torch.distributed import constraints as tp
+from repro_torch.distributed import sharding_rules as sr
 from repro_torch.models.lm import _run_layers, _stack_spec, _unstack, _xent
 from repro_torch.nn import attention as attn
 from repro_torch.nn import layers, ssm
@@ -133,14 +142,26 @@ def _mlp(cfg: GriffinConfig, p, x):
     return x + layers.glu_mlp(p["mlp"], h, compute_dtype=cfg.compute_dtype)
 
 
+def _rec_in(cfg: GriffinConfig, p, h):
+    """(gate, x) of a recurrent block's input projections and whether they
+    hold the rank's channels (in a group, column-parallel on ``mlp``)."""
+    gate, local = layers._dense_out(p["in_gate"], h, cfg.compute_dtype)
+    xr, _ = layers._dense_out(p["in_x"], h, cfg.compute_dtype)
+    return layers.gelu(gate), xr, local
+
+
+def _rec_out(cfg: GriffinConfig, p, y, local: bool):
+    """The block's output projection of ``y`` (row-parallel on the rank's
+    channels in a group)."""
+    return layers._dense_in(p["out"], y, local, cfg.compute_dtype)
+
+
 def _rec_fwd(cfg: GriffinConfig, p, x):
-    cd = cfg.compute_dtype
     h = layers.rmsnorm(p["ln"], x)
-    gate = layers.gelu(layers.dense(p["in_gate"], h, cd))
-    xr = layers.dense(p["in_x"], h, cd)
-    xr = layers.causal_conv1d(p["conv"], xr, cd)
+    gate, xr, local = _rec_in(cfg, p, h)
+    xr = layers.causal_conv1d(p["conv"], xr, cfg.compute_dtype)
     hr, _ = ssm.rglru(p["lru"], cfg.lru(), xr)
-    x = x + layers.dense(p["out"], hr * gate, cd)
+    x = x + _rec_out(cfg, p, hr * gate, local)
     return _mlp(cfg, p, x)
 
 
@@ -182,10 +203,20 @@ def loss_fn(params, cfg: GriffinConfig, batch) -> torch.Tensor:
                  batch["targets"])
 
 
+def rec_width(cfg: GriffinConfig) -> int:
+    """The RG-LRU channels this rank runs: in a group whose rules cut
+    ``in_x`` on ``mlp``, its share of them; else all."""
+    ctx = tp.current()
+    if ctx is not None and sr.cut_dim(_rec_spec(cfg)["in_x"]["w"], ctx.mesh) == 1:
+        return cfg.rnn_d // ctx.size
+    return cfg.rnn_d
+
+
 def _rec_state(cfg: GriffinConfig, batch: int):
+    r = rec_width(cfg)
     return {
-        "lru": torch.empty((batch, cfg.rnn_d), dtype=torch.float32, device="meta"),
-        "conv": torch.empty((batch, cfg.conv_width - 1, cfg.rnn_d),
+        "lru": torch.empty((batch, r), dtype=torch.float32, device="meta"),
+        "conv": torch.empty((batch, cfg.conv_width - 1, r),
                             dtype=torch.bfloat16, device="meta"),
     }
 
@@ -215,15 +246,13 @@ def init_state(cfg: GriffinConfig, batch: int, max_len: int, device=None):
 
 
 def _rec_step(cfg: GriffinConfig, p, st, x):
-    cd = cfg.compute_dtype
     h = layers.rmsnorm(p["ln"], x)
-    gate = layers.gelu(layers.dense(p["in_gate"], h, cd))
-    xr = layers.dense(p["in_x"], h, cd)
+    gate, xr, local = _rec_in(cfg, p, h)
     conv_st, xr = layers.causal_conv1d_step(p["conv"], st["conv"], xr)
     lru_st, hr = ssm.rglru_step(p["lru"], cfg.lru(), st["lru"], xr)
     st["conv"].copy_(conv_st)
     st["lru"].copy_(lru_st)
-    x = x + layers.dense(p["out"], hr * gate, cd)
+    x = x + _rec_out(cfg, p, hr * gate, local)
     return _mlp(cfg, p, x)
 
 

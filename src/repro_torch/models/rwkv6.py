@@ -13,6 +13,10 @@ and returns it, as ``models.lm.decode_step`` does with its KV caches.
 ``loss_fn`` is the reference's: the cross entropy of the head's logits.
 With ``remat``, each layer is recomputed in the backward under grad, as
 the reference's ``jax.checkpoint`` of its scanned layer.
+
+In a tensor-parallel group every layer runs the rank's heads and channels
+(``nn/ssm.py``), the embedding, the norms and the head as ``nn/layers.py``
+runs them, and the decode state holds the rank's WKV heads.
 """
 
 from __future__ import annotations
@@ -96,9 +100,11 @@ def loss_fn(params, cfg: RWKVConfig, batch) -> torch.Tensor:
 
 
 def state_shapes(cfg: RWKVConfig, batch: int):
-    """The stacked per-layer state as ``meta`` tensors."""
+    """The stacked per-layer state as ``meta`` tensors.  In a
+    tensor-parallel group the WKV state holds the rank's heads
+    (``ssm.timemix_heads``); the token-shift carries stay whole."""
     tm = cfg.tm()
-    h, hd, n = tm.n_heads, tm.head_dim, cfg.n_layers
+    h, hd, n = ssm.timemix_heads(tm), tm.head_dim, cfg.n_layers
     return {
         "wkv": torch.empty((n, batch, h, hd, hd), dtype=torch.float32, device="meta"),
         "tm_x": torch.empty((n, batch, cfg.d_model), dtype=torch.bfloat16, device="meta"),

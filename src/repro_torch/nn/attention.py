@@ -37,9 +37,19 @@ encoder output.  Every key is visible to every query, which is what
 ``cross_attention`` calls ``flash_mha(..., causal=False)`` for any Sq:
 the target length in training, 1 at each decode step.  The encoder's own
 bidirectional self-attention (``models/encdec.py:encode``) calls it the
-same way.  So the calls that reach the kernel are ``attention`` without a
-window, ``cross_attention`` and the encoder's layers; windowed layers, the
-decode step's self-attention and MLA keep their plain twins.
+same way (``attention(..., causal=False)``).  So the calls that reach the
+kernel are ``attention`` without a window, ``cross_attention`` and the
+encoder's layers; windowed layers, the decode step's self-attention and
+MLA keep their plain twins.
+
+In a tensor-parallel group (``distributed.constraints``) every attention
+runs the rank's heads: GQA / MQA the rank's cut of ``wq``'s heads and the
+kv heads they read (``tp_heads``; a kv head that does not divide the group
+is kept by every rank whose q heads read it), cross-attention likewise
+over ``encode_kv``'s kv heads, MLA its cut of the up-projections' heads
+(``mla_heads``) over latents that ``wq_a`` / ``wkv_a``, row-parallel, make
+whole on every rank, so its compressed cache is whole on every rank.  Each
+ends in ``wo``'s row-parallel reduce (``_out_tp``).
 """
 
 from __future__ import annotations
@@ -139,9 +149,10 @@ def tp_heads(cfg: AttnConfig) -> tuple[int, int, int, int]:
 
 def _heads_tp(x: torch.Tensor, w: torch.Tensor, b, lo: int, hi: int,
               compute_dtype) -> torch.Tensor:
-    """Heads [lo, hi) of ``x @ w`` (+ ``b``) in a group, by where ``w`` was
+    """Heads [lo, hi) of ``x @ w`` (+ ``b``): in a group, by where ``w`` was
     cut: along its heads (they are this rank's), its input dim (a partial
-    product, reduced), its head dim (made whole), or not at all."""
+    product, reduced), its head dim (made whole), or not at all (as
+    outside a group, where [lo, hi) is every head)."""
     dim = tp.model_dim(w)
     wc = w.to(compute_dtype)
     if dim == 1:
@@ -157,11 +168,12 @@ def _heads_tp(x: torch.Tensor, w: torch.Tensor, b, lo: int, hi: int,
         y = _heads(x, wc)
     if b is not None:
         y = y + tp.whole(b).to(compute_dtype)
-    return y[:, :, lo:hi]
+    return y[..., lo:hi, :]
 
 
 def _kv_for_q(k: torch.Tensor, cfg: AttnConfig) -> torch.Tensor:
-    """The kv heads (B, S, KV_local, hd) repeated to the rank's q heads."""
+    """The kv heads (B, S, KV_local, hd) repeated to the rank's q heads (to
+    every q head outside a group)."""
     groups = cfg.n_heads // cfg.n_kv_heads
     qlo, qhi, kvlo, _ = tp_heads(cfg)
     if qlo % groups == 0 and (qhi - qlo) % groups == 0:
@@ -171,7 +183,7 @@ def _kv_for_q(k: torch.Tensor, cfg: AttnConfig) -> torch.Tensor:
 
 
 def _out_tp(out: torch.Tensor, wo: torch.Tensor, compute_dtype) -> torch.Tensor:
-    """``out_project`` in a group: row-parallel on ``wo`` cut along its
+    """``out_project``; in a group row-parallel on ``wo`` cut along its
     heads (``out`` holds the rank's heads) or its head dim, column-parallel
     on one cut along the embed dim."""
     dim = tp.model_dim(wo)
@@ -190,19 +202,10 @@ def gqa_project(params, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tenso
     """x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,KV,hd), RoPE applied; in a
     group, the rank's q heads and the kv heads they read (``tp_heads``)."""
     x = x.to(compute_dtype)
-    if tp.current() is not None:
-        qlo, qhi, kvlo, kvhi = tp_heads(cfg)
-        q = _heads_tp(x, params["wq"], params.get("bq"), qlo, qhi, compute_dtype)
-        k = _heads_tp(x, params["wk"], params.get("bk"), kvlo, kvhi, compute_dtype)
-        v = _heads_tp(x, params["wv"], params.get("bv"), kvlo, kvhi, compute_dtype)
-    else:
-        q = _heads(x, params["wq"].to(compute_dtype))
-        k = _heads(x, params["wk"].to(compute_dtype))
-        v = _heads(x, params["wv"].to(compute_dtype))
-        if cfg.qkv_bias:
-            q = q + params["bq"].to(compute_dtype)
-            k = k + params["bk"].to(compute_dtype)
-            v = v + params["bv"].to(compute_dtype)
+    qlo, qhi, kvlo, kvhi = tp_heads(cfg)
+    q = _heads_tp(x, params["wq"], params.get("bq"), qlo, qhi, compute_dtype)
+    k = _heads_tp(x, params["wk"], params.get("bk"), kvlo, kvhi, compute_dtype)
+    v = _heads_tp(x, params["wv"], params.get("bv"), kvlo, kvhi, compute_dtype)
     if cfg.qk_norm:
         q = _headwise_rms(q, tp.whole(params["qnorm"]).float())
         k = _headwise_rms(k, tp.whole(params["knorm"]).float())
@@ -278,28 +281,27 @@ CHUNKED_THRESHOLD = 4096
 
 
 def attention(params, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor,
-              compute_dtype=torch.bfloat16, kv_chunk: int = 1024) -> torch.Tensor:
+              compute_dtype=torch.bfloat16, kv_chunk: int = 1024,
+              causal: bool = True) -> torch.Tensor:
     """Self-attention over a full sequence (prefill), causal from position
-    0.  Without a window: the ``flash_attn`` kernel (``flash_mha``).  With
-    one: ``attend_full``, or ``attend_chunked`` past ``CHUNKED_THRESHOLD``
-    tokens, as in the reference.  In a group, over the rank's heads."""
+    0.  Without a window: the ``flash_attn`` kernel (``flash_mha``), also
+    without its causal mask (``causal=False``: the enc-dec kind's
+    bidirectional encoder).  With one: ``attend_full``, or
+    ``attend_chunked`` past ``CHUNKED_THRESHOLD`` tokens, as in the
+    reference.  In a group, over the rank's heads."""
     q, k, v = gqa_project(params, cfg, x, positions, compute_dtype)
-    if tp.current() is not None:
-        k, v = _kv_for_q(k, cfg), _kv_for_q(v, cfg)
-    else:
-        groups = cfg.n_heads // cfg.n_kv_heads
-        k, v = _repeat_kv(k, groups), _repeat_kv(v, groups)
+    k, v = _kv_for_q(k, cfg), _kv_for_q(v, cfg)
     s = x.shape[1]
     if cfg.window is None:
-        out = flash_ops.flash_mha(q, k, v, cfg.scale, causal=True)
+        out = flash_ops.flash_mha(q, k, v, cfg.scale, causal=causal)
+    elif not causal:
+        raise ValueError("a windowed attention is causal")
     elif s > CHUNKED_THRESHOLD:
         out = attend_chunked(q, k, v, cfg.scale, window=cfg.window, kv_chunk=kv_chunk)
     else:
         mask = causal_mask(s, s, window=cfg.window, device=x.device)
         out = attend_full(q, k, v, mask, cfg.scale)
-    if tp.current() is not None:
-        return _out_tp(out, params["wo"], compute_dtype)
-    return out_project(out, params["wo"].to(compute_dtype))
+    return _out_tp(out, params["wo"], compute_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -344,13 +346,8 @@ def decode_step(params, cfg: AttnConfig, cache, x_t: torch.Tensor, pos,
     k_cache[rows, slot] = k_t[:, 0].to(k_cache.dtype)
     v_cache[rows, slot] = v_t[:, 0].to(v_cache.dtype)
 
-    if tp.current() is not None:
-        k = _kv_for_q(k_cache.to(compute_dtype), cfg)
-        v = _kv_for_q(v_cache.to(compute_dtype), cfg)
-    else:
-        groups = cfg.n_heads // cfg.n_kv_heads
-        k = _repeat_kv(k_cache.to(compute_dtype), groups)
-        v = _repeat_kv(v_cache.to(compute_dtype), groups)
+    k = _kv_for_q(k_cache.to(compute_dtype), cfg)
+    v = _kv_for_q(v_cache.to(compute_dtype), cfg)
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * cfg.scale
     kpos = torch.arange(cache_len, device=x_t.device)
     if cfg.window:
@@ -363,9 +360,7 @@ def decode_step(params, cfg: AttnConfig, cache, x_t: torch.Tensor, pos,
     scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(compute_dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v)[:, 0]
-    if tp.current() is not None:
-        return cache, _out_tp(out, params["wo"], compute_dtype)
-    return cache, out_project(out, params["wo"].to(compute_dtype))
+    return cache, _out_tp(out, params["wo"], compute_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -410,16 +405,37 @@ def mla_spec(cfg: MLAConfig, dtype=torch.float32):
 def _rms(x, scale, eps=1e-6):
     xf = x.float()
     v = torch.square(xf).mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(v + eps) * scale.float()).to(x.dtype)
+    return (xf * torch.rsqrt(v + eps) * tp.whole(scale).float()).to(x.dtype)
+
+
+def mla_heads(cfg: MLAConfig) -> tuple[int, int]:
+    """[lo, hi): the heads this rank attends, its cut of ``wq_b``'s heads
+    where a group's rules cut them there (``wk_b``, ``wv_b`` and ``wo`` are
+    cut on the same heads), else all of them."""
+    ctx = tp.current()
+    if ctx is not None and sr.cut_dim(mla_spec(cfg)["wq_b"], ctx.mesh) == 1:
+        return tp.local_range(cfg.n_heads)
+    return 0, cfg.n_heads
+
+
+def _mla_up(params, name: str, cfg: MLAConfig, compute_dtype) -> torch.Tensor:
+    """The up-projection ``name`` (r, H, e) on this rank's heads."""
+    w = params[name]
+    if mla_heads(cfg) != (0, cfg.n_heads):
+        w = tp.local(w, 1)
+    return w.to(compute_dtype)
 
 
 def _mla_latents(params, cfg: MLAConfig, x: torch.Tensor, compute_dtype):
     """x (..., D) in the compute dtype -> (q (..., H, nope + rope) before
     RoPE, the normed latent c_kv (..., r_kv), the shared k_pe (..., rope)
-    before RoPE)."""
-    cq = _rms(x @ params["wq_a"].to(compute_dtype), params["q_a_norm"])
-    q = _heads(cq, params["wq_b"].to(compute_dtype))
-    kv_a = x @ params["wkv_a"].to(compute_dtype)
+    before RoPE).  In a group, ``wq_a`` / ``wkv_a`` are row-parallel (cut on
+    the embed dim), so the latents are whole on every rank, and q holds
+    the rank's heads (``mla_heads``)."""
+    lo, hi = mla_heads(cfg)
+    cq = _rms(layers.dense({"w": params["wq_a"]}, x, compute_dtype), params["q_a_norm"])
+    q = _heads_tp(cq, params["wq_b"], None, lo, hi, compute_dtype)
+    kv_a = layers.dense({"w": params["wkv_a"]}, x, compute_dtype)
     c_kv = _rms(kv_a[..., :cfg.kv_lora_rank], params["kv_a_norm"])
     return q, c_kv, kv_a[..., cfg.kv_lora_rank:]
 
@@ -427,15 +443,18 @@ def _mla_latents(params, cfg: MLAConfig, x: torch.Tensor, compute_dtype):
 def mla_attention(params, cfg: MLAConfig, x: torch.Tensor, positions: torch.Tensor,
                   compute_dtype=torch.bfloat16, kv_chunk: int = 1024) -> torch.Tensor:
     """Prefill MLA: decompress K and V per head, causal attention
-    (``attend_full``, or ``attend_chunked`` past ``CHUNKED_THRESHOLD``)."""
+    (``attend_full``, or ``attend_chunked`` past ``CHUNKED_THRESHOLD``).  In
+    a group, over the rank's heads, ending in ``wo``'s row-parallel
+    reduce."""
     x = x.to(compute_dtype)
     b, s, _ = x.shape
-    h, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
     q, c_kv, k_pe = _mla_latents(params, cfg, x, compute_dtype)
+    h = q.shape[-2]
     q_pe = layers.apply_rope(q[..., dn:], positions, cfg.rope_base)
     k_pe = layers.apply_rope(k_pe[:, :, None, :], positions, cfg.rope_base)
-    k_nope = _heads(c_kv, params["wk_b"].to(compute_dtype))
-    v = _heads(c_kv, params["wv_b"].to(compute_dtype))
+    k_nope = _heads(c_kv, _mla_up(params, "wk_b", cfg, compute_dtype))
+    v = _heads(c_kv, _mla_up(params, "wv_b", cfg, compute_dtype))
     q_full = torch.cat([q[..., :dn], q_pe], dim=-1)
     k_full = torch.cat([k_nope, k_pe.expand(b, s, h, dr)], dim=-1)
     if s > CHUNKED_THRESHOLD:
@@ -443,11 +462,15 @@ def mla_attention(params, cfg: MLAConfig, x: torch.Tensor, positions: torch.Tens
     else:
         out = attend_full(q_full, k_full, v, causal_mask(s, s, device=x.device),
                           cfg.scale)
-    return out_project(out, params["wo"].to(compute_dtype))
+    return _out_tp(out, params["wo"], compute_dtype)
 
 
 def mla_cache_shape(cfg: MLAConfig, batch: int, max_len: int, dtype=torch.bfloat16):
-    """The compressed cache, (c_kv ‖ k_pe) per token, as ``meta`` tensors."""
+    """The compressed cache, (c_kv ‖ k_pe) per token, as ``meta`` tensors.
+    In a group it stays whole on every rank: each rank's heads read all of
+    it.  The reference's policy would cut its sequence over the model axis
+    (``sharding_rules.cache_pspec``), which waits for ROADMAP Queue 1 #6
+    item 6."""
     return {name: torch.empty((batch, max_len, width), dtype=dtype, device="meta")
             for name, width in (("ckv", cfg.kv_lora_rank), ("kpe", cfg.qk_rope_dim))}
 
@@ -468,7 +491,8 @@ def mla_decode_step(params, cfg: MLAConfig, cache, x_t: torch.Tensor, pos,
         score = (q_nope @ W_kb)ᵀ c + q_peᵀ k_pe ;  out = (attn @ c) @ W_vb.
 
     ``pos`` is an int or (B,) per-slot positions.  Writes the token's c_kv
-    and k_pe into ``cache`` in place; returns (cache, out (B, D))."""
+    and k_pe into ``cache`` in place; returns (cache, out (B, D)).  In a
+    group every rank writes the same whole latents and attends its heads."""
     x_t = x_t.to(compute_dtype)
     b, _ = x_t.shape
     dn = cfg.qk_nope_dim
@@ -483,7 +507,8 @@ def mla_decode_step(params, cfg: MLAConfig, cache, x_t: torch.Tensor, pos,
     kpe[rows, pos_b] = kpe_t.to(kpe.dtype)
 
     # absorb W_kb into the query: q_eff (B, H, r_kv)
-    q_eff = torch.einsum("bhe,rhe->bhr", q[..., :dn], params["wk_b"].to(compute_dtype))
+    q_eff = torch.einsum("bhe,rhe->bhr", q[..., :dn], _mla_up(params, "wk_b", cfg,
+                                                               compute_dtype))
     c = ckv.to(compute_dtype)
     s_c = torch.einsum("bhr,bsr->bhs", q_eff, c)
     s_pe = torch.einsum("bhe,bse->bhs", q_pe, kpe.to(compute_dtype))
@@ -492,8 +517,8 @@ def mla_decode_step(params, cfg: MLAConfig, cache, x_t: torch.Tensor, pos,
     scores = torch.where(valid[:, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(compute_dtype)
     out_c = torch.einsum("bhs,bsr->bhr", probs, c)
-    out = torch.einsum("bhr,rhe->bhe", out_c, params["wv_b"].to(compute_dtype))
-    return cache, out_project(out, params["wo"].to(compute_dtype))
+    out = torch.einsum("bhr,rhe->bhe", out_c, _mla_up(params, "wv_b", cfg, compute_dtype))
+    return cache, _out_tp(out, params["wo"], compute_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -505,20 +530,23 @@ def cross_attention(params, cfg: AttnConfig, x: torch.Tensor, enc_kv,
                     compute_dtype=torch.bfloat16) -> torch.Tensor:
     """x: (B, Sq, D); enc_kv: precomputed {k, v}: (B, Skv, KV, hd).  The
     reference's unmasked softmax is the ``flash_attn`` kernel without its
-    causal mask (``flash_mha``)."""
+    causal mask (``flash_mha``).  In a group, over the rank's q heads
+    (``tp_heads``), ``enc_kv`` holding the kv heads they read
+    (``encode_kv``), ending in ``wo``'s row-parallel reduce."""
     x = x.to(compute_dtype)
-    q = _heads(x, params["wq"].to(compute_dtype))
-    groups = cfg.n_heads // cfg.n_kv_heads
-    k = _repeat_kv(enc_kv["k"].to(compute_dtype), groups)
-    v = _repeat_kv(enc_kv["v"].to(compute_dtype), groups)
+    qlo, qhi, _, _ = tp_heads(cfg)
+    q = _heads_tp(x, params["wq"], None, qlo, qhi, compute_dtype)
+    k = _kv_for_q(enc_kv["k"].to(compute_dtype), cfg)
+    v = _kv_for_q(enc_kv["v"].to(compute_dtype), cfg)
     out = flash_ops.flash_mha(q, k, v, cfg.scale, causal=False)
-    return out_project(out, params["wo"].to(compute_dtype))
+    return _out_tp(out, params["wo"], compute_dtype)
 
 
 def encode_kv(params, cfg: AttnConfig, enc_out: torch.Tensor,
               compute_dtype=torch.bfloat16):
     """The encoder output's cross-attention K/V, (B, S, KV, hd) each, no
-    RoPE."""
+    RoPE; in a group, the kv heads the rank's q heads read."""
     enc_out = enc_out.to(compute_dtype)
-    return {"k": _heads(enc_out, params["wk"].to(compute_dtype)),
-            "v": _heads(enc_out, params["wv"].to(compute_dtype))}
+    _, _, kvlo, kvhi = tp_heads(cfg)
+    return {key: _heads_tp(enc_out, params[w], None, kvlo, kvhi, compute_dtype)
+            for key, w in (("k", "wk"), ("v", "wv"))}

@@ -23,7 +23,9 @@ one cut along its input dim; the embedding is a masked lookup plus
 ``reduce_partial`` on a vocab-cut table and a lookup plus ``gather_last``
 on an embed-cut one (the fallback); ``logits`` end in ``gather_last``; a
 cut norm scale or bias is made whole.  The activations between layers are
-whole on every rank.  Outside a group nothing of this runs.
+whole on every rank; ``groupnorm`` and the causal conv, channel-wise,
+run on the rank's channels inside a block.  Outside a group the same code
+runs on whole leaves: no cut is taken and no collective is made.
 """
 
 from __future__ import annotations
@@ -46,12 +48,8 @@ def dense_spec(d_in: int, d_out: int, axes=("embed", "mlp"), bias: bool = False,
 
 
 def dense(params, x: torch.Tensor, compute_dtype=torch.float32) -> torch.Tensor:
-    if tp.current() is not None:
-        return _dense_in(params, x, False, compute_dtype)
-    y = x.to(compute_dtype) @ params["w"].to(compute_dtype)
-    if "b" in params:
-        y = y + params["b"].to(compute_dtype)
-    return y
+    """``x @ w (+ b)``, whole on every rank of a group (``_dense_in``)."""
+    return _dense_in(params, x, False, compute_dtype)
 
 
 def _bias(params, y: torch.Tensor, local: bool, compute_dtype) -> torch.Tensor:
@@ -65,8 +63,8 @@ def _bias(params, y: torch.Tensor, local: bool, compute_dtype) -> torch.Tensor:
 
 
 def _dense_out(params, x: torch.Tensor, compute_dtype):
-    """A group's dense on a whole ``x``: (y, whether y's last dim is this
-    rank's cut).  Column-parallel on a weight cut along its output dim; a
+    """A dense on a whole ``x``: (y, whether y's last dim is this rank's
+    cut; never outside a group).  Column-parallel on a weight cut along its output dim; a
     weight cut along its input dim takes the rank's slice of ``x`` and
     reduces the partial product."""
     w = params["w"]
@@ -82,7 +80,7 @@ def _dense_out(params, x: torch.Tensor, compute_dtype):
 
 
 def _dense_in(params, x: torch.Tensor, x_local: bool, compute_dtype) -> torch.Tensor:
-    """A group's dense whose output is whole on every rank; ``x_local``
+    """A dense whose output is whole on every rank of a group; ``x_local``
     says ``x``'s last dim is this rank's cut (a column-parallel output),
     which a weight cut along its input dim multiplies as it is
     (row-parallel)."""
@@ -156,13 +154,16 @@ def layernorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     mu = xf.mean(dim=-1, keepdim=True)
     var = xf.var(dim=-1, keepdim=True, unbiased=False)
     y = (xf - mu) * torch.rsqrt(var + eps)
-    y = y * params["scale"].float() + params["bias"].float()
+    y = y * tp.whole(params["scale"]).float() + tp.whole(params["bias"]).float()
     return y.to(x.dtype)
 
 
 def groupnorm(x: torch.Tensor, num_groups: int, scale: torch.Tensor,
               bias: torch.Tensor, eps: float = 64e-5) -> torch.Tensor:
-    """GroupNorm over the last axis, in f32 (RWKV's time-mix output)."""
+    """GroupNorm over the last axis, in f32 (RWKV's time-mix output).  In a
+    group the caller hands the rank's heads and its slice of ``scale`` /
+    ``bias`` (``constraints.local``): each group is one head, so a rank
+    normalises its own."""
     *lead, d = x.shape
     xf = x.float().reshape(*lead, num_groups, d // num_groups)
     mu = xf.mean(dim=-1, keepdim=True)
@@ -223,13 +224,9 @@ def glu_mlp_spec(d_model: int, d_ff: int, dtype=torch.float32):
 
 
 def glu_mlp(params, x: torch.Tensor, act=swiglu, compute_dtype=torch.bfloat16) -> torch.Tensor:
-    if tp.current() is not None:
-        g, local = _dense_out(params["gate"], x, compute_dtype)
-        u, _ = _dense_out(params["up"], x, compute_dtype)
-        return _dense_in(params["down"], act(g, u), local, compute_dtype)
-    g = dense(params["gate"], x, compute_dtype)
-    u = dense(params["up"], x, compute_dtype)
-    return dense(params["down"], act(g, u), compute_dtype)
+    g, local = _dense_out(params["gate"], x, compute_dtype)
+    u, _ = _dense_out(params["up"], x, compute_dtype)
+    return _dense_in(params["down"], act(g, u), local, compute_dtype)
 
 
 def mlp_spec(d_model: int, d_ff: int, dtype=torch.float32, bias: bool = False):
@@ -240,10 +237,8 @@ def mlp_spec(d_model: int, d_ff: int, dtype=torch.float32, bias: bool = False):
 
 
 def mlp(params, x: torch.Tensor, act=gelu, compute_dtype=torch.bfloat16) -> torch.Tensor:
-    if tp.current() is not None:
-        h, local = _dense_out(params["up"], x, compute_dtype)
-        return _dense_in(params["down"], act(h), local, compute_dtype)
-    return dense(params["down"], act(dense(params["up"], x, compute_dtype)), compute_dtype)
+    h, local = _dense_out(params["up"], x, compute_dtype)
+    return _dense_in(params["down"], act(h), local, compute_dtype)
 
 
 def conv2d_spec(c_in: int, c_out: int, k: int, dtype=torch.float32,
@@ -363,7 +358,10 @@ def conv1d_spec(d: int, width: int = 4, dtype=torch.float32):
 
 def causal_conv1d(params, x: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Depthwise causal temporal conv. x: (B, S, D).  The K shifted products
-    are summed in the reference's order, in ``x``'s dtype."""
+    are summed in the reference's order, in ``x``'s dtype.  Depthwise, so in
+    a group it runs on the rank's channels: ``x`` the rank's cut of them
+    and ``w`` / ``b`` cut on the same channels (the rules cut the conv's
+    channels and the projection that feeds it alike)."""
     w = params["w"].to(compute_dtype)  # (K, D)
     k, s = w.shape[0], x.shape[1]
     pad = F.pad(x, (0, 0, k - 1, 0))
@@ -374,8 +372,9 @@ def causal_conv1d(params, x: torch.Tensor, compute_dtype=torch.bfloat16) -> torc
 
 
 def causal_conv1d_step(params, state: torch.Tensor, x_t: torch.Tensor):
-    """One decode step. state: (B, K-1, D), the trailing inputs; x_t: (B, D).
-    Returns (new state, y (B, D))."""
+    """One decode step. state: (B, K-1, D), the trailing inputs; x_t: (B, D)
+    (in a group, the rank's channels, as ``causal_conv1d``).  Returns (new
+    state, y (B, D))."""
     w = params["w"].to(x_t.dtype)
     window = torch.cat([state.to(x_t.dtype), x_t[:, None, :]], dim=1)  # (B, K, D)
     y = torch.einsum("bkd,kd->bd", window, w) + params["b"].to(x_t.dtype)

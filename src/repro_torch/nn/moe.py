@@ -104,10 +104,13 @@ def dispatch(idx: torch.Tensor, n_experts: int, cap: int):
     token order (a stable sort, as in the reference), and whether the pair
     fits the expert's ``cap``.  idx: (T, k) -> (pos, keep), both (T*k,)."""
     flat = idx.reshape(-1)
-    counts = torch.bincount(flat, minlength=n_experts)
-    offsets = torch.cumsum(counts, 0) - counts
     order = torch.argsort(flat, stable=True)
-    ranks = torch.arange(flat.numel(), device=idx.device) - offsets[flat[order]]
+    by_expert = flat[order]
+    # each expert's first place in the sorted pairs (``bincount`` has no
+    # ``meta`` kernel, which the dry-run traces on)
+    offsets = torch.searchsorted(by_expert, torch.arange(n_experts, dtype=flat.dtype,
+                                                         device=idx.device))
+    ranks = torch.arange(flat.numel(), device=idx.device) - offsets[by_expert]
     pos = torch.empty_like(flat)
     pos[order] = ranks
     return pos, pos < cap

@@ -25,6 +25,28 @@ None of these is a Pallas kernel in the reference (they are plain ``jnp``
 code), so the port writes them in plain PyTorch, which runs where the
 tensors lie.  Parameters are cast to the compute dtype at each call; the
 WKV state and the recurrences run in f32, as in the reference.
+
+In a tensor-parallel group (``distributed.constraints``) each mixer runs
+the rank's heads or channels, by the cuts the rules give its leaves:
+
+- the time mix: the token-shift mixes are whole on every rank (their
+  tables, cut on the embed dim by the fallback, are read whole:
+  ``sharding_rules.reads_whole``) and feed ``wr`` / ``wk`` / ``wv`` /
+  ``wg``, cut on ``heads_flat``, column-parallel; the decay LoRA is
+  row-parallel on ``decay_a`` and lands on the rank's heads through its
+  cut of ``decay_b`` and ``w0``; the WKV recurrence, ``u`` and the
+  groupnorm run per local head, and ``wo`` is row-parallel.  The WKV
+  state holds the rank's heads (``timemix_heads``); the token-shift
+  carries stay whole;
+- the channel mix: ``wk`` cut on ``mlp``, ``wv`` row-parallel;
+- the RG-LRU on the rank's channels (its input is a column-parallel
+  projection's output): ``wa`` / ``wx``, cut on their input dim, are
+  row-parallel, reduced in one collective and taken on the rank's
+  channels.  That reduce carries every channel's gate pre-activations, of
+  which the rank keeps its half at tp 2: a reduce-scatter would move half
+  the bytes, and ``constraints`` has none yet (``PERF.md`` §7).
+
+Outside a group the same code runs on whole leaves, with no collective.
 """
 
 from __future__ import annotations
@@ -35,6 +57,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import constraints as tp
+from repro_torch.distributed import sharding_rules as sr
 from repro_torch.nn import layers
 from repro_torch.nn.init import P
 
@@ -103,27 +127,45 @@ def _token_shift(x: torch.Tensor, x_prev: torch.Tensor | None) -> torch.Tensor:
     return prev - x
 
 
+def timemix_heads(cfg: RWKV6Config) -> int:
+    """The heads this rank's time mix runs: in a group whose rules cut
+    ``wr``'s ``heads_flat`` columns, its share of them; else all."""
+    ctx = tp.current()
+    if ctx is not None and sr.cut_dim(timemix_spec(cfg)["wr"], ctx.mesh) == 1:
+        return cfg.n_heads // ctx.size
+    return cfg.n_heads
+
+
+def _on_heads(t: torch.Tensor, cfg: RWKV6Config, dim: int = -1) -> torch.Tensor:
+    """A per-channel leaf on the channels of the rank's heads (whole outside
+    a group, or where the heads are not cut)."""
+    if timemix_heads(cfg) == cfg.n_heads:
+        return tp.whole(t)
+    return tp.local(t, dim)
+
+
 def timemix_project(params, cfg: RWKV6Config, x: torch.Tensor,
                     x_prev: torch.Tensor | None, compute_dtype=torch.bfloat16):
     """r, k, v, g and log w from a (B, S, D) input.  ``x_prev``: the (B, D)
-    carry of a decode step (the previous token's input), else None."""
+    carry of a decode step (the previous token's input), else None.  In a
+    group, on the rank's heads (``timemix_heads``)."""
     cd = compute_dtype
     x = x.to(cd)
     sx = _token_shift(x, x_prev)
-    xr_base = x + sx * params["mu_x"].to(cd)
-    lora = torch.tanh(xr_base @ params["shift_a"].to(cd))
+    xr_base = x + sx * tp.whole(params["mu_x"]).to(cd)
+    lora = torch.tanh(xr_base @ tp.whole(params["shift_a"]).to(cd))
     # einsum("bsr,nrd->nbsd") as one broadcast matmul
-    deltas = lora[None] @ params["shift_b"].to(cd)[:, None]
-    mu = params["mu"].to(cd)
+    deltas = lora[None] @ tp.whole(params["shift_b"]).to(cd)[:, None]
+    mu = tp.whole(params["mu"]).to(cd)
     xr, xk, xv, xw, xg = (x + sx * (mu[i] + deltas[i]) for i in range(5))
-    r = xr @ params["wr"].to(cd)
-    k = xk @ params["wk"].to(cd)
-    v = xv @ params["wv"].to(cd)
-    g = F.silu(xg @ params["wg"].to(cd))
-    dlora = torch.tanh(xw @ params["decay_a"].to(cd))
-    logw = -torch.exp(params["w0"].float()
-                      + dlora.float() @ params["decay_b"].float())  # strictly negative
-    return r, k, v, g, logw
+    r, _ = layers._dense_out({"w": params["wr"]}, xr, cd)
+    k, _ = layers._dense_out({"w": params["wk"]}, xk, cd)
+    v, _ = layers._dense_out({"w": params["wv"]}, xv, cd)
+    g = F.silu(layers._dense_out({"w": params["wg"]}, xg, cd)[0])
+    dlora = torch.tanh(layers.dense({"w": params["decay_a"]}, xw, cd))
+    logw = -torch.exp(_on_heads(params["w0"], cfg).float()
+                      + dlora.float() @ _on_heads(params["decay_b"], cfg).float())
+    return r, k, v, g, logw    # log w strictly negative
 
 
 def _to_heads(x: torch.Tensor, h: int, hd: int) -> torch.Tensor:
@@ -192,20 +234,21 @@ def wkv6_chunked(r, k, v, logw, u, state=None, chunk: int = 16):
 
 
 def _timemix_out(params, cfg: RWKV6Config, out, g, compute_dtype):
-    """GroupNorm over heads, the gate, the output projection."""
-    b, s = out.shape[:2]
-    h, hd = cfg.n_heads, cfg.head_dim
+    """GroupNorm over heads, the gate, the output projection (in a group:
+    the rank's heads, then ``wo`` row-parallel)."""
+    b, s, h, hd = out.shape
     y = layers.groupnorm(out.reshape(b, s, h * hd).to(compute_dtype), h,
-                         params["ln_scale"], params["ln_bias"])
-    return (y * g) @ params["wo"].to(compute_dtype)
+                         _on_heads(params["ln_scale"], cfg),
+                         _on_heads(params["ln_bias"], cfg))
+    return layers._dense_in({"w": params["wo"]}, y * g, h != cfg.n_heads, compute_dtype)
 
 
 def timemix(params, cfg: RWKV6Config, x: torch.Tensor, compute_dtype=torch.bfloat16):
     """Full-sequence RWKV-6 time mix. x: (B, S, D) -> (B, S, D)."""
-    h, hd = cfg.n_heads, cfg.head_dim
+    h, hd = timemix_heads(cfg), cfg.head_dim
     r, k, v, g, logw = timemix_project(params, cfg, x, None, compute_dtype)
     rh, kh, vh, lwh = (_to_heads(a, h, hd) for a in (r, k, v, logw))
-    u = params["u"].float()
+    u = _on_heads(params["u"], cfg, 0).float()
     if cfg.impl == "scan":
         out, _ = wkv6_scan(rh, kh, vh, lwh, u)
     else:
@@ -214,8 +257,9 @@ def timemix(params, cfg: RWKV6Config, x: torch.Tensor, compute_dtype=torch.bfloa
 
 
 def timemix_state_shape(cfg: RWKV6Config, batch: int):
-    """{wkv, x_prev} as ``meta`` tensors."""
-    h, hd = cfg.n_heads, cfg.head_dim
+    """{wkv, x_prev} as ``meta`` tensors (the WKV state of the rank's heads
+    in a group)."""
+    h, hd = timemix_heads(cfg), cfg.head_dim
     return {
         "wkv": torch.empty((batch, h, hd, hd), dtype=torch.float32, device="meta"),
         "x_prev": torch.empty((batch, cfg.d_model), dtype=torch.bfloat16, device="meta"),
@@ -229,11 +273,12 @@ def timemix_step(params, cfg: RWKV6Config, state, x_t: torch.Tensor,
     ``timemix_state_shape``, as in the reference (a state in f32 keeps the
     carry exact, which a check of the step against the full-sequence time
     mix at f32 compute uses)."""
-    h, hd = cfg.n_heads, cfg.head_dim
+    h, hd = timemix_heads(cfg), cfg.head_dim
     r, k, v, g, logw = timemix_project(params, cfg, x_t[:, None], state["x_prev"],
                                        compute_dtype)
     rh, kh, vh, lwh = (_to_heads(a, h, hd) for a in (r, k, v, logw))
-    out, wkv = wkv6_scan(rh, kh, vh, lwh, params["u"].float(), state["wkv"])
+    out, wkv = wkv6_scan(rh, kh, vh, lwh, _on_heads(params["u"], cfg, 0).float(),
+                         state["wkv"])
     y = _timemix_out(params, cfg, out, g, compute_dtype)[:, 0]
     return {"wkv": wkv, "x_prev": x_t.to(state["x_prev"].dtype)}, y
 
@@ -256,9 +301,9 @@ def channelmix(params, x: torch.Tensor, x_prev: torch.Tensor | None = None,
                compute_dtype=torch.bfloat16) -> torch.Tensor:
     x = x.to(compute_dtype)
     sx = _token_shift(x, x_prev)
-    xk = x + sx * params["mu_k"].to(compute_dtype)
-    h = layers.relu_sq(xk @ params["wk"].to(compute_dtype))
-    return h @ params["wv"].to(compute_dtype)
+    xk = x + sx * tp.whole(params["mu_k"]).to(compute_dtype)
+    h, local = layers._dense_out({"w": params["wk"]}, xk, compute_dtype)
+    return layers._dense_in({"w": params["wv"]}, layers.relu_sq(h), local, compute_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -286,11 +331,32 @@ def rglru_spec(cfg: RGLRUConfig, dtype=torch.float32):
 
 
 def _rglru_gates(params, cfg: RGLRUConfig, x: torch.Tensor):
-    """(a, b) of h_t = a_t h_{t-1} + b_t, both f32."""
+    """(a, b) of h_t = a_t h_{t-1} + b_t, both f32.  In a group ``x`` holds
+    the rank's channels (``local``) or all: ``wa`` / ``wx`` cut on their
+    input dim (the rules' fallback) are row-parallel, both partial products
+    reduced in one collective, whole on every rank, then taken on the
+    rank's channels; uncut, they multiply whole channels."""
     xf = x.float()
-    ra = torch.sigmoid(xf @ params["wa"].float() + params["ba"].float())
-    rx = torch.sigmoid(xf @ params["wx"].float() + params["bx"].float())
-    log_a = -cfg.c * F.softplus(params["lam"].float()) * ra
+    local = xf.shape[-1] != cfg.width
+    wa, wx = params["wa"], params["wx"]
+    if tp.model_dim(wa) == 0:       # wx is cut alike: the same axes and shape
+        xs = xf if local else tp.take_local(xf, -1)
+        pa, px = tp.reduce_partial(torch.stack([xs @ wa.float(), xs @ wx.float()]))
+    else:
+        pa, px = xf @ wa.float(), xf @ wx.float()
+    if local:
+        pa, px = tp.take_local(pa, -1), tp.take_local(px, -1)
+
+    def vec(name):
+        return (tp.local(params[name]) if local else tp.whole(params[name])).float()
+
+    ra = torch.sigmoid(pa + vec("ba"))
+    rx = torch.sigmoid(px + vec("bx"))
+    return _rglru_ab(vec("lam"), cfg, ra, rx, xf)
+
+
+def _rglru_ab(lam: torch.Tensor, cfg: RGLRUConfig, ra, rx, xf):
+    log_a = -cfg.c * F.softplus(lam.float()) * ra
     a = torch.exp(log_a)
     mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
     return a, mult * (rx * xf)

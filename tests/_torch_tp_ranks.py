@@ -39,3 +39,49 @@ def raise_after_a_collective(rank):
     """Raise on every rank after one ``reduce_partial``."""
     rank.run(lambda: tpc.reduce_partial(torch.ones(2, device=rank.device)))
     raise ValueError(f"rank {rank.ctx.rank} raised after a collective")
+
+
+def leaf_dims(rank, paths) -> list:
+    """For each path (a tuple of keys) into the rank's parameters: the dim
+    its leaf was cut along and whether it keeps its whole beside the cut."""
+    out = []
+    for path in paths:
+        t = rank.params
+        for k in path:
+            t = t[k]
+        out.append((getattr(t, "tp_dim", None), hasattr(t, "tp_whole")))
+    return out
+
+
+def pool_shapes(rank) -> dict:
+    """The shapes of the rank's engine's decode state, by '/'-joined path."""
+    rank.run(rank.engine._ensure_pool)
+    return _shapes(rank.engine._caches)
+
+
+def model_cache_shapes(rank) -> dict:
+    """The shapes of the decode caches the enc-dec steps keep on the rank
+    (``encdec.kept_init_caches``)."""
+    return _shapes(rank.state["caches"])
+
+
+def _shapes(tree, prefix: str = "") -> dict:
+    if isinstance(tree, torch.Tensor):
+        return {prefix: tuple(tree.shape)}
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    out = {}
+    for k, v in items:
+        out.update(_shapes(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+def load_caches(rank, whole) -> None:
+    """Set the enc-dec decode caches the rank keeps (``rank.state``) from
+    the whole caches ``whole`` (every layer's kv heads): the rank's share,
+    the kv heads its q heads read."""
+    from repro_torch.nn import attention as attn
+
+    _, _, lo, hi = rank.run(lambda: attn.tp_heads(rank.spec.cfg.attn_cfg()))
+    rank.state["caches"] = {
+        part: {n: t[:, :, :, lo:hi].clone().to(rank.device) for n, t in kv.items()}
+        for part, kv in whole.items()}

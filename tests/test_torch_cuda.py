@@ -1021,6 +1021,124 @@ def test_tensor_parallel_world_on_the_card(gen, arch_id):
         eng.close()
 
 
+@pytest.mark.parametrize("arch_id", ["rwkv6-7b", "recurrentgemma-9b", "deepseek-v3-671b"])
+def test_tensor_parallel_kinds_on_the_card(gen, arch_id):
+    """The recurrent kinds and MLA on two ranks of one card over gloo, at
+    f32 compute and smoke width: the greedy streams equal the single-device
+    engine's, the forward's logits lie within 1e-4 of its, and no rank
+    launches flash_attn (the WKV and RG-LRU recurrences, griffin's
+    windowed attention and MLA run plain)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import base as cb
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import world
+    from repro_torch.nn import init as nninit
+    from repro_torch.serve.engine import Engine, Request, ServeConfig
+
+    arch = get_arch(arch_id)
+    cfg = dataclasses.replace(arch.make_smoke(), compute_dtype=torch.float32)
+    serve = ServeConfig(max_new_tokens=8, max_slots=3, max_len=64, decode_block=4)
+    key = torch.Generator("cuda").manual_seed(3)
+    seeded = world.SeededParams.of(key)
+    params = nninit.materialize(cb.model_spec(arch, cfg), key)
+    rng = np.random.default_rng(0)
+    reqs = [Request(uid=i, prompt=rng.integers(1, cfg.vocab, int(n)).astype(np.int32))
+            for i, n in enumerate(rng.integers(3, 30, 4))]
+    step, init = cb.serve_fns(arch, cfg, 64)
+    want = Engine(step, init, serve, params=params).run(reqs)
+    eng = world.tp_engine(arch_id, cfg, seeded, 2, ("cuda:0", "cuda:0"), serve)
+    try:
+        got = eng.run(reqs)
+        assert {u: r.tokens.tolist() for u, r in got.items()} == \
+            {u: r.tokens.tolist() for u, r in want.items()}
+        eng.world.reset_launches()
+        toks = torch.randint(0, cfg.vocab, (2, 40), device="cuda", generator=gen)
+        logits = eng.forward(toks)
+        assert [c["flash_attn"] for c in eng.world.launches()] == [0, 0]
+        forward, readout = cb.forward_fn(arch, cfg)
+        torch.testing.assert_close(logits, readout(params, forward(params, toks)),
+                                   atol=1e-4, rtol=0)
+    finally:
+        eng.close()
+
+
+def test_tensor_parallel_vlm_and_encdec_on_the_card(gen):
+    """internvl2-26b's prefill and seamless-m4t-large-v2's encode,
+    ``decode_train`` and decode steps held by a ``TPModel`` of two ranks on
+    one card, at f32 compute and smoke width: within 1e-4 of the single
+    device (the decode steps from caches the world built itself, each
+    within one bf16 step of the single device's, so the logits within
+    1e-3 of their scale), flash_attn once per attention call on each
+    rank's heads."""
+    import dataclasses
+
+    from repro_torch.configs import base as cb
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import world
+    from repro_torch.models import encdec
+    from repro_torch.nn import init as nninit
+    from repro_torch.nn import layers
+
+    devices = ("cuda:0", "cuda:0")
+    arch = get_arch("internvl2-26b")
+    smoke = arch.make_smoke()
+    cfg = dataclasses.replace(smoke, lm=dataclasses.replace(smoke.lm,
+                                                            compute_dtype=torch.float32))
+    key = torch.Generator("cuda").manual_seed(4)
+    seeded = world.SeededParams.of(key)
+    params = nninit.materialize(cb.model_spec(arch, cfg), key)
+    batch = {"patch_embeds": torch.randn(2, 16, cfg.lm.d_model, device="cuda", generator=gen),
+             "tokens": torch.randint(0, cfg.lm.vocab, (2, 12), device="cuda", generator=gen)}
+    model = world.tp_model(arch.id, cfg, seeded, 2, devices)
+    try:
+        model.world.reset_launches()
+        got = model.same(world.model_prefill, batch)
+        assert [c["flash_attn"] for c in model.world.launches()] == [cfg.lm.n_layers] * 2
+        torch.testing.assert_close(got, cb.prefill_fn(arch, cfg)(params, batch),
+                                   atol=1e-4, rtol=0)
+    finally:
+        model.close()
+
+    arch = get_arch("seamless-m4t-large-v2")
+    cfg = dataclasses.replace(arch.make_smoke(), compute_dtype=torch.float32)
+    key = torch.Generator("cuda").manual_seed(5)
+    seeded = world.SeededParams.of(key)
+    params = nninit.materialize(cb.model_spec(arch, cfg), key)
+    frames = torch.randn(2, 24, cfg.d_model, device="cuda", generator=gen)
+    tgt = torch.randint(0, cfg.vocab, (2, 16), device="cuda", generator=gen)
+    enc = encdec.encode(params, cfg, frames)
+    model = world.tp_model(arch.id, cfg, seeded, 2, devices)
+
+    def kept(fn, *args):      # an enc-dec serving step on every rank, the bits compared
+        return model.same(world.model_call, fn, *args)
+
+    try:
+        model.world.reset_launches()
+        torch.testing.assert_close(kept(encdec.kept_encode, frames), enc, atol=1e-4, rtol=0)
+        logits = kept(encdec.kept_decode_train, tgt)
+        assert [c["flash_attn"] for c in model.world.launches()] == \
+            [cfg.n_enc_layers + 2 * cfg.n_dec_layers] * 2
+        hidden = encdec.decode_train(params, cfg, enc, tgt)
+        torch.testing.assert_close(logits, layers.logits(params["embed"], hidden,
+                                                         cfg.compute_dtype), atol=1e-4, rtol=0)
+        kept(encdec.kept_init_caches, 16)
+        caches = encdec.init_caches(params, cfg, enc, 16, device="cuda")
+        tok = torch.zeros(2, dtype=torch.long, device="cuda")
+        for t in range(4):
+            model.world.reset_launches()
+            got = kept(encdec.kept_decode_step, tok, t)
+            assert [c["flash_attn"] for c in model.world.launches()] == [cfg.n_dec_layers] * 2
+            caches, want = encdec.decode_step(params, cfg, caches, tok, t)
+            scale = float(want.abs().max().clamp(min=1.0))
+            torch.testing.assert_close(got, want, atol=1e-3 * scale, rtol=0)
+            tok = want.argmax(-1)
+    finally:
+        model.close()
+
+
 def test_compression_quantize_rounds_like_the_cpu(gen):
     """``compression.quantize`` divides by a 0-d tensor, so the card rounds
     ``g / scale`` as the CPU does, ties included: payloads and scales

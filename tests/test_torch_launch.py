@@ -10,6 +10,7 @@ The specs are held to the reference's ``ShapeDtypeStruct``s leaf by leaf
 skip, on ``meta``; nothing is drawn.  About 15 s alone.
 """
 
+import dataclasses
 import json
 import os
 import shutil
@@ -43,7 +44,7 @@ from repro.train import optimizer as jopt
 from repro_torch.common.tree import keystr, tree_flatten_with_path, tree_map
 from repro_torch.configs import ARCHS
 from repro_torch.configs import base as cbase
-from repro_torch.configs.shapes import SHAPES
+from repro_torch.configs.shapes import SHAPES, ShapeSpec
 from repro_torch.core import memplan, workloads
 from repro_torch.core.analytical import memory_plan
 from repro_torch.distributed import sharding_rules as sr
@@ -145,7 +146,11 @@ def test_launcher_refuses_what_the_reference_refuses(tmp_path):
 
 @pytest.mark.parametrize("arch_id, shape", [("llama3.2-3b", "train_4k"),
                                             ("rwkv6-7b", "decode_32k"),
-                                            ("seamless-m4t-large-v2", "prefill_32k")])
+                                            ("seamless-m4t-large-v2", "prefill_32k"),
+                                            ("recurrentgemma-9b", "prefill_32k"),
+                                            ("deepseek-v3-671b", "decode_32k"),
+                                            ("internvl2-26b", "train_4k"),
+                                            ("seamless-m4t-large-v2", "decode_32k")])
 def test_build_cell_wires_every_kind(arch_id, shape):
     fn, args, in_sh, out_sh, donate, meta, mesh, cfg, arch, sh = \
         dryrun.build_cell(arch_id, shape, multi_pod=False)
@@ -195,18 +200,45 @@ def test_run_cell_llama_train_4k(tmp_path):
 
 
 def test_run_cell_without_a_tensor_parallel_path(tmp_path):
-    """rwkv6-7b has no tensor-parallel path (ROADMAP Queue 1 #9): bytes and
-    FLOPs, and no collectives, with the reason."""
+    """rwkv6-7b's decode cell traces the rank's cut and records its
+    collectives (each layer's row-parallel reduces, the vocab-cut
+    embedding's); a config tensor parallelism refuses (ROADMAP Queue 1
+    #9's remainder: granite with 24 experts on the model axis of 16) is
+    traced whole, with bytes and FLOPs and no collectives, with the
+    reason."""
     r = dryrun.run_cell("rwkv6-7b", "decode_32k", False, out_dir=tmp_path, verbose=False)
     assert r["status"] == "ok", r.get("error")
-    assert r["collective_bytes_per_device"] is None and r["collective_counts"] is None
-    assert "#9" in r["collective_note"]
+    cfg = ARCHS["rwkv6-7b"].make_full()
+    assert r["collective_counts"]["all-reduce"] == 3 * cfg.n_layers + 1
+    assert r["collective_counts"]["all-gather"] == 1
+    assert r["collective_bytes_per_device"]["all-reduce"] > 0
+    assert "tensor-parallel collectives" in r["collective_note"]
     assert r["flops_per_device"] > 0 and r["bytes_per_device"]["caches"] > 0
+    arch = ARCHS["granite-moe-1b-a400m"]
+    full = arch.make_full()
+    refused = dataclasses.replace(full, moe=dataclasses.replace(full.moe, n_experts=24))
+    m = dryrun.measure_cell(arch.id, SHAPES["decode_32k"], make_production_mesh(), cfg=refused)
+    assert m["collective_bytes_per_device"] is None and m["collective_counts"] is None
+    assert "#9" in m["collective_note"] and m["flops_per_device"] > 0
     skip = dryrun.run_cell("llama3.2-3b", "long_500k", False, out_dir=tmp_path, verbose=False)
     assert skip["status"] == "skip"
 
 
 # -- roofline and memplan ----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch_id", ["rwkv6-7b", "recurrentgemma-9b", "deepseek-v3-671b",
+                                     "internvl2-26b", "seamless-m4t-large-v2"])
+def test_every_kind_traces_its_cut_with_collectives(arch_id):
+    """Each kind's prefill traces one rank's cut under the dry context at
+    the production mesh's model axis of 16, at a cut sequence: collectives
+    recorded, FLOPs counted over the rank's cut (no even split)."""
+    shape = ShapeSpec("prefill_256", "prefill", 256, 16)
+    m = dryrun.measure_cell(arch_id, shape, make_production_mesh())
+    assert m["collective_counts"]["all-reduce"] > 0
+    assert m["collective_bytes_per_device"]["all-reduce"] > 0
+    assert m["flops_note"].startswith("FlopCounterMode over one rank")
+    assert m["flops_per_device"] > 0
 
 
 @pytest.mark.parametrize("args", [(197e12, 0, 0, 1), (0, 819e9, 0, 1), (0, 0, 200e9 * 4, 4),

@@ -282,3 +282,29 @@ def test_param_shards_tile_every_leaf(model):
     p = P((64, 96), ("embed", "mlp"))
     assert sr.param_shardings({"w": p}, mesh)["w"] == \
         tuple(jsr.spec_to_pspec(p.axes, p.shape, _stub(1, model), jsr.TP_RULES))
+
+
+def test_reads_whole_keeps_what_the_layers_read_whole():
+    """The leaves a world's cut keeps whole beside it (``tp_whole``): the
+    vectors, the biases over heads and the per-channel tables whose only
+    named axis is ``embed`` (rwkv's token-shift mixes, its decay LoRA, a
+    conv's taps), which the fallback cuts on the model width; not the
+    weight matrices, MLA's up-projections (a LoRA rank, heads) among them."""
+    whole = [P((64,), ("embed",)), P((2, 64), ("layers", "embed")),
+             P((4, 16), ("heads", "hd")), P((2, 5, 64), ("layers", None, "embed")),
+             P((5, 32, 64), (None, None, "embed")), P((64, 32), ("embed", None)),
+             P((4, 64), (None, "embed"))]
+    cut = [P((64, 64), ("embed", "heads_flat")), P((64, 64), ("embed", "embed2")),
+           P((32, 4, 24), ("qlora", "heads", "hd")), P((16, 4, 16), ("kvlora", "heads", "hd")),
+           P((64, 32), ("embed", "qlora")), P((4, 64, 32), ("experts", "embed", "mlp"))]
+    assert all(sr.reads_whole(p) for p in whole)
+    assert not any(sr.reads_whole(p) for p in cut)
+    mesh = pmesh.make_host_mesh(1, 2)
+    spec = rwkv6.rwkv_spec(ARCHS["rwkv6-7b"].make_smoke())
+    params = cbase.nninit.materialize(spec, torch.Generator().manual_seed(0))
+    mine = sr.param_shards(params, spec, 1, mesh)
+    mu, shift_b, wr = (mine["body"]["tm"][k] for k in ("mu", "shift_b", "wr"))
+    assert mu.tp_dim == 2 and mu.shape[-1] == 32
+    torch.testing.assert_close(mu.tp_whole, params["body"]["tm"]["mu"], rtol=0, atol=0)
+    assert shift_b.tp_dim == 3 and shift_b.tp_whole.shape[-1] == 64
+    assert wr.tp_dim == 2 and not hasattr(wr, "tp_whole")

@@ -237,9 +237,11 @@ def test_refusals_name_their_escape():
         cbase.lm_engine("llama3.2-3b", tp=2)           # no CUDA here: an empty pool
     with pytest.raises(ValueError, match="not both"):
         cbase.lm_engine("llama3.2-3b", tp=2, device="cpu")
-    for arch_id in ("rwkv6-7b", "recurrentgemma-9b", "deepseek-v3-671b"):
+    # experts that do not divide the group (granite's 4 at tp 3), and heads
+    # a cut would split (rwkv's 4 heads of 16 at tp 8), are #9's remainder
+    for arch_id, tp in (("granite-moe-1b-a400m", 3), ("rwkv6-7b", 8)):
         with pytest.raises(NotImplementedError, match="#9"):
-            cbase.lm_engine(arch_id, tp=2, devices=("cpu", "cpu"))
+            cbase.lm_engine(arch_id, tp=tp, devices=("cpu",) * tp)
     with pytest.raises(ValueError, match="pick one axis"):
         cbase.lm_engine_pool("llama3.2-3b", replicas=2, tp=2)
     deploy_mod = importlib.import_module("repro_torch.serve.deploy")
