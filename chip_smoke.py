@@ -190,9 +190,9 @@ and prints no result line):
    decode step and per admission, parameter and KV-cache bytes,
    ``max_memory_allocated``.  Then gemma3-12b at its width and one pattern
    unit of depth (a reduced depth: 6 of its 48 layers, 5 local with window
-   1024 and 1 global, 2.35B parameters) serving 2 greedy prompts of
-   1040-1120 tokens, so the local layers' ring caches wrap, with the same
-   checks against its forward (plain windowed attention on the local
+   1024 and 1 global, 2.35B parameters) serving one greedy prompt of
+   1040-1120 tokens (one, for time), so the local layers' ring caches
+   wrap, with the same checks against its forward (plain windowed attention on the local
    layers, flash_attn on the global one).  Then the MoE / MLA archs:
    granite-moe-1b-a400m at its published width (24 layers, d 1024, 32
    experts top-8, GQA 16 / 8 heads of 64, 1.33B f32 parameters) and
@@ -236,8 +236,8 @@ and prints no result line):
    at ~81 against ~5 elsewhere), its tokens the argmax of the bf16 decode
    scan at the engine's slot count outside near ties; rwkv6-7b also
    served at 2 layers, held at bf16; recurrentgemma-9b also at one (rec,
-   rec, attn) unit of depth serving 2 prompts of 2056-2100 tokens in two
-   slots, 4 new tokens each, so its rings wrap past the window, held at
+   rec, attn) unit of depth serving one prompt of 2056-2100 tokens (one,
+   for time), 4 new tokens, so its rings wrap past the window, held at
    f32 as above.  Then internvl2-26b
    at its width cut by memory to 38 of its 48 layers (``lm_vlm_arch``,
    15.96B f32 parameters): the forward over 1024 random patch embeddings
@@ -376,7 +376,26 @@ and prints no result line):
    step 10's checkpoint, bit for bit the uninterrupted run; a tp-2 world
    whose ranks restore their cuts of its parameters
    (``world.CheckpointParams``, ``checkpoint.restore(shardings=)``), its
-   logits within 3e-2 of the single device's.  Then the dry-run
+   logits within 3e-2 of the single device's.  Then tensor-parallel
+   training (``world.TPTrainer``, ``dist_tp_train``): llama3.2-3b at its
+   published width, 2 layers, f32 compute, one step on (1, 512) at tp 2,
+   each rank against the single device in its own process (loss within
+   1e-5 relative, each leaf's gradient within 1e-4 of its max |g|, leaves
+   read whole included and none without a gradient where the single
+   device has one, parameters after the AdamW step within 2 lr, a sanity
+   bound; before it the world's optimizer alone, fed the single device's
+   gradients of 3 steps cut to each rank's slice, within 1e-2 lr of the
+   single device's fed the same, its global norms within 1e-5; flash_attn
+   at these shapes, (1, 512, 12 or 24, 128) f32, is held in phase 2); then
+   14 of its 28 layers at bf16 (a cut for memory: both ranks share the card),
+   3 steps on (1, 2048) at tp 2 after the same 3 steps on the single device in
+   rank 0's process, each step's loss within 3e-2 relative of the single
+   device's and falling, flash_attn once per layer a rank a step; both
+   rows hold the ranks' losses, norms and replicated leaves and kept
+   wholes to the same bits and each cut to the slice of its kept whole.
+   Rows: ms a step tp and single; the last step's collectives by phase
+   (count, MB, host ms, the card synchronised around each), the logits'
+   vocab gather apart; each rank's peak bytes.  Then the dry-run
    (``launch.dryrun.measure_cell``) of phase 10b's step, (1, 2048) on a (1,
    1) mesh, beside its measurement: the measured step at least the
    roofline bound, the argument bytes those of the tensors the step held.
@@ -1055,7 +1074,11 @@ def flash_kernel_rows(gen) -> dict:
                                           (2048, 2048, True, torch.bfloat16, 48, 128),
                                           # each rank's heads at tp 2 (phase 11b)
                                           (2048, 2048, True, torch.bfloat16, 12, 128),
-                                          (2048, 2048, True, torch.bfloat16, 8, 64)):
+                                          (2048, 2048, True, torch.bfloat16, 8, 64),
+                                          # phase 11c's f32 training step: each
+                                          # rank's heads and the single device's
+                                          (512, 512, True, torch.float32, 12, 128),
+                                          (512, 512, True, torch.float32, 24, 128)):
         row = flash_row(gen, b, sq, skv, h, hd, causal, dtype)
         f32 = dtype == torch.float32
         if f32 and sq == 2048:
@@ -2467,7 +2490,7 @@ LM_SERVE = dict(max_slots=8, max_len=512, max_new_tokens=32, decode_block=8,
 LM_REQUESTS, LM_PROMPTS = 16, (16, 64)
 LM_SAMPLED = dict(temperature=0.8, top_k=50)
 LM_RING_ARCH, LM_RING_LAYERS = "gemma3-12b", 6   # one 5:1 local:global unit
-LM_RING_REQUESTS, LM_RING_PROMPTS = 2, (1040, 1120)   # each past the 1024 window
+LM_RING_REQUESTS, LM_RING_PROMPTS = 1, (1040, 1120)   # past the 1024 window; one for time
 # the MoE / MLA archs: granite-moe at its published width (GQA at head dim
 # 64 on flash_attn), deepseek-v3 at its width cut to its 3 dense layers and
 # its first MoE layer (MLA on the plain attention, bf16 parameters, the MTP
@@ -2499,7 +2522,7 @@ LM_RWKV_BF16_LAYERS = 2     # the depth to which the bf16 paths are held
 LM_REC_CPU_LAYERS = {LM_RWKV_ARCH: 2, LM_GRIFFIN_ARCH: 3}   # griffin: one unit
 LM_REC_SERVE = dict(LM_SERVE, max_new_tokens=16)   # 8 slots of 512 tokens
 LM_REC_REQUESTS, LM_REC_LENGTHS = 8, (16, 32, 48)   # three distinct lengths
-LM_REC_RING_REQUESTS, LM_REC_RING_PROMPTS = 2, (2056, 2100)   # past the window
+LM_REC_RING_REQUESTS, LM_REC_RING_PROMPTS = 1, (2056, 2100)   # past the window; one for time
 LM_REC_RING_NEW = 4   # new tokens a ring prompt (one decode block): the scans take the time
 # internvl2-26b: 48 layers of 390M parameters and a 1.14B untied embed and
 # head, 79.4 GB of f32; cut by memory to 38 layers (63.8 GB)
@@ -5522,6 +5545,361 @@ def dist_dryrun_row() -> dict:
     return row
 
 
+# -- phase 11c: tensor-parallel training -------------------------------------
+# llama3.2-3b at its published width on the phase's world of two ranks on the
+# one card.  First one step at f32 compute and TP_TRAIN_FIRST_LAYERS layers,
+# each rank against the single device in its own process (the whole
+# parameters drawn from the trainer's generator state, outside the group).
+# Then TP_TRAIN_STEPS steps at bf16 compute and TP_TRAIN_LAYERS of its 28
+# layers, after the same steps on the single device in rank 0's process,
+# freed before the world's trainer.  The depth is cut for memory: the two
+# ranks share the card beside what rank 0's process keeps reserved from the
+# phases before (~7.3 GB, with ~74 GB of the card free).  At all 28 layers
+# each rank peaked at ~34 GB (~25.7 GB of f32 parameters, gradients and
+# moments), which leaves the two allocators a few GB; at 14 layers ~19 GB a
+# rank, and ~42 GB the single device's peak.  The
+# ranks run train_step on their trainer's batches (Trainer.run's loop without
+# its checkpoint, whose whole gathers and 21.6 GB of files would outlast the
+# phase; TPTrainer.run with its saves runs in the card tests)
+TP_TRAIN_FIRST_LAYERS, TP_TRAIN_FIRST_SHAPE = 2, (1, 512)
+TP_TRAIN_LAYERS, TP_TRAIN_SHAPE, TP_TRAIN_STEPS = 14, (1, 2048), 3
+# params_lr is a sanity bound (AdamW's first step moves each element by about
+# lr whatever the gradient); fed_lr holds the world's optimizer, fed the single
+# device's gradients of TP_TRAIN_FED_STEPS steps, against the single device's
+# fed the same (the same f32 arithmetic but the global norm's order of sums)
+TP_TRAIN_FIRST_TOL = {"loss": 1e-5, "grad": 1e-4, "params_lr": 2.0, "fed_lr": 1e-2,
+                      "fed_norm": 1e-5}
+TP_TRAIN_FED_STEPS = 3
+TP_TRAIN_LOSS_TOL = 3e-2    # relative, each bf16 step's loss against the single device's
+TP_TRAIN_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=10)
+
+
+def dist_part(t, p, rank: int):
+    """The slice of a whole ``t`` that the cut leaf ``p`` holds on ``rank``."""
+    d = getattr(p, "tp_dim", None)
+    return t if d is None else t.narrow(d, rank * p.shape[d], p.shape[d])
+
+
+def dist_tp_invariants(rank, params=None) -> dict:
+    """The rank's parameters (its trainer's by default): each cut the slice
+    of the whole it keeps, bit for bit, and the digests of its replicated
+    leaves and kept wholes."""
+    import torch
+
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.distributed import world
+
+    leaves = tree_leaves(rank.engine.params if params is None else params)
+    kept = [t for t in leaves if hasattr(t, "tp_whole")]
+    return {"cuts_are_slices": all(torch.equal(t, dist_part(t.tp_whole, t, rank.ctx.rank))
+                                   for t in kept),
+            "kept_wholes": len(kept), "digests": world.trainer_digests(rank, params)}
+
+
+def dist_tp_first_single(rank, batch: dict) -> None:
+    """On each rank, outside its group: TP_TRAIN_FED_STEPS AdamW steps of
+    the single device on the whole parameters (drawn from the trainer's
+    generator state), each on its gradient at that step's parameters;
+    the first loss, each step's gradients and global norm, the parameters
+    after the first step and after the last, kept in ``rank.state`` for
+    ``dist_tp_first_rank``."""
+    from repro_torch.configs import base as cb
+    from repro_torch.configs import get_arch
+    from repro_torch.train import optimizer as opt
+
+    tr = rank.engine
+    batch = {k: v.to(rank.device) for k, v in batch.items()}
+    whole = rank.spec.params_fn(cb.model_spec(get_arch(rank.spec.arch_id), rank.spec.cfg),
+                                lambda p, t: t, rank.device)
+    state, losses, grads_seq, norms, first = opt.init_state(whole, tr.ocfg), [], [], [], None
+    for _ in range(TP_TRAIN_FED_STEPS):
+        loss, grads = opt.value_and_grad(tr.loss_fn)(whole, batch)
+        whole, state, m = opt.apply_updates(whole, grads, state, tr.ocfg)
+        losses.append(float(loss))
+        grads_seq.append(grads)
+        norms.append(float(m["grad_norm"]))
+        first = whole if first is None else first
+    rank.state["single"] = {"loss": losses[0], "grads": grads_seq, "norms": norms,
+                            "first": first, "last": whole}
+
+
+def dist_tp_first_rank(rank, batch: dict) -> dict:
+    """On each rank, under its group, against ``dist_tp_first_single``'s:
+    first the world's optimizer on its own, from the trainer's parameters
+    and fresh moments fed the single device's gradients cut to the rank's
+    slice (each step's global norm's relative error, the parameters' error
+    after the last step in lr, and their ``dist_tp_invariants``); then the
+    loss and gradients of the rank's cut and one ``train_step``: the
+    loss's relative error, each leaf's gradient error over that leaf's max
+    |g| on the single device, the parameters' error after the step in lr,
+    the leaves with a gradient on one side only, and
+    ``dist_tp_invariants``."""
+    from repro_torch.common.tree import tree_leaves, tree_map
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import train_step
+
+    tr, r = rank.engine, rank.ctx.rank
+    batch = {k: v.to(rank.device) for k, v in batch.items()}
+    single = rank.state.pop("single")
+    params, state, fed_norms = tr.params, opt.init_state(tr.params, tr.ocfg), []
+    for g_whole in single["grads"]:
+        cut = tree_map(lambda p, g: None if g is None else dist_part(g, p, r).contiguous(),
+                       params, g_whole)
+        params, state, m = rank.run(lambda: opt.apply_updates(params, cut, state, tr.ocfg))
+        fed_norms.append(float(m["grad_norm"]))
+    fed_err = max(float((p - dist_part(w, p, r)).abs().max())
+                  for p, w in zip(tree_leaves(params), tree_leaves(single["last"]))) / tr.ocfg.lr
+    fed = {"fed_err_lr": fed_err, "fed_norms": fed_norms,
+           "fed_norm_rel_err": max(abs(a - b) / b for a, b in zip(fed_norms, single["norms"])),
+           "fed_invariants": dist_tp_invariants(rank, params)}
+    del params, state, cut
+    loss_1, grads_1, whole = single["loss"], single["grads"][0], single["first"]
+    del single
+    loss, grads = rank.run(lambda: opt.value_and_grad(tr.loss_fn)(tr.params, batch))
+    tr.params, tr.opt_state, m = rank.run(lambda: train_step(
+        tr.loss_fn, tr.params, tr.opt_state, {k: v[None] for k, v in batch.items()}, tr.ocfg))
+    lr = float(m["lr"])
+    grad_err = param_err = 0.0
+    one_sided = 0
+    for p, g1, g, p1 in zip(tree_leaves(tr.params), tree_leaves(grads_1), tree_leaves(grads),
+                            tree_leaves(whole)):
+        if (g1 is None) != (g is None):
+            one_sided += 1
+        elif g1 is not None:
+            scale = max(float(g1.abs().max()), 1e-30)
+            grad_err = max(grad_err, float((g.float() - dist_part(g1, p, r).float()).abs().max())
+                           / scale)
+        param_err = max(param_err, float((p.float() - dist_part(p1, p, r).float()).abs().max())
+                        / lr)
+    return {"loss": float(loss), "loss_single": loss_1,
+            "loss_rel_err": abs(float(loss) - loss_1) / abs(loss_1),
+            "grad_err": grad_err, "param_err_lr": param_err, "one_sided": one_sided,
+            "grad_norm": float(m["grad_norm"]), **fed, **dist_tp_invariants(rank)}
+
+
+def dist_tp_train_rank(rank, steps: int, timed: bool) -> dict:
+    """On each rank: ``steps`` of ``train_step`` on its trainer's batches
+    under its group (``timed``: the card synchronised around each
+    collective, its host seconds counted); each step's loss, norm and host
+    ms, the collectives by phase (count, bytes, host ms), ``dist_tp_invariants``."""
+    import torch
+
+    from repro_torch.train.trainer import train_step
+
+    tr, ctx = rank.engine, rank.ctx
+    ctx.phases.clear()
+    ctx.timed = timed
+    out = []
+    try:
+        for _ in range(steps):
+            batch = tr._batch(tr.step)
+            t0 = time.perf_counter()
+            tr.params, tr.opt_state, m = rank.run(lambda: train_step(
+                tr.loss_fn, tr.params, tr.opt_state, batch, tr.ocfg))
+            loss = float(m["loss"])
+            out.append({"loss": loss, "grad_norm": float(m["grad_norm"]),
+                        "ms": (time.perf_counter() - t0) * 1e3})
+            tr.step += 1
+    finally:
+        ctx.timed = False
+    if rank.device.type == "cuda":
+        torch.cuda.synchronize(rank.device)
+    phases = {ph: {op: {"count": n, "MB": b / 1e6, "host_ms": sec * 1e3}
+                   for op, (n, sec, b) in ops.items()} for ph, ops in ctx.phases.items()}
+    return {"steps": out, "phases": phases, **dist_tp_invariants(rank)}
+
+
+def dist_free_card() -> dict:
+    """Empty this process's cached blocks on its card (run on every rank
+    before the bf16 trainer is built); its reserved bytes after, the
+    card's free bytes and the host's available bytes."""
+    import torch
+
+    avail = 0
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                avail = int(line.split()[1]) * 1024
+    out = {"reserved": 0, "card_free": 0, "host_avail": avail}
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        out.update(reserved=torch.cuda.memory_reserved(), card_free=torch.cuda.mem_get_info()[0])
+    return out
+
+
+def dist_tp_same(mine: dict, theirs: list, label: str) -> None:
+    """The ranks' losses, norms and digests are rank 0's, each cut the
+    slice of its kept whole."""
+    def bits(x):
+        if "steps" in x:
+            return [(st["loss"], st["grad_norm"]) for st in x["steps"]]
+        return x["loss"], x["grad_norm"]
+
+    for r, t in enumerate(theirs, 1):
+        check(t["digests"] == mine["digests"], f"{label}: rank {r}'s replicated leaves or "
+                                               "kept wholes differ from rank 0's")
+        check(bits(t) == bits(mine), f"{label}: rank {r}'s losses or norms differ from rank 0's")
+    check(all(x["cuts_are_slices"] for x in (mine, *theirs)) and mine["kept_wholes"] > 0,
+          f"{label}: a cut is not the slice of its kept whole")
+
+
+def dist_lm_batch(loader, step: int, dev):
+    """``Trainer._batch``: the loader's batch of ``step`` with a leading
+    microbatch axis of 1."""
+    import numpy as np
+    import torch
+
+    toks, tgts = loader.batch(step)
+    return {"tokens": torch.from_numpy(np.ascontiguousarray(toks[None])).to(dev),
+            "targets": torch.from_numpy(np.ascontiguousarray(tgts[None])).to(dev)}
+
+
+def dist_tp_train(w, on_path, dev: str) -> None:
+    """Tensor-parallel training of llama3.2-3b on the world (the comment
+    above ``TP_TRAIN_FIRST_LAYERS``): emits the f32 first-step row and the
+    bf16 training row."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import base as cb
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import SyntheticTokens, TokenPipelineConfig
+    from repro_torch.distributed import world
+    from repro_torch.nn import init as nninit
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import TrainerConfig, train_step
+
+    arch = get_arch(LM_ARCH)
+    ocfg = opt.AdamWConfig(**TP_TRAIN_OPT)
+    tmp = Path(tempfile.mkdtemp(prefix="dist_tp_train_"))
+    try:
+        # f32, 2 layers: each rank against the single device
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(train_lm_config(), n_layers=TP_TRAIN_FIRST_LAYERS,
+                                  compute_dtype=torch.float32)
+        b, s = TP_TRAIN_FIRST_SHAPE
+        data = TokenPipelineConfig(vocab_size=cfg.vocab, seq_len=s, global_batch=b,
+                                   seed=SEED + 60)
+        source = world.SeededParams.of(torch.Generator(dev).manual_seed(SEED + 61))
+        trainer = world.TPTrainer(w, world.EngineSpec(LM_ARCH, cfg, source, None, world.TrainSpec(
+            TrainerConfig(ckpt_dir=str(tmp / "first")), ocfg, data)), owns_world=False)
+        toks, tgts = SyntheticTokens(data).batch(0)
+        batch = {"tokens": torch.from_numpy(toks), "targets": torch.from_numpy(tgts)}
+        trainer.on_every_rank(dist_tp_first_single, batch)
+        (mine, theirs), per_rank = on_path(
+            lambda: trainer.on_every_rank(dist_tp_first_rank, batch))
+        trainer.close()
+        dist_tp_same(mine, theirs, "tp train f32")
+        dist_tp_same({**mine["fed_invariants"], "loss": 0.0, "grad_norm": mine["fed_norms"]},
+                     [{**t["fed_invariants"], "loss": 0.0, "grad_norm": t["fed_norms"]}
+                      for t in theirs], "tp train f32, the fed optimizer")
+        every = [mine, *theirs]
+        tol = TP_TRAIN_FIRST_TOL
+        row = {"phase": "dist", "row": "tp_train_first_step", "arch": LM_ARCH, "tp": 2,
+               "layers": cfg.n_layers, "shape": list(TP_TRAIN_FIRST_SHAPE), "compute": "f32",
+               "loss": mine["loss"], "loss_single": mine["loss_single"],
+               "loss_rel_err": max(x["loss_rel_err"] for x in every),
+               "grad_err": max(x["grad_err"] for x in every),
+               "param_err_lr": max(x["param_err_lr"] for x in every),
+               "one_sided_grads": sum(x["one_sided"] for x in every),
+               "fed_steps": TP_TRAIN_FED_STEPS,
+               "fed_err_lr": max(x["fed_err_lr"] for x in every),
+               "fed_norm_rel_err": max(x["fed_norm_rel_err"] for x in every),
+               "kept_wholes": mine["kept_wholes"], "tol": tol,
+               "flash_attn_per_rank": [c["flash_attn"] for c in per_rank],
+               "seconds": time.perf_counter() - t0, "card": CARD}
+        emit(row)
+        check(row["loss_rel_err"] <= tol["loss"] and row["grad_err"] <= tol["grad"]
+              and row["param_err_lr"] <= tol["params_lr"] and row["one_sided_grads"] == 0
+              and row["fed_err_lr"] <= tol["fed_lr"] and row["fed_norm_rel_err"] <= tol["fed_norm"],
+              f"tp train f32: {row}")
+        check(all(c["flash_attn"] == 2 * cfg.n_layers for c in per_rank),
+              f"tp train f32: flash_attn per rank {row['flash_attn_per_rank']} (two forwards)")
+
+        # bf16, TP_TRAIN_LAYERS layers: the single device first, in this process
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(train_lm_config(), n_layers=TP_TRAIN_LAYERS)
+        b, s = TP_TRAIN_SHAPE
+        data = TokenPipelineConfig(vocab_size=cfg.vocab, seq_len=s, global_batch=b,
+                                   seed=SEED + 62)
+        gen = torch.Generator(dev).manual_seed(SEED + 63)
+        source = world.SeededParams.of(gen)
+        loss_fn = cb.loss_fn(arch, cfg)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = nninit.materialize(cb.model_spec(arch, cfg), gen)
+        state = opt.init_state(params, ocfg)
+        loader = SyntheticTokens(data)
+        single = []
+        for step in range(TP_TRAIN_STEPS):
+            batch = dist_lm_batch(loader, step, dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            params, state, m = train_step(loss_fn, params, state, batch, ocfg)
+            single.append({"loss": float(m["loss"]), "ms": (time.perf_counter() - t1) * 1e3})
+        single_peak = torch.cuda.max_memory_allocated()
+        del params, state, batch, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        single_s = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        free = w.spmd(dist_free_card, [()] * w.size)
+        tp_reset_peaks(w)
+        trainer = world.TPTrainer(w, world.EngineSpec(LM_ARCH, cfg, source, None, world.TrainSpec(
+            TrainerConfig(ckpt_dir=str(tmp / "bf16")), ocfg, data)), owns_world=False)
+        build_s = time.perf_counter() - t0
+        (mine, theirs), per_rank = on_path(
+            lambda: trainer.on_every_rank(dist_tp_train_rank, TP_TRAIN_STEPS - 1, False))
+        dist_tp_same(mine, theirs, "tp train bf16")
+        (last, theirs_last), per_rank_last = on_path(
+            lambda: trainer.on_every_rank(dist_tp_train_rank, 1, True))
+        dist_tp_same(last, theirs_last, "tp train bf16 (timed step)")
+        peaks = tp_peaks(trainer, "tp train bf16")
+        trainer.close()
+        steps = mine["steps"] + last["steps"]
+        errs = [abs(t["loss"] - o["loss"]) / abs(o["loss"]) for t, o in zip(steps, single)]
+        launches = [(c["flash_attn"] + d["flash_attn"]) / TP_TRAIN_STEPS
+                    for c, d in zip(per_rank, per_rank_last)]
+        fwd = last["phases"].get("forward", {})
+        row = {"phase": "dist", "row": "tp_train", "arch": LM_ARCH, "tp": 2,
+               "layers": cfg.n_layers, "layers_published": train_lm_config().n_layers,
+               "shape": list(TP_TRAIN_SHAPE), "compute": "bf16", "steps": TP_TRAIN_STEPS,
+               "losses_tp": [x["loss"] for x in steps],
+               "losses_single": [x["loss"] for x in single], "loss_rel_err": errs,
+               "ms_per_step_tp": [x["ms"] for x in steps],
+               "ms_per_step_single": [x["ms"] for x in single],
+               "collectives_per_step": {
+                   "forward": {op: v for op, v in fwd.items() if op != "gather_last"},
+                   "logits_vocab_gather": fwd.get("gather_last"),
+                   "backward": last["phases"].get("backward", {}),
+                   "optimizer": last["phases"].get("optimizer", {})},
+               "timed_step_note": "the last step, the card synchronised around each collective",
+               "peak_gb_per_rank": [x / 1e9 for x in peaks],
+               "single_peak_gb": single_peak / 1e9,
+               "reserved_gb_per_rank_before": [x["reserved"] / 1e9 for x in free],
+               "card_free_gb_before": min(x["card_free"] for x in free) / 1e9,
+               "host_avail_gb_before": free[0]["host_avail"] / 1e9,
+               "flash_attn_per_rank_per_step": launches,
+               "single_seconds": single_s, "build_seconds": build_s,
+               "seconds": time.perf_counter() - t0, "card": CARD}
+        emit(row)
+        check(max(errs) <= TP_TRAIN_LOSS_TOL, f"tp train bf16: losses {row['losses_tp']} "
+                                             f"against {row['losses_single']}")
+        check(all(math.isfinite(x) for x in row["losses_tp"])
+              and row["losses_tp"][-1] < row["losses_tp"][0]
+              and row["losses_single"][-1] < row["losses_single"][0],
+              f"tp train bf16: losses not falling {row['losses_tp']} {row['losses_single']}")
+        check(all(x == cfg.n_layers for x in launches),
+              f"tp train bf16: flash_attn a rank a step {launches}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def phase_dist(dev: str = "cuda") -> dict[str, int]:
     """The training half of distribution (phase 11c of the module
     docstring).  Returns the launch counts of the pipelined step, the
@@ -5562,6 +5940,9 @@ def phase_dist(dev: str = "cuda") -> dict[str, int]:
         emit({**dist_fold(w, on_path, dev), "seconds": time.perf_counter() - t0})
         t0 = time.perf_counter()
         emit({**dist_launcher(w, on_path, dev), "seconds_with_remesh": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        dist_tp_train(w, on_path, dev)
+        emit({"phase": "dist", "row": "tp_train_seconds", "seconds": time.perf_counter() - t0})
     finally:
         w.close()
     emit(dist_dryrun_row())

@@ -248,8 +248,12 @@ def cut_leaf(p: P, t: torch.Tensor, rank: int, mesh: Mesh) -> torch.Tensor:
     """Rank ``rank``'s cut of the whole leaf ``t`` of spec ``p``.  A cut
     leaf the layers read whole keeps a copy of the whole beside its cut,
     as ``tp_whole``: those are a few vectors of the model width a layer,
-    and no step pays a collective for them.  Both are made here, once, so
-    new weights mean new cuts (a cut is never refreshed in place)."""
+    and no forward pays a collective for them.  Both are made here from
+    new weights.  Under grad the kept whole's gradient reaches the cut (its
+    slice, ``constraints.whole``), and after each optimizer step
+    ``optimizer.apply_updates`` makes every kept whole the whole of the
+    updated cut again, gathered exactly in one collective a dtype, so the
+    cut stays the slice of its whole bit for bit."""
     out = shard_leaf(t, world_pspec(p, mesh), rank, mesh)
     if out is not t and reads_whole(p):
         out.tp_whole = t.clone()

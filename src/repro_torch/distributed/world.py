@@ -37,7 +37,10 @@ Nothing hangs and nothing degrades quietly:
   computes.
 
 Every kind is covered: the token-input kinds (``lm``, MLA included,
-``rwkv``, ``griffin``) are served through ``TPEngine``.  The VLM and the
+``rwkv``, ``griffin``) are served through ``TPEngine`` and trained through
+``TPTrainer`` (``tp_trainer``): every rank runs ``train/trainer.py``'s
+``train_step`` on its cut under its group, on the same batches, and saves
+the reference's checkpoint layout with whole leaves and moments.  The VLM and the
 enc-dec kind take non-token inputs, which the ``Engine`` does not, as in
 the reference; their ranks hold their cut of the parameters and no
 engine, and ``TPModel.same`` runs the reference's partitioned
@@ -82,6 +85,7 @@ from repro_torch.common.tree import tree_map
 from repro_torch.distributed import constraints as tpc
 from repro_torch.distributed import sharding_rules as sr
 from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.train.trainer import Trainer
 
 WORLD_TIMEOUT_S = 60.0
 _POLL_S = 0.2
@@ -182,22 +186,36 @@ class CheckpointParams:
 
 
 @dataclasses.dataclass(frozen=True)
+class TrainSpec:
+    """What a ``TPTrainer``'s ranks train with: the ``TrainerConfig``, the
+    ``AdamWConfig`` and the token pipeline's ``TokenPipelineConfig`` (one
+    seed, so every rank draws the same batches)."""
+
+    tcfg: Any
+    ocfg: Any
+    data: Any
+
+
+@dataclasses.dataclass(frozen=True)
 class EngineSpec:
     """What each rank builds: the arch, its config, the whole parameters'
-    source and the engine's ``ServeConfig``."""
+    source and the engine's ``ServeConfig`` (None: no engine), or a
+    trainer's ``TrainSpec``."""
 
     arch_id: str
     cfg: Any
     params_fn: Callable
     serve_cfg: Any
+    train: TrainSpec | None = None
 
 
 @dataclasses.dataclass
 class RankEngine:
-    """One rank's engine (None for a kind the ``Engine`` does not serve),
-    its tensor-parallel context, its local parameters and what a model's
-    calls keep on the rank between calls (``state``: the enc-dec kind's
-    encoder output and decode caches)."""
+    """One rank's engine (None for a kind the ``Engine`` does not serve; a
+    ``RankTrainer`` for a trainer, which holds the parameters it trains:
+    ``params`` is then None), its tensor-parallel context, its local
+    parameters and what a model's calls keep on the rank between calls
+    (``state``: the enc-dec kind's encoder output and decode caches)."""
 
     spec: EngineSpec
     ctx: tpc.TPContext
@@ -259,10 +277,86 @@ def build_rank(spec: EngineSpec, group, rank: int, size: int, device) -> RankEng
         params = spec.params_fn(cb.model_spec(arch, spec.cfg),
                                 lambda p, t: sr.cut_leaf(p, t, rank, mesh), device)
         engine = None
-        if spec.serve_cfg is not None:
+        if spec.train is not None:
+            engine, params = RankTrainer(arch, spec.cfg, params, spec.train, ctx, device), None
+        elif spec.serve_cfg is not None:
             step, init = cb.serve_fns(arch, spec.cfg, spec.serve_cfg.max_len)
             engine = Engine(step, init, dataclasses.replace(spec.serve_cfg), params=params)
     return RankEngine(spec, ctx, engine, params, device)
+
+
+class RankTrainer(Trainer):
+    """One rank's ``Trainer`` over its cut of the parameters, run under its
+    group (``RankEngine.run``): ``run`` is ``Trainer.run``; ``save`` makes
+    every leaf and moment whole by the exact gather on every rank and rank
+    0 writes them in the reference's layout (a checkpoint of one device's
+    ``Trainer``); ``try_restore`` restores the rank's cut of such a
+    checkpoint (``checkpoint.restore(shardings=)``), the leaves the layers
+    read whole cut beside their whole (``sharding_rules.cut_leaf``)."""
+
+    def __init__(self, arch, cfg, params, train: TrainSpec, ctx: tpc.TPContext, device):
+        from repro_torch.configs import base as cb
+        from repro_torch.data.tokens import SyntheticTokens
+
+        self.ctx = ctx
+        self.spec = cb.model_spec(arch, cfg)
+        super().__init__(cb.loss_fn(arch, cfg), params, train.tcfg, train.ocfg,
+                         SyntheticTokens(train.data), device=device)
+
+    def whole_state(self):
+        """The state tree with every cut made whole (a collective a leaf,
+        on every rank), on the host; None on a rank other than 0."""
+        keep = self.ctx.rank == 0
+
+        def one(t, dim):
+            w = t if dim is None else tpc.whole(t, dim)
+            return w.cpu() if keep else None
+
+        with torch.no_grad():
+            params = tree_map(lambda t: one(t, getattr(t, "tp_dim", None)), self.params)
+            mu = tree_map(lambda p, m: {k: one(v, getattr(p, "tp_dim", None))
+                                        for k, v in m.items()},
+                          self.params, self.opt_state["mu"])
+        if not keep:
+            return None
+        return {"params": params, "opt": {"mu": mu, "step": self.opt_state["step"].cpu()}}
+
+    def save(self):
+        from repro_torch.train import checkpoint as ckpt
+
+        tree = self.whole_state()
+        if tree is None:
+            return
+        if self._ckpt is not None:
+            self._ckpt.save(self.step, tree)
+        else:
+            ckpt.save(self.tcfg.ckpt_dir, self.step, tree)
+
+    def try_restore(self) -> bool:
+        from repro_torch.nn import init as nninit
+        from repro_torch.train import checkpoint as ckpt
+        from repro_torch.train import optimizer as opt_mod
+
+        step = ckpt.latest_step(self.tcfg.ckpt_dir)
+        if step is None:
+            return False
+        mesh, rank, dev = self.ctx.mesh, self.ctx.rank, self.device
+        shapes = nninit.shapes(self.spec)
+        template = {"params": shapes, "opt": opt_mod.state_shapes(shapes, self.ocfg)}
+        def cut(p):
+            return sr.world_pspec(p, mesh)
+
+        shardings = {"params": tree_map(lambda p: None if sr.reads_whole(p) else cut(p),
+                                        self.spec),
+                     "opt": {"mu": tree_map(lambda p: {"m": cut(p), "v": cut(p)}, self.spec),
+                             "step": None}}
+        tree, step = ckpt.restore(self.tcfg.ckpt_dir, template, step, device=dev,
+                                  shardings=shardings, rank=rank, mesh=mesh)
+        self.params = tree_map(lambda p, t: sr.cut_leaf(p, t.to(dev), rank, mesh)
+                               if sr.reads_whole(p) else t, self.spec, tree["params"])
+        self.opt_state = {"mu": tree["opt"]["mu"], "step": tree["opt"]["step"].to(dev)}
+        self.step = step
+        return True
 
 
 def forward_logits(rank: RankEngine, tokens) -> torch.Tensor:
@@ -551,7 +645,10 @@ class World:
             try:
                 replies = self._replies(what)
             except WorldError as broken:
-                raise broken from e
+                # the message carries rank 0's own error, which a reader
+                # of the output's end would not see otherwise
+                raise WorldError(f"{broken}, after rank 0 raised {type(e).__name__}: "
+                                 f"{str(e)[:2000]}") from e
             if not all(m[0] == "raised" and m[1][0] == type(e).__name__ for m in replies):
                 theirs = "; ".join(f"rank {r}: " + ("ok" if m[0] == "ok" else
                                                     f"{m[1][0]}: {m[1][1]}\n{m[1][2]}")
@@ -713,6 +810,36 @@ class TPModel:
         return self.world.close()
 
 
+def trainer_run(rank: RankEngine, steps: int | None) -> tuple:
+    """``Trainer.run(steps)`` on the rank, under its group; returns each
+    new step's (loss, grad_norm, lr) and ``trainer_digests``."""
+    before = len(rank.engine.metrics_history)
+    hist = rank.run(rank.engine.run, steps)
+    return ([(m["loss"], m["grad_norm"], m["lr"]) for m in hist[before:]],
+            trainer_digests(rank))
+
+
+def trainer_digests(rank: RankEngine, params=None) -> list:
+    """The ``digest`` of every replicated leaf and of every whole kept
+    beside a cut of the rank's trainer's parameters (or ``params``): the
+    same on every rank of a sound world."""
+    from repro_torch.common.tree import tree_leaves
+
+    return [digest(t.tp_whole if hasattr(t, "tp_whole") else t)
+            for t in tree_leaves(rank.engine.params if params is None else params)
+            if hasattr(t, "tp_whole") or not hasattr(t, "tp_dim")]
+
+
+def trainer_save(rank: RankEngine) -> None:
+    rank.run(rank.engine.save)
+
+
+def trainer_restore(rank: RankEngine) -> tuple:
+    """``try_restore`` on the rank: (restored, step)."""
+    ok = rank.run(rank.engine.try_restore)
+    return ok, rank.engine.step
+
+
 _MIRRORED = ("submit", "drain_ready", "drain_all", "run", "generate", "reset_stats")
 
 
@@ -780,6 +907,64 @@ class TPEngine(TPModel):
             if payload["streams"].get(self.handle, []) != self.streams:
                 raise WorldError(f"rank {r}'s token streams differ from rank 0's")
         return final
+
+
+class TPTrainer(TPModel):
+    """Rank 0's ``Trainer`` of a tensor-parallel world, as ``TPEngine`` is
+    rank 0's ``Engine``: ``run``, ``save`` and ``try_restore`` run on every
+    rank (``RankTrainer``), each rank training its cut with
+    ``train_step`` on the same batches.  ``run`` raises ``WorldError``
+    where a rank's losses, norms or learning rates, or the digest of a
+    replicated leaf or a kept whole, differ from rank 0's.  Reads (``step``,
+    ``params``, ``opt_state``, ``metrics_history``, ...) are rank 0's
+    trainer's.  ``owns_world``: ``close()`` closes the world too."""
+
+    def __init__(self, world: World, spec: EngineSpec, owns_world: bool = True):
+        super().__init__(world, spec, owns_world)
+        self.trainer = self.rank0.engine
+
+    def run(self, steps: int | None = None) -> list[dict]:
+        mine, theirs = self.on_every_rank(trainer_run, steps)
+        for r, t in enumerate(theirs, 1):
+            if t[0] != mine[0]:
+                self.world.fail(f"rank {r}'s losses, norms or lrs differ from rank 0's")
+            if t[1] != mine[1]:
+                self.world.fail(f"rank {r}'s replicated leaves or kept wholes differ "
+                                "from rank 0's")
+        return self.trainer.metrics_history
+
+    def save(self) -> None:
+        self.on_every_rank(trainer_save)
+
+    def try_restore(self) -> bool:
+        mine, theirs = self.on_every_rank(trainer_restore)
+        if any(t != mine for t in theirs):
+            self.world.fail(f"the ranks restored differently: {[mine, *theirs]}")
+        return mine[0]
+
+    def __getattr__(self, name: str):
+        if name.startswith("__"):
+            raise AttributeError(name)
+        return getattr(self.__dict__["trainer"], name)
+
+
+def tp_trainer(arch_id: str, cfg, params_fn: Callable, tp: int, devices, tcfg, ocfg,
+               data, timeout_s: float = WORLD_TIMEOUT_S) -> TPTrainer:
+    """A token LM (``lm``, ``rwkv``, ``griffin``) trained tensor-parallel by
+    a world of ``tp`` processes on ``devices[:tp]``: each rank cuts the
+    whole parameters from ``params_fn`` and trains its cut by ``tcfg`` and
+    ``ocfg`` on the batches of ``data`` (a ``TokenPipelineConfig``).
+    ``close()`` ends the world."""
+    from repro_torch.configs.registry import get_arch
+
+    kind = get_arch(arch_id).kind
+    if kind not in ("lm", "rwkv", "griffin"):
+        raise NotImplementedError(
+            f"{arch_id}: a tensor-parallel trainer takes token batches (lm, rwkv, "
+            f"griffin); the {kind} kind's batches wait for ROADMAP Queue 1 #10")
+    return _open(TPTrainer, devices, tp,
+                 EngineSpec(arch_id, cfg, params_fn, None, TrainSpec(tcfg, ocfg, data)),
+                 timeout_s)
 
 
 def tp_engine(arch_id: str, cfg, params_fn: Callable, tp: int, devices, serve_cfg,

@@ -25,11 +25,15 @@ record goes to ``results/dryrun_torch/`` for the roofline
   mesh's 16) is traced whole on its data shard, its FLOPs split evenly
   over the model axis;
 - **collectives** from the dry context's record (``roofline.
-  collectives_of``): the forward's, since the port's tensor-parallel
-  layers have no backward collectives (tensor-parallel training is not
-  ported, ROADMAP Queue 1 #10); a training step adds the data-parallel
-  gradient reduction, worked out from the parameter specs
-  (``grad_sync``).  Null, with the reason, for a refused config.
+  collectives_of``): a prefill's or decode step's forward collectives; a
+  training step's forward, its backward's (each combine's transpose:
+  ``copy_in``'s sums of column-parallel inputs' gradients, the gathers of
+  narrowed tensors' gradients, and remat's replay of the forward's), the
+  optimizer's global norm and its refresh of the wholes kept beside a cut,
+  and the data-parallel gradient reduction, worked out from the parameter
+  specs (``grad_sync``).  ``collective_phases`` splits the tensor-parallel
+  record by phase (``constraints.TPContext.phases``).  Null, with the
+  reason, for a refused config.
 
 There is no ``memory_analysis``: the record holds the argument and output
 bytes per device, and a step's peak is measured on the card only.
@@ -261,8 +265,8 @@ def _rank_args(arch, cfg, shape: ShapeSpec, params):
 
 def trace_step(fn, arch, cfg, shape: ShapeSpec, mesh: Mesh):
     """One rank's step on ``meta`` under ``FlopCounterMode``: (FLOPs per
-    device, the step's collective record (stats, nbytes) or None, the
-    reason for None, output bytes per device)."""
+    device, the step's collective record (stats, nbytes, phases) or None,
+    the reason for None, output bytes per device)."""
     spec = cbase.model_spec(arch, cfg)
     local = _local_shape(shape, mesh)
     model = mesh.shape.get("model", 1)
@@ -285,7 +289,7 @@ def trace_step(fn, arch, cfg, shape: ShapeSpec, mesh: Mesh):
         flops = counter.get_total_flops() / model
     out_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(out)
                     if isinstance(t, torch.Tensor))
-    record = None if ctx is None else (dict(ctx.stats), dict(ctx.nbytes))
+    record = None if ctx is None else (dict(ctx.stats), dict(ctx.nbytes), dict(ctx.phases))
     return float(flops), record, reason, out_bytes
 
 
@@ -302,12 +306,14 @@ def measure_cell(arch_id: str, shape: ShapeSpec, mesh: Mesh, cfg=None) -> dict:
     arg_bytes = {n: bytes_per_device(a, s, mesh) for n, a, s in zip(names, args, in_sh)}
     arguments = sum(arg_bytes.values())
     flops_dev, coll, reason, out_bytes = trace_step(fn, arch, cfg, shape, mesh)
-    grad_bytes = None
+    grad_bytes = phases = None
     if coll is None:
         coll_bytes = coll_counts = None
         total_coll = 0.0
     else:
-        coll_bytes, coll_counts = rl.collectives_of(*coll)
+        coll_bytes, coll_counts = rl.collectives_of(*coll[:2])
+        phases = {ph: {op: {"count": n, "bytes": b} for op, (n, _, b) in ops.items()}
+                  for ph, ops in coll[2].items()}
         if shape.kind == "train":
             grad_bytes, grad_counts = grad_sync(args[0], in_sh[0], mesh)
             for kind in grad_bytes:
@@ -332,12 +338,13 @@ def measure_cell(arch_id: str, shape: ShapeSpec, mesh: Mesh, cfg=None) -> dict:
         "collective_bytes_per_device": coll_bytes,
         "collective_counts": coll_counts,
         "grad_sync_bytes_per_device": grad_bytes,
+        "collective_phases": phases,
         "collective_note": (reason if reason is not None else
                             "the forward's tensor-parallel collectives" +
-                            (" and the data-parallel gradient reduction (grad_sync); "
-                             "tensor-parallel training is not ported, so no backward "
-                             "tensor-parallel collective" if shape.kind == "train"
-                             else "")),
+                            (", the backward's (each combine's transpose and remat's "
+                             "replay of the forward's), the optimizer's global norm and "
+                             "refresh of the kept wholes, and the data-parallel gradient "
+                             "reduction (grad_sync)" if shape.kind == "train" else "")),
         "loop_trips": _loop_trips(arch, cfg),
         "roofline": terms,
         "model_flops_total": model_flops,

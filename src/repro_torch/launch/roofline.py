@@ -17,7 +17,7 @@ collectives (``constraints.TPContext``'s ``stats`` and ``nbytes``) and
 maps each op onto the reference's collective kinds.  The bytes are those
 each rank hands gloo's all_reduce: for the port's gathers, the whole
 zero-filled buffer (``constraints.whole``), where the reference counts the
-operand shard.
+operand shard; for a reduce-scatter, the slice each rank receives.
 """
 
 from __future__ import annotations
@@ -31,12 +31,19 @@ _COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                 "collective-permute")
 
 #: the port's collective ops (``distributed/constraints.py``) by the
-#: reference's kind: the row-parallel reduce and ``psum`` are all-reduces,
-#: the gathers (``gather_last``, ``whole``, the compressed reduction's
-#: ``all_gather``) all-gathers, the pipeline's ``ppermute`` a permute
+#: reference's kind: the row-parallel reduce, ``psum``, the backward's sum
+#: of a column-parallel input's gradient (``copy_in``) and the global
+#: norm's are all-reduces; the gathers (``gather_last``, ``whole``, the
+#: compressed reduction's ``all_gather``, the backward's gathers of a
+#: narrowed or reduce-scattered tensor's gradient, the optimizer's refresh
+#: of the wholes kept beside a cut) all-gathers; the RG-LRU gate's
+#: ``reduce_scatter`` a reduce-scatter; the pipeline's ``ppermute`` a permute
 PORT_KINDS = {"reduce_partial": "all-reduce", "psum": "all-reduce",
+              "copy_in": "all-reduce", "global_norm": "all-reduce",
               "gather_last": "all-gather", "whole": "all-gather",
-              "all_gather": "all-gather", "ppermute": "collective-permute"}
+              "all_gather": "all-gather", "take_local": "all-gather",
+              "reduce_scatter_grad": "all-gather", "refresh_whole": "all-gather",
+              "reduce_scatter": "reduce-scatter", "ppermute": "collective-permute"}
 
 
 def collectives_of(stats: dict, nbytes: dict) -> tuple[dict, dict]:

@@ -145,8 +145,9 @@ def _mlp(cfg: GriffinConfig, p, x):
 def _rec_in(cfg: GriffinConfig, p, h):
     """(gate, x) of a recurrent block's input projections and whether they
     hold the rank's channels (in a group, column-parallel on ``mlp``)."""
-    gate, local = layers._dense_out(p["in_gate"], h, cfg.compute_dtype)
-    xr, _ = layers._dense_out(p["in_x"], h, cfg.compute_dtype)
+    xm = layers.column_input(h.to(cfg.compute_dtype), p["in_gate"]["w"], p["in_x"]["w"])
+    gate, local = layers._dense_out(p["in_gate"], h, cfg.compute_dtype, xm)
+    xr, _ = layers._dense_out(p["in_x"], h, cfg.compute_dtype, xm)
     return layers.gelu(gate), xr, local
 
 

@@ -49,7 +49,12 @@ is kept by every rank whose q heads read it), cross-attention likewise
 over ``encode_kv``'s kv heads, MLA its cut of the up-projections' heads
 (``mla_heads``) over latents that ``wq_a`` / ``wkv_a``, row-parallel, make
 whole on every rank, so its compressed cache is whole on every rank.  Each
-ends in ``wo``'s row-parallel reduce (``_out_tp``).
+ends in ``wo``'s row-parallel reduce (``_out_tp``).  Under grad a whole
+tensor that enters the rank's heads passes ``copy_in`` (the input of the
+head-cut projections, once for q, k and v; MLA's latents; a whole k read by
+a subset of the q heads; a q/k norm scale on the rank's heads) or ``take``
+(a whole projection narrowed to the rank's heads), so its gradient is
+summed over the ranks.
 """
 
 from __future__ import annotations
@@ -118,6 +123,13 @@ def _headwise_rms(x, scale, eps=1e-6):
     return (xf * torch.rsqrt(v + eps) * scale).to(x.dtype)
 
 
+def _norm_scale(scale: torch.Tensor, on_part: bool) -> torch.Tensor:
+    """A q / k norm's scale, whole, in f32; through ``copy_in`` where the
+    heads it scales are the rank's part (``on_part``)."""
+    s = tp.whole(scale).float()
+    return tp.copy_in(s) if on_part else s
+
+
 def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhe->bshe") as one matmul."""
     d, h, e = w.shape
@@ -148,36 +160,43 @@ def tp_heads(cfg: AttnConfig) -> tuple[int, int, int, int]:
 
 
 def _heads_tp(x: torch.Tensor, w: torch.Tensor, b, lo: int, hi: int,
-              compute_dtype) -> torch.Tensor:
+              compute_dtype, xm: torch.Tensor | None = None) -> torch.Tensor:
     """Heads [lo, hi) of ``x @ w`` (+ ``b``): in a group, by where ``w`` was
     cut: along its heads (they are this rank's), its input dim (a partial
     product, reduced), its head dim (made whole), or not at all (as
-    outside a group, where [lo, hi) is every head)."""
+    outside a group, where [lo, hi) is every head).  ``xm`` is ``x``
+    through ``copy_in`` (``layers.column_input``) for a ``w`` cut along its
+    heads or head dim, made here where None."""
     dim = tp.model_dim(w)
     wc = w.to(compute_dtype)
+    if dim in (1, 2) and xm is None:
+        xm = tp.copy_in(x)
     if dim == 1:
-        y = _heads(x, wc)
+        y = _heads(xm, wc)
         if b is not None:
-            y = y + (b if tp.model_dim(b) == 0 else tp.whole(b)[lo:hi]).to(compute_dtype)
+            y = y + (b if tp.model_dim(b) == 0
+                     else tp.take(tp.whole(b), 0, lo, hi)).to(compute_dtype)
         return y
     if dim == 0:
         y = tp.reduce_partial(_heads(tp.take_local(x, -1), wc))
     elif dim == 2:
-        y = tp.gather_last(_heads(x, wc))
+        y = tp.gather_last(_heads(xm, wc))
     else:
         y = _heads(x, wc)
     if b is not None:
         y = y + tp.whole(b).to(compute_dtype)
-    return y[..., lo:hi, :]
+    return tp.take(y, -2, lo, hi)
 
 
 def _kv_for_q(k: torch.Tensor, cfg: AttnConfig) -> torch.Tensor:
     """The kv heads (B, S, KV_local, hd) repeated to the rank's q heads (to
     every q head outside a group)."""
     groups = cfg.n_heads // cfg.n_kv_heads
-    qlo, qhi, kvlo, _ = tp_heads(cfg)
+    qlo, qhi, kvlo, kvhi = tp_heads(cfg)
     if qlo % groups == 0 and (qhi - qlo) % groups == 0:
         return _repeat_kv(k, groups)
+    if kvhi - kvlo == cfg.n_kv_heads:
+        k = tp.copy_in(k)   # whole, read by the rank's q heads only
     idx = torch.arange(qlo, qhi, device=k.device) // groups - kvlo
     return k.index_select(2, idx)
 
@@ -193,7 +212,7 @@ def _out_tp(out: torch.Tensor, wo: torch.Tensor, compute_dtype) -> torch.Tensor:
     if dim == 1:
         return tp.reduce_partial(out_project(tp.take_local(out, -1), wc))
     if dim == 2:
-        return tp.gather_last(out_project(out, wc))
+        return tp.gather_last(out_project(tp.copy_in(out), wc))
     return out_project(out, wc)
 
 
@@ -203,12 +222,13 @@ def gqa_project(params, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tenso
     group, the rank's q heads and the kv heads they read (``tp_heads``)."""
     x = x.to(compute_dtype)
     qlo, qhi, kvlo, kvhi = tp_heads(cfg)
-    q = _heads_tp(x, params["wq"], params.get("bq"), qlo, qhi, compute_dtype)
-    k = _heads_tp(x, params["wk"], params.get("bk"), kvlo, kvhi, compute_dtype)
-    v = _heads_tp(x, params["wv"], params.get("bv"), kvlo, kvhi, compute_dtype)
+    xm = layers.column_input(x, params["wq"], params["wk"], params["wv"])
+    q = _heads_tp(x, params["wq"], params.get("bq"), qlo, qhi, compute_dtype, xm)
+    k = _heads_tp(x, params["wk"], params.get("bk"), kvlo, kvhi, compute_dtype, xm)
+    v = _heads_tp(x, params["wv"], params.get("bv"), kvlo, kvhi, compute_dtype, xm)
     if cfg.qk_norm:
-        q = _headwise_rms(q, tp.whole(params["qnorm"]).float())
-        k = _headwise_rms(k, tp.whole(params["knorm"]).float())
+        q = _headwise_rms(q, _norm_scale(params["qnorm"], qhi - qlo < cfg.n_heads))
+        k = _headwise_rms(k, _norm_scale(params["knorm"], kvhi - kvlo < cfg.n_kv_heads))
     q = layers.apply_rope(q, positions, cfg.rope_base, cfg.rotary_dim)
     k = layers.apply_rope(k, positions, cfg.rope_base, cfg.rotary_dim)
     return q, k, v
@@ -450,6 +470,9 @@ def mla_attention(params, cfg: MLAConfig, x: torch.Tensor, positions: torch.Tens
     b, s, _ = x.shape
     dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
     q, c_kv, k_pe = _mla_latents(params, cfg, x, compute_dtype)
+    if mla_heads(cfg) != (0, cfg.n_heads):
+        # the whole latents enter the rank's heads only
+        c_kv, k_pe = tp.copy_in(c_kv), tp.copy_in(k_pe)
     h = q.shape[-2]
     q_pe = layers.apply_rope(q[..., dn:], positions, cfg.rope_base)
     k_pe = layers.apply_rope(k_pe[:, :, None, :], positions, cfg.rope_base)

@@ -18,14 +18,16 @@ symmetric ``padding=`` would differ; the pads are applied with ``F.pad``.
 Inside a tensor-parallel group (``distributed.constraints.tp_group``) the
 LM layers take their rank's cut of each leaf, by where it was cut
 (``tp_dim``): ``dense`` and the MLP blocks are column-parallel on a weight
-cut along its output dim and row-parallel, ending in ``reduce_partial``, on
-one cut along its input dim; the embedding is a masked lookup plus
-``reduce_partial`` on a vocab-cut table and a lookup plus ``gather_last``
-on an embed-cut one (the fallback); ``logits`` end in ``gather_last``; a
-cut norm scale or bias is made whole.  The activations between layers are
-whole on every rank; ``groupnorm`` and the causal conv, channel-wise,
-run on the rank's channels inside a block.  Outside a group the same code
-runs on whole leaves: no cut is taken and no collective is made.
+cut along its output dim (the whole input passes ``copy_in``, once for the
+gate and up projections that share it, so its gradient is summed over the
+ranks) and row-parallel, ending in ``reduce_partial``, on one cut along its
+input dim; the embedding is a masked lookup plus ``reduce_partial`` on a
+vocab-cut table and a lookup plus ``gather_last`` on an embed-cut one (the
+fallback); ``logits`` end in ``gather_last``; a cut norm scale or bias is
+made whole.  The activations between layers are whole on every rank;
+``groupnorm`` and the causal conv, channel-wise, run on the rank's channels
+inside a block.  Outside a group the same code runs on whole leaves: no cut
+is taken and no collective is made.
 """
 
 from __future__ import annotations
@@ -62,21 +64,36 @@ def _bias(params, y: torch.Tensor, local: bool, compute_dtype) -> torch.Tensor:
     return y + b.to(compute_dtype)
 
 
-def _dense_out(params, x: torch.Tensor, compute_dtype):
+def _dense_out(params, x: torch.Tensor, compute_dtype, xm: torch.Tensor | None = None):
     """A dense on a whole ``x``: (y, whether y's last dim is this rank's
-    cut; never outside a group).  Column-parallel on a weight cut along its output dim; a
-    weight cut along its input dim takes the rank's slice of ``x`` and
-    reduces the partial product."""
+    cut; never outside a group).  Column-parallel on a weight cut along its
+    output dim, on ``xm`` (``x`` in the compute dtype through ``copy_in``,
+    which a caller shares between projections, ``column_input``; made here
+    where None); a weight cut along its input dim takes the rank's slice of
+    ``x`` and reduces the partial product."""
     w = params["w"]
     dim = tp.model_dim(w)
     if dim == 1:
-        y = x.to(compute_dtype) @ w.to(compute_dtype)
+        if xm is None:
+            xm = tp.copy_in(x.to(compute_dtype))
+        y = xm @ w.to(compute_dtype)
         return _bias(params, y, True, compute_dtype), True
     if dim == 0:
         y = tp.reduce_partial(tp.take_local(x, -1).to(compute_dtype) @ w.to(compute_dtype))
     else:
         y = x.to(compute_dtype) @ w.to(compute_dtype)
     return _bias(params, y, False, compute_dtype), False
+
+
+def column_input(x: torch.Tensor, *ws) -> torch.Tensor | None:
+    """A whole ``x`` through ``copy_in`` once, as the input the products
+    with the weights ``ws`` share where one is cut along an output dim (any
+    but its first, the input dim), so the backward sums its gradient over
+    the ranks in one collective; else None.  The projections take it as
+    ``xm`` (``_dense_out``, ``attention._heads_tp``)."""
+    if any(tp.model_dim(w) not in (None, 0) for w in ws):
+        return tp.copy_in(x)
+    return None
 
 
 def _dense_in(params, x: torch.Tensor, x_local: bool, compute_dtype) -> torch.Tensor:
@@ -123,7 +140,7 @@ def logits(params, x: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tenso
     table = params["table"]
     dim = tp.model_dim(table)
     if dim == 0:
-        return tp.gather_last(x.to(compute_dtype) @ table.to(compute_dtype).T)
+        return tp.gather_last(tp.copy_in(x.to(compute_dtype)) @ table.to(compute_dtype).T)
     if dim == 1:
         return tp.reduce_partial(
             tp.take_local(x, -1).to(compute_dtype) @ table.to(compute_dtype).T)
@@ -224,8 +241,9 @@ def glu_mlp_spec(d_model: int, d_ff: int, dtype=torch.float32):
 
 
 def glu_mlp(params, x: torch.Tensor, act=swiglu, compute_dtype=torch.bfloat16) -> torch.Tensor:
-    g, local = _dense_out(params["gate"], x, compute_dtype)
-    u, _ = _dense_out(params["up"], x, compute_dtype)
+    xm = column_input(x.to(compute_dtype), params["gate"]["w"], params["up"]["w"])
+    g, local = _dense_out(params["gate"], x, compute_dtype, xm)
+    u, _ = _dense_out(params["up"], x, compute_dtype, xm)
     return _dense_in(params["down"], act(g, u), local, compute_dtype)
 
 

@@ -21,7 +21,10 @@ reduces.  Inside a tensor-parallel group (``distributed.constraints``)
 ``moe_block`` takes the rank's experts from the rules (experts over the
 ``model`` axis, ``TP_RULES["experts"]``), routes on the whole router,
 and ends in ``reduce_partial``; each pair keeps the queue position it has
-on one device, so the same pairs are dropped.  ``MoEConfig.ep_constraint``
+on one device, so the same pairs are dropped.  Under grad the whole
+tokens and routing weights that enter the rank's experts (and the router's
+cut columns) pass ``copy_in``, so their gradients are summed over the
+ranks before they meet the whole routing.  ``MoEConfig.ep_constraint``
 is the reference's GSPMD hint on the expert buffers: the identity outside
 a group, as ``maybe_constrain`` is, and inside one too, where each rank's
 buffers hold only its experts already.
@@ -75,7 +78,7 @@ def route(params, cfg: MoEConfig, x: torch.Tensor):
     logits, made whole, so every rank routes on the same bits."""
     router = params["router"]
     if tp.model_dim(router) == 1:
-        logits = tp.gather_last(x.float() @ router.float())
+        logits = tp.gather_last(tp.copy_in(x.float()) @ router.float())
     else:
         logits = x.float() @ router.float()
     probs = torch.softmax(logits, dim=-1)
@@ -172,7 +175,9 @@ def moe_gather(params, cfg: MoEConfig, x: torch.Tensor, compute_dtype=torch.bflo
     keep = local & (pos < cap)
     slot = torch.where(keep, (flat - lo) * cap + pos, n_local * cap)
     token_of = torch.arange(t * k, device=x.device) // k
-    xc = x.to(compute_dtype)
+    # in a group the tokens and weights below feed only the rank's experts
+    xc = tp.copy_in(x.to(compute_dtype))
+    w = tp.copy_in(w)
     xe = torch.zeros((n_local * cap + 1, d), dtype=compute_dtype, device=x.device)
     xe[slot] = xc[token_of]
     gate_w, up_w, down_w = (params[name] if params[name].shape[0] == n_local

@@ -41,10 +41,13 @@ the rank's heads or channels, by the cuts the rules give its leaves:
 - the channel mix: ``wk`` cut on ``mlp``, ``wv`` row-parallel;
 - the RG-LRU on the rank's channels (its input is a column-parallel
   projection's output): ``wa`` / ``wx``, cut on their input dim, are
-  row-parallel, reduced in one collective and taken on the rank's
-  channels.  That reduce carries every channel's gate pre-activations, of
-  which the rank keeps its half at tp 2: a reduce-scatter would move half
-  the bytes, and ``constraints`` has none yet (``PERF.md`` §7).
+  row-parallel, their partial products reduce-scattered in one collective
+  onto the rank's channels (``constraints.reduce_scatter``: the rank
+  receives its share of the gate pre-activations only).
+
+Under grad a whole tensor entering the rank's heads passes ``copy_in``
+(the decay LoRA's output into ``decay_b``'s cut), as the column-parallel
+projections' inputs do in ``layers._dense_out``.
 
 Outside a group the same code runs on whole leaves, with no collective.
 """
@@ -162,9 +165,11 @@ def timemix_project(params, cfg: RWKV6Config, x: torch.Tensor,
     k, _ = layers._dense_out({"w": params["wk"]}, xk, cd)
     v, _ = layers._dense_out({"w": params["wv"]}, xv, cd)
     g = F.silu(layers._dense_out({"w": params["wg"]}, xg, cd)[0])
-    dlora = torch.tanh(layers.dense({"w": params["decay_a"]}, xw, cd))
+    dlora = torch.tanh(layers.dense({"w": params["decay_a"]}, xw, cd)).float()
+    if timemix_heads(cfg) != cfg.n_heads:
+        dlora = tp.copy_in(dlora)   # whole, into the rank's heads
     logw = -torch.exp(_on_heads(params["w0"], cfg).float()
-                      + dlora.float() @ _on_heads(params["decay_b"], cfg).float())
+                      + dlora @ _on_heads(params["decay_b"], cfg).float())
     return r, k, v, g, logw    # log w strictly negative
 
 
@@ -334,18 +339,17 @@ def _rglru_gates(params, cfg: RGLRUConfig, x: torch.Tensor):
     """(a, b) of h_t = a_t h_{t-1} + b_t, both f32.  In a group ``x`` holds
     the rank's channels (``local``) or all: ``wa`` / ``wx`` cut on their
     input dim (the rules' fallback) are row-parallel, both partial products
-    reduced in one collective, whole on every rank, then taken on the
-    rank's channels; uncut, they multiply whole channels."""
+    reduce-scattered onto the rank's channels in one collective (reduced
+    whole where ``x`` is whole); uncut, they multiply whole channels."""
     xf = x.float()
     local = xf.shape[-1] != cfg.width
     wa, wx = params["wa"], params["wx"]
     if tp.model_dim(wa) == 0:       # wx is cut alike: the same axes and shape
         xs = xf if local else tp.take_local(xf, -1)
-        pa, px = tp.reduce_partial(torch.stack([xs @ wa.float(), xs @ wx.float()]))
+        parts = torch.stack([xs @ wa.float(), xs @ wx.float()])
+        pa, px = tp.reduce_scatter(parts, -1) if local else tp.reduce_partial(parts)
     else:
         pa, px = xf @ wa.float(), xf @ wx.float()
-    if local:
-        pa, px = tp.take_local(pa, -1), tp.take_local(px, -1)
 
     def vec(name):
         return (tp.local(params[name]) if local else tp.whole(params[name])).float()

@@ -9,8 +9,9 @@ records the device's kernel ``LoweringPlan`` (``serve.deploy``),
 golden-trace record/replay (``serve.trace``), the overload control plane
 (``serve.control`` / ``serve.slo``) and the simulated engine of the
 control-plane soak (``serve.sim``).  Exported under the reference's names.
-The slot-pool LM ``Engine`` (``serve.engine``) serves on its own; the front
-door's LM traffic class waits for ROADMAP Queue 1 #4.
+The slot-pool LM ``Engine`` (``serve.engine``) serves on its own and
+behind the front door, as its ``lm`` traffic class
+(``serve.runtime.TRAFFIC_CLASSES``).
 """
 
 from repro_torch.serve.control import (ClassQueues, ControlConfig,

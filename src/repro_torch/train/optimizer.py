@@ -10,6 +10,19 @@ A leaf the loss does not reach (BN running stats under ``train=True``) has
 no gradient in torch, where JAX gives zeros: a ``None`` grad is taken as
 zeros, so the norm, the decay and the moments are the reference's.
 ``value_and_grad`` takes the gradients of a loss in that form.
+
+Inside a tensor-parallel group (``distributed.constraints``) the step runs
+on each rank's cut: a cut leaf's gradient is its slice of the single
+device's (the combines' backward), its moments are cut like it, and
+AdamW's elementwise arithmetic on the cut is the whole's on that slice.
+Two things cross the ranks, each in one collective a step: the global
+norm (each cut leaf's sum of squares summed over the ranks, each
+replicated leaf counted once, so every rank clips by the same bits) and,
+after the update, the wholes the layers read beside a cut (``tp_whole``,
+``sharding_rules.reads_whole``), gathered exactly from the updated cuts
+(``constraints.wholes``) so each is again the whole of its leaf.  8-bit
+moments block a cut leaf unlike its whole and are refused over a live
+group (ROADMAP Queue 1 #5); the dry-run's group-less context traces them.
 """
 
 from __future__ import annotations
@@ -20,6 +33,7 @@ import math
 import torch
 
 from repro_torch.common.tree import tree_leaves, tree_map
+from repro_torch.distributed import constraints as tp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,8 +89,20 @@ def _dq8(q: torch.Tensor, scale: torch.Tensor, shape, size: int) -> torch.Tensor
     return (q.float() * scale).reshape(-1)[:size].reshape(shape)
 
 
+def _refuse_quantized_in_a_world(cfg: AdamWConfig) -> None:
+    ctx = tp.current()
+    if cfg.quantized_state and ctx is not None and ctx.group is not None and ctx.size > 1:
+        raise NotImplementedError(
+            "8-bit moments (AdamWConfig.quantized_state) over a tensor-parallel world: "
+            "a cut leaf's quantisation blocks are not its whole's; they wait for "
+            "ROADMAP Queue 1 #5")
+
+
 def init_state(params, cfg: AdamWConfig):
-    """Zero moments for every leaf, on its device, and ``step`` 0 (int32)."""
+    """Zero moments for every leaf, on its device, and ``step`` 0 (int32);
+    in a group each moment is cut like its leaf (it has the cut's
+    shape)."""
+    _refuse_quantized_in_a_world(cfg)
     def zero_like(p):
         if cfg.quantized_state:
             n_blocks = -(-p.numel() // cfg.qblock)
@@ -114,10 +140,25 @@ def state_shapes(param_shapes, cfg: AdamWConfig):
     return {"mu": tree_map(shape_like, param_shapes), "step": meta((), torch.int32)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every (non-None) leaf, in f32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_leaves(tree) if x is not None))
+def global_norm(tree, params=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every (non-None) leaf, in f32.  In a
+    tensor-parallel group, with ``params`` (the tree ``tree`` is the
+    gradient of: its leaves say which are cut), the cut leaves' sum is
+    summed over the ranks in one collective and the replicated leaves'
+    added once."""
+    leaves = tree_leaves(tree)
+    if tp.current() is None or params is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in leaves if x is not None))
+    cut = torch.zeros((), dtype=torch.float32, device=tree_leaves(params)[0].device)
+    rep = torch.zeros_like(cut)
+    for x, p in zip(leaves, tree_leaves(params)):
+        if x is not None:
+            if tp.model_dim(p) is None:
+                rep = rep + torch.sum(torch.square(x.float()))
+            else:
+                cut = cut + torch.sum(torch.square(x.float()))
+    return torch.sqrt(tp.sum_over_ranks(cut, "global_norm") + rep)
 
 
 def apply_updates(params, grads, state, cfg: AdamWConfig, donate: bool = False):
@@ -133,9 +174,10 @@ def apply_updates(params, grads, state, cfg: AdamWConfig, donate: bool = False):
     place of a second copy of the parameters and moments.  The values are
     the same bit for bit: each leaf is updated as in the functional step,
     then copied back."""
-    with torch.no_grad():
+    _refuse_quantized_in_a_world(cfg)
+    with torch.no_grad(), tp.phase("optimizer"):
         step = state["step"] + 1
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, params)
         clip = torch.clamp(_f32(cfg.grad_clip, gnorm) / torch.clamp(gnorm, min=1e-12),
                            max=1.0)
         lr = schedule(cfg, state["step"])
@@ -172,9 +214,27 @@ def apply_updates(params, grads, state, cfg: AdamWConfig, donate: bool = False):
 
         # at each parameter leaf: its grad (or None) and its moment dict
         out = tree_map(upd_in_place if donate else upd, params, grads, state["mu"])
-    new_params = tree_map(lambda _, o: o[0], params, out)
+        new_params = tree_map(lambda _, o: o[0], params, out)
+        if tp.current() is not None:
+            _keep_cuts(tree_leaves(params), tree_leaves(new_params))
     new_mu = tree_map(lambda _, o: o[1], params, out)
     return new_params, {"mu": new_mu, "step": step}, {"grad_norm": gnorm, "lr": lr}
+
+
+def _keep_cuts(old: list, new: list) -> None:
+    """The record of each updated cut leaf (``tp_dim``) and its whole
+    (``tp_whole``), gathered from the updated cuts in one collective a
+    dtype (into the old whole where the step donates)."""
+    kept = [(p, q) for p, q in zip(old, new) if hasattr(p, "tp_whole")]
+    for p, q in zip(old, new):
+        if q is not p and hasattr(p, "tp_dim"):
+            q.tp_dim = p.tp_dim
+    fresh = tp.wholes([q for _, q in kept])
+    for (p, q), w in zip(kept, fresh):
+        if q is p:
+            p.tp_whole.copy_(w)
+        else:
+            q.tp_whole = w
 
 
 def _unflatten(structure, leaves: list):
@@ -197,13 +257,18 @@ def value_and_grad(fn, has_aux: bool = False):
     returns ``g(params, *args) -> (value, grads)`` (``((value, aux),
     grads)`` with ``has_aux``), the value and grads detached.  A float
     leaf the value does not reach gets ``None``; ``apply_updates`` takes
-    it as zeros."""
+    it as zeros.  In a tensor-parallel group each cut leaf's gradient is
+    its slice of the single device's, each replicated leaf's the whole
+    one, the same bits on every rank."""
     def g(params, *args, **kwargs):
         leaves = [_leaf(p) for p in tree_leaves(params)]
         out = fn(_unflatten(params, leaves), *args, **kwargs)
         value = out[0] if has_aux else out
         wrt = [p for p in leaves if p.requires_grad]
-        got = iter(torch.autograd.grad(value, wrt, allow_unused=True))
+        # in a group the backward runs the combines' transposes (and remat's
+        # replay of the forward's) under the context still open here
+        with tp.phase("backward"):
+            got = iter(torch.autograd.grad(value, wrt, allow_unused=True))
         grads = _unflatten(params, [next(got) if p.requires_grad else None
                                     for p in leaves])
         if has_aux:

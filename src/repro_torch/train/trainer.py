@@ -65,6 +65,17 @@ class FailureInjector:
             raise RuntimeError(f"injected node failure at step {step}")
 
 
+def _own(t: torch.Tensor, device) -> torch.Tensor:
+    """A copy of ``t`` on ``device``, with the record of a tensor-parallel
+    cut (``tp_dim``, and a copy of its ``tp_whole``) the layers read."""
+    out = t.detach().to(device, copy=True)
+    if hasattr(t, "tp_dim"):
+        out.tp_dim = t.tp_dim
+    if hasattr(t, "tp_whole"):
+        out.tp_whole = t.tp_whole.detach().to(device, copy=True)
+    return out
+
+
 def _add(a, b):
     return None if a is None else a + b
 
@@ -97,7 +108,8 @@ def train_step(loss_fn: Callable, params, opt_state, batches, ocfg: opt_mod.Adam
 class Trainer:
     """``loss_fn(params, batch)`` trained on ``loader``'s batches on
     ``device`` (None = ``"cuda"``).  ``params`` are copied there, and the
-    copy is updated in place."""
+    copy is updated in place.  A rank of a tensor-parallel world trains its
+    cut under its group (``distributed.world.TPTrainer``)."""
 
     def __init__(self, loss_fn: Callable, params: Any, tcfg: TrainerConfig,
                  ocfg: opt_mod.AdamWConfig, loader: SyntheticTokens,
@@ -110,7 +122,7 @@ class Trainer:
         self.loader = loader
         self.injector = injector
         self.straggler_log = straggler_log if straggler_log is not None else []
-        self.params = tree_map(lambda t: t.detach().to(self.device, copy=True), params)
+        self.params = tree_map(lambda t: _own(t, self.device), params)
         self.opt_state = opt_mod.init_state(self.params, ocfg)
         self.step = 0
         self.metrics_history: list[dict] = []

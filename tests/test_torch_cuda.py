@@ -1139,6 +1139,89 @@ def test_tensor_parallel_vlm_and_encdec_on_the_card(gen):
         model.close()
 
 
+def test_tensor_parallel_training_on_the_card(gen, tmp_path):
+    """One tp-2 training step on two ranks of one card (``TPTrainer``) at
+    f32 compute and smoke width, against the single device's on the card:
+    the loss within 1e-5 relative, each leaf's gradient (the ranks' cuts
+    put together) within 1e-4 of its max |g|, none missing, the parameters
+    after the AdamW step within 2 lr (a sanity bound: a first step moves
+    each element by about lr), the ranks' norms and kept wholes the same
+    bits, flash_attn once per layer a forward on each rank; the world's
+    optimizer fed the single device's gradients of three steps, within
+    1e-2 lr of the single device's ``apply_updates`` fed the same; then
+    ``TPTrainer.run`` of two steps, whose whole checkpoint one device's
+    ``Trainer`` restores."""
+    import dataclasses
+
+    import _torch_tp_ranks as ranks
+    import numpy as np
+
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.configs import base as cb
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import TokenPipelineConfig
+    from repro_torch.distributed import world
+    from repro_torch.nn import init as nninit
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    arch = get_arch("llama3.2-3b")
+    cfg = dataclasses.replace(arch.make_smoke(), compute_dtype=torch.float32)
+    ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    key = torch.Generator("cuda").manual_seed(5)
+    seeded = world.SeededParams.of(key)
+    params = nninit.materialize(cb.model_spec(arch, cfg), key)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16))) for k in ("tokens", "targets")}
+    loss_fn = cb.loss_fn(arch, cfg)
+    loss, grads = opt.value_and_grad(loss_fn)(params, {k: v.cuda() for k, v in batch.items()})
+    stepped, state, m = opt.apply_updates(params, grads, opt.init_state(params, ocfg), ocfg)
+    fed, fed_norms, p_k = [grads], [float(m["grad_norm"])], stepped
+    for _ in range(2):
+        fed.append(opt.value_and_grad(loss_fn)(p_k, {k: v.cuda() for k, v in batch.items()})[1])
+        p_k, state, m = opt.apply_updates(p_k, fed[-1], state, ocfg)
+        fed_norms.append(float(m["grad_norm"]))
+    tcfg = TrainerConfig(total_steps=2, ckpt_every=2, ckpt_dir=str(tmp_path))
+    data = TokenPipelineConfig(vocab_size=cfg.vocab, seq_len=16, global_batch=2, seed=1)
+    trainer = world.tp_trainer("llama3.2-3b", cfg, seeded, 2, ("cuda:0", "cuda:0"), tcfg, ocfg,
+                               data)
+    try:
+        got_fed = trainer.on_every_rank(
+            ranks.fed_updates, [[g.cpu() for g in tree_leaves(t)] for t in fed])
+        got_fed = [got_fed[0], *got_fed[1]]
+        trainer.world.reset_launches()
+        mine, theirs = trainer.on_every_rank(ranks.grads_then_step, batch)
+        assert [c["flash_attn"] for c in trainer.world.launches()] == [2 * cfg.n_layers] * 2
+        every = [mine, *theirs]
+        for r in every:
+            assert abs(r["loss"] - float(loss)) <= 1e-5 * abs(float(loss))
+            assert r["grad_norm"] == mine["grad_norm"] and r["digests"] == mine["digests"]
+            assert r["slices"]
+        for i, (g, p) in enumerate(zip(tree_leaves(grads), tree_leaves(stepped))):
+            dim = mine["dims"][i]
+            cuts = [r["grads"][i] for r in every]
+            got = cuts[0] if dim is None else torch.cat(cuts, dim)
+            assert float((got - g.cpu()).abs().max()) <= 1e-4 * float(g.abs().max()), i
+            cuts = [r["params"][i] for r in every]
+            got = cuts[0] if dim is None else torch.cat(cuts, dim)
+            assert float((got - p.cpu()).abs().max()) <= 2 * ocfg.lr, i
+        for r in got_fed:
+            assert r["norms"] == got_fed[0]["norms"] and r["digests"] == got_fed[0]["digests"]
+            assert r["slices"]
+        np.testing.assert_allclose(got_fed[0]["norms"], fed_norms, rtol=1e-5)
+        for i, p in enumerate(tree_leaves(p_k)):
+            dim = mine["dims"][i]
+            cuts = [r["params"][i] for r in got_fed]
+            got = cuts[0] if dim is None else torch.cat(cuts, dim)
+            assert float((got - p.cpu()).abs().max()) <= 1e-2 * ocfg.lr, i
+        losses = [m["loss"] for m in trainer.run(2)]
+        assert all(np.isfinite(losses)) and trainer.step == 2
+    finally:
+        trainer.close()
+    one = Trainer(loss_fn, params, tcfg, ocfg, None, device="cuda")
+    assert one.try_restore() and one.step == 2
+
+
 def test_compression_quantize_rounds_like_the_cpu(gen):
     """``compression.quantize`` divides by a 0-d tensor, so the card rounds
     ``g / scale`` as the CPU does, ties included: payloads and scales

@@ -224,6 +224,32 @@ def test_run_cell_without_a_tensor_parallel_path(tmp_path):
     assert skip["status"] == "skip"
 
 
+def test_train_cell_counts_the_backward_collectives():
+    """llama3.2-3b's training cell records its backward's tensor-parallel
+    collectives (the column-parallel inputs' gradient sums, the gathers of
+    narrowed tensors' gradients) and the optimizer's global norm beside
+    the forward's: more tensor-parallel all-reduces than the same arch's
+    prefill cell, and its note names the backward."""
+    mesh = make_production_mesh()
+    train = dryrun.measure_cell("llama3.2-3b", SHAPES["train_4k"], mesh)
+    prefill = dryrun.measure_cell("llama3.2-3b", ShapeSpec("prefill_4k", "prefill", 4096, 32),
+                                  mesh)
+
+    def tp_all_reduces(m):
+        return sum(v["count"] for ops in m["collective_phases"].values()
+                   for op, v in ops.items() if rl.PORT_KINDS[op] == "all-reduce")
+
+    phases = train["collective_phases"]
+    assert phases["backward"]["copy_in"]["count"] > 0
+    assert phases["backward"]["take_local"]["count"] > 0
+    assert phases["optimizer"]["global_norm"]["count"] == 1
+    assert phases["forward"]["reduce_partial"]["count"] == \
+        prefill["collective_phases"]["forward"]["reduce_partial"]["count"]
+    assert tp_all_reduces(train) > tp_all_reduces(prefill) > 0
+    assert "backward" in train["collective_note"]
+    assert "backward" not in prefill["collective_note"]
+
+
 # -- roofline and memplan ----------------------------------------------------------------
 
 
